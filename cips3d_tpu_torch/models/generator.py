@@ -1,0 +1,240 @@
+"""Full NeRF+INR generator: counterpart of `cips3d_tpu/models/generator.py`.
+
+Dual latents (z_nerf, z_inr) → two mapping networks → style dict; camera
+and rays → the NeRF stage (coarse SIREN → hierarchical resample → fine
+SIREN → compositing) → 32-dim feature per pixel → CIPS INR decode, plus
+the aux RGB head.
+
+Ported for the serving render: the NeRF stage always runs through
+`ops/ray_tile.py` (hierarchical sampling only; the unfused volume path of
+`core/volume.py` is not ported yet) and the INR decode through
+`ops/inr_tile.py`; both run their kernel on CUDA tensors.  Forward only.  Randomness comes from explicit `torch.Generator`s or as
+injected draws.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Mapping, Optional
+
+import torch
+from torch import nn
+
+from cips3d_tpu_torch.core import rays as rays_lib
+from cips3d_tpu_torch.models import init as winit
+from cips3d_tpu_torch.models.cips_net import CIPS_RESOLUTIONS, CIPSNet
+from cips3d_tpu_torch.models.layers import TorchLinear
+from cips3d_tpu_torch.models.mapping import MultiHeadMappingNetwork
+from cips3d_tpu_torch.models.nerf_net import NeRFNetwork
+from cips3d_tpu_torch.ops.inr_tile import fused_inr_decode
+from cips3d_tpu_torch.ops.ray_tile import RayDraws, fused_ray_render
+
+
+@dataclasses.dataclass(frozen=True)
+class GeneratorConfig:
+    """Architecture hyperparameters; defaults reproduce the FFHQ flagship,
+    as in the JAX package.  The port always renders through the ray-tile
+    and INR-tile kernels, so the JAX package's ``fused_ray`` and
+    ``fused_inr`` switches have no counterpart here; they and the
+    training-only fields (``freeze_nerf``, ``fused_ray_vjp``) come with
+    the unfused and training paths."""
+
+    z_dim_nerf: int = 256
+    z_dim_inr: int = 512
+    nerf_hidden_dim: int = 128
+    nerf_hidden_layers: int = 2
+    nerf_rgb_dim: int = 32
+    nerf_style_dim: int = 128
+    nerf_mapping_layers: int = 4
+    inr_hidden_dim: int = 512
+    inr_style_dim: int = 512
+    inr_mapping_layers: int = 8
+    inr_pre_rgb_dim: int = 3
+    fast_sin: bool = False
+
+    def __post_init__(self):
+        if self.nerf_hidden_layers < 1:
+            raise ValueError("the ray-tile kernel needs nerf_hidden_layers >= 1; got "
+                             f"nerf_hidden_layers={self.nerf_hidden_layers}.")
+        if self.inr_pre_rgb_dim != 3:
+            raise ValueError("the INR-tile kernel needs inr_pre_rgb_dim == 3; got "
+                             f"inr_pre_rgb_dim={self.inr_pre_rgb_dim}.")
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderOptions:
+    """Camera + volume-rendering options (reference ``G_kwargs``)."""
+
+    img_size: int = 64
+    fov: float = 12.0
+    ray_start: float = 0.88
+    ray_end: float = 1.12
+    num_steps: int = 12
+    h_stddev: float = 0.3
+    v_stddev: float = 0.155
+    h_mean: float = math.pi * 0.5
+    v_mean: float = math.pi * 0.5
+    hierarchical_sample: bool = True
+    sample_dist: str = "gaussian"
+    lock_view_dependence: bool = False
+    clamp_mode: str = "relu"
+    white_back: bool = False
+    last_back: bool = False
+    nerf_noise: float = 0.0
+    psi: float = 1.0
+
+
+class GeneratorNerfINR(nn.Module):
+    """The flagship generator, with the reference's state-dict layout
+    (``siren``, ``mapping_network_nerf``, ``inr_net``,
+    ``mapping_network_inr``, ``aux_to_rbg``)."""
+
+    def __init__(self, cfg: GeneratorConfig = GeneratorConfig(), dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        c = cfg
+        self.cfg = cfg
+        self.dtype = dtype
+        g = generator
+        self.siren = NeRFNetwork(hidden_dim=c.nerf_hidden_dim, hidden_layers=c.nerf_hidden_layers,
+                                 rgb_dim=c.nerf_rgb_dim, style_dim=c.nerf_style_dim,
+                                 fast_sin=c.fast_sin, generator=g, dtype=dtype)
+        nerf_heads = {f"nerf_w{i}": c.nerf_style_dim for i in range(c.nerf_hidden_layers)}
+        nerf_heads["nerf_rgb"] = c.nerf_style_dim
+        self.mapping_network_nerf = MultiHeadMappingNetwork(
+            c.z_dim_nerf, c.nerf_style_dim, c.nerf_mapping_layers, nerf_heads,
+            generator=g, dtype=dtype)
+        self.inr_net = CIPSNet(input_dim=c.nerf_rgb_dim, hidden_dim=c.inr_hidden_dim,
+                               style_dim=c.inr_style_dim, pre_rgb_dim=c.inr_pre_rgb_dim,
+                               generator=g, dtype=dtype)
+        inr_heads = {}
+        for res in CIPS_RESOLUTIONS:
+            inr_heads[f"inr_w{res}_0"] = c.inr_style_dim
+            inr_heads[f"inr_w{res}_1"] = c.inr_style_dim
+        self.mapping_network_inr = MultiHeadMappingNetwork(
+            c.z_dim_inr, c.inr_style_dim, c.inr_mapping_layers, inr_heads,
+            add_norm=True, norm_out=True, generator=g, dtype=dtype)
+        # aux branch: Linear(rgb_dim → 3, frequency_init(25)) + tanh ("rbg" is the reference's)
+        self.aux_to_rbg = nn.Sequential(TorchLinear(
+            c.nerf_rgb_dim, 3, kernel_init=winit.frequency_kernel(25.0), generator=g,
+            dtype=dtype))
+
+    # ------------------------------------------------------------------ #
+
+    def mapping(self, z_nerf: torch.Tensor, z_inr: torch.Tensor) -> Dict[str, torch.Tensor]:
+        style_dict = dict(self.mapping_network_nerf(z_nerf))
+        style_dict.update(self.mapping_network_inr(z_inr))
+        return style_dict
+
+    @torch.no_grad()
+    def points_forward(self, style_dict: Mapping[str, torch.Tensor],
+                       world: rays_lib.WorldRays, opts: RenderOptions,
+                       generator: Optional[torch.Generator] = None,
+                       draws: Optional[RayDraws] = None, return_depth: bool = False):
+        """Coarse→fine NeRF + INR decode for a set of rays.
+
+        Returns (inr_img (b, n, 3), aux_img (b, n, 3)) and, with
+        ``return_depth``, the expected ray depth (b, n, 1).  The ray-tile
+        draws come from ``draws`` or ``generator``."""
+        if not opts.hierarchical_sample:
+            raise NotImplementedError(
+                "the port renders the NeRF stage through the ray-tile kernel only: it needs "
+                "opts.hierarchical_sample (core/volume.py is not ported)")
+        fea, depth = fused_ray_render(
+            self.siren, style_dict, world.points, world.origins, world.dirs, world.z_vals,
+            draws=draws, generator=generator, noise_std=float(opts.nerf_noise),
+            clamp_mode=opts.clamp_mode, white_back=opts.white_back,
+            last_back=opts.last_back, dtype=self.dtype, fast_sin=self.cfg.fast_sin)
+        return self._decode_pixels(fea, depth, style_dict, return_depth)
+
+    def _decode_pixels(self, pixels_fea, pixels_depth, style_dict, return_depth):
+        """INR decode (all nine blocks, as the reference's render path) and
+        the aux head on composited ray features."""
+        inr_img = fused_inr_decode(self.inr_net, style_dict, pixels_fea, dtype=self.dtype)
+        aux_img = torch.tanh(self.aux_to_rbg(pixels_fea))
+        if return_depth:
+            return inr_img, aux_img, pixels_depth
+        return inr_img, aux_img
+
+    def sample_world(self, batch_size: int, opts: RenderOptions,
+                     generator: Optional[torch.Generator] = None, camera_pos=None,
+                     camera_lookup=None, up_vector=None, perturb_uniform=None,
+                     camera_draws=None) -> rays_lib.WorldRays:
+        return rays_lib.get_world_points_and_direction(
+            batch_size, opts.num_steps, opts.img_size, opts.fov, opts.ray_start,
+            opts.ray_end, opts.h_stddev, opts.v_stddev, opts.h_mean, opts.v_mean,
+            opts.sample_dist, opts.lock_view_dependence, camera_pos, camera_lookup,
+            up_vector, generator, self.device, perturb_uniform, camera_draws)
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    @torch.no_grad()
+    def forward(self, zs: Mapping[str, torch.Tensor], opts: RenderOptions,
+                generator: Optional[torch.Generator] = None, return_aux_img: bool = False,
+                avg_styles: Optional[Mapping[str, torch.Tensor]] = None,
+                camera_pos=None, camera_lookup=None, up_vector=None):
+        """Generate images: (imgs (B, 3, H, W), pitch_yaw (B, 2)); B doubles
+        with ``return_aux_img``.  Truncation toward ``avg_styles`` by
+        ``opts.psi``."""
+        b = zs["z_nerf"].shape[0]
+        style_dict = self.mapping(zs["z_nerf"], zs["z_inr"])
+        if avg_styles is not None:
+            style_dict = truncate_styles(style_dict, avg_styles, opts.psi)
+        world = self.sample_world(b, opts, generator, camera_pos, camera_lookup, up_vector)
+        inr_img, aux_img = self.points_forward(style_dict, world, opts, generator)
+        h = w = opts.img_size
+        imgs = to_nchw(inr_img, h, w)
+        pitch_yaw = torch.cat([world.pitch, world.yaw], -1)
+        if return_aux_img:
+            imgs = torch.cat([imgs, to_nchw(aux_img, h, w)], 0)
+            pitch_yaw = torch.cat([pitch_yaw, pitch_yaw], 0)
+        return imgs, pitch_yaw
+
+    def forward_with_rays(self, style_dict, world: rays_lib.WorldRays, opts: RenderOptions,
+                          generator: Optional[torch.Generator] = None,
+                          draws: Optional[RayDraws] = None, return_aux_img: bool = False):
+        """Render from precomputed styles + rays."""
+        h = w = opts.img_size
+        inr_img, aux_img = self.points_forward(style_dict, world, opts, generator, draws)
+        return to_nchw(inr_img, h, w), (to_nchw(aux_img, h, w) if return_aux_img else None)
+
+
+def to_nchw(img_flat: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(b, h*w, c) → (b, c, h, w)."""
+    b, _, c = img_flat.shape
+    return img_flat.transpose(1, 2).reshape(b, c, h, w)
+
+
+def truncate_styles(style_dict, avg_styles, psi):
+    """avg + psi * (style - avg)."""
+    return {name: avg_styles[name] + psi * (style - avg_styles[name])
+            for name, style in style_dict.items()}
+
+
+def sample_zs(batch_size: int, cfg: GeneratorConfig, generator: Optional[torch.Generator] = None,
+              dist: str = "gaussian", device=None) -> Dict[str, torch.Tensor]:
+    """Draw the dual latents."""
+    if dist == "gaussian":
+        z_nerf = torch.randn((batch_size, cfg.z_dim_nerf), generator=generator, device=device)
+        z_inr = torch.randn((batch_size, cfg.z_dim_inr), generator=generator, device=device)
+    elif dist == "uniform":
+        z_nerf = torch.rand((batch_size, cfg.z_dim_nerf), generator=generator, device=device) * 2 - 1
+        z_inr = torch.rand((batch_size, cfg.z_dim_inr), generator=generator, device=device) * 2 - 1
+    else:
+        raise ValueError(dist)
+    return {"z_nerf": z_nerf, "z_inr": z_inr}
+
+
+@torch.no_grad()
+def generate_avg_styles(model: GeneratorNerfINR, num_samples: int = 10000,
+                        generator: Optional[torch.Generator] = None,
+                        zs: Optional[Mapping[str, torch.Tensor]] = None):
+    """Mean style vectors over ``num_samples`` random z draws (or over the
+    given ``zs``); used for truncation."""
+    if zs is None:
+        zs = sample_zs(num_samples, model.cfg, generator, device=model.device)
+    styles = model.mapping(zs["z_nerf"], zs["z_inr"])
+    return {name: s.mean(0, keepdim=True) for name, s in styles.items()}

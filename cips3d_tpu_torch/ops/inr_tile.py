@@ -1,0 +1,173 @@
+"""Fused CIPS-INR decoder (forward / serving path).
+
+Counterpart of `cips3d_tpu/ops/pallas/inr_tile.py`.  The modulation of
+every SinStyleMod is per batch, not per pixel:
+
+    out = lrelu( demod * ((x * s) @ W) ),   s = mod(style) + 1,
+    demod = rsqrt((s^2) @ (W^2) + eps)
+
+so ``s`` and ``demod`` are (b, dim) vectors computed outside the kernel
+(`compute_inr_mods`, 18 tiny matmuls), and the decode itself is 18 scaled
+matmuls with leaky-ReLU, the residual from block 4, ToRGB accumulation
+from block 3 and a final tanh.  Two versions of that decode:
+  * `inr_tile_plain`, CIPSNet's math in PyTorch ops on the extracted weights;
+  * `inr_tile_cuda`, the hand-written kernel of `csrc/inr_tile.cu`.
+`inr_tile` runs the plain version for CPU tensors and the kernel for CUDA
+tensors; a failed build or launch raises.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Mapping, NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from cips3d_tpu_torch.models.cips_net import CIPS_RESOLUTIONS, FIRST_RGB, FIRST_SKIP
+from cips3d_tpu_torch.ops import build
+
+MAX_WIDTH = 512    # the kernel's 8 warps x 64 channels cover hidden widths up to 512
+
+
+class InrWeights(NamedTuple):
+    """The decode's weights in (in, out) layout, all float32."""
+
+    w0: torch.Tensor      # (in0, D) first layer
+    wrest: torch.Tensor   # (2 * n_blocks - 1, D, D)
+    wr: torch.Tensor      # (n_blocks - 3, D, 3) ToRGB kernels from block 3
+    br: torch.Tensor      # (n_blocks - 3, 3)
+
+
+def num_blocks(img_size: int) -> int:
+    """Blocks run for ``img_size``: resolutions "4".."1024", 2^k -> k - 1."""
+    return min(int(math.log2(img_size)) - 1, len(CIPS_RESOLUTIONS))
+
+
+def extract_inr_weights(inr_net, n_blocks: int) -> Tuple[InrWeights, List]:
+    """Stack a `CIPSNet`'s weights for the decode; also returns the
+    per-layer modulation FCs as [(SinStyleMod, style key)] for
+    `compute_inr_mods`."""
+    w, mods = [], []
+    for i in range(n_blocks):
+        res = CIPS_RESOLUTIONS[i]
+        block = inr_net.network[res]
+        for j, stage in enumerate((block.mod1, block.mod2)):
+            w.append(stage.weight[0])
+            mods.append((stage, f"{inr_net.name_prefix}_w{res}_{j}"))
+    rgbs = [inr_net.to_rgbs[CIPS_RESOLUTIONS[i]].linear for i in range(FIRST_RGB, n_blocks)]
+    weights = InrWeights(
+        w0=w[0].float().contiguous(),
+        wrest=torch.stack(w[1:]).float().contiguous(),
+        wr=torch.stack([lin.weight.T for lin in rgbs]).float().contiguous(),
+        br=torch.stack([lin.bias for lin in rgbs]).float().contiguous(),
+    )
+    return weights, mods
+
+
+def compute_inr_mods(mods, style_dict: Mapping[str, torch.Tensor], D: int,
+                     eps: float = 1e-8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-layer (s, demod), each (b, L, D) f32.  s = mod(style) + 1,
+    zero-padded to D for the first layer; demod uses the unpadded shapes."""
+    s_rows, d_rows = [], []
+    for stage, key in mods:
+        s = (style_dict[key].float() @ stage.modulation.weight.T.float()
+             + stage.modulation.bias.float() + 1.0)
+        w = stage.weight[0].float()
+        d_rows.append(torch.rsqrt((s * s) @ (w * w) + eps))
+        s_rows.append(F.pad(s, (0, D - s.shape[1])))
+    return torch.stack(s_rows, 1).contiguous(), torch.stack(d_rows, 1).contiguous()
+
+
+def inr_tile_plain(x: torch.Tensor, s: torch.Tensor, d: torch.Tensor, weights: InrWeights,
+                   mm_dtype=torch.float32) -> torch.Tensor:
+    """Plain PyTorch version: x (b, n, in0), s/d (b, L, D) → tanh(rgb)
+    (b, n, 3) f32."""
+
+    def mm(t):  # round to the matmul-input dtype; products of the rounded values are exact in f32
+        return t.to(mm_dtype).float()
+
+    n_blocks = (weights.wrest.shape[0] + 1) // 2
+    x = x.float()
+    rgb = None
+    for blk in range(n_blocks):
+        x_orig = x
+        for j in (0, 1):
+            layer = 2 * blk + j
+            w = weights.w0 if layer == 0 else weights.wrest[layer - 1]
+            xs = mm(x * s[:, layer, None, :w.shape[0]])
+            x = F.leaky_relu((xs @ mm(w)) * d[:, layer, None, :], 0.2)
+        if blk >= FIRST_SKIP:
+            x = x + x_orig
+        if blk >= FIRST_RGB:
+            r = blk - FIRST_RGB
+            out = mm(x) @ mm(weights.wr[r]) + weights.br[r]
+            rgb = out if rgb is None else rgb + out
+    return torch.tanh(rgb)
+
+
+def inr_tile_cuda(x: torch.Tensor, s: torch.Tensor, d: torch.Tensor, weights: InrWeights,
+                  mm_dtype=torch.float32) -> torch.Tensor:
+    """The CUDA kernel (`csrc/inr_tile.cu`); same arguments and result as
+    `inr_tile_plain`.  Raises if the library cannot be built or the launch
+    fails; never falls back to the plain version."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"inr_tile_cuda needs CUDA tensors, got {dev}")
+    b, n, in0 = x.shape
+    L, D = s.shape[1], s.shape[2]
+    n_blocks = L // 2
+    if D % 64 or D > MAX_WIDTH or in0 % 16 or in0 > D or n_blocks <= FIRST_RGB:
+        raise ValueError(f"unsupported shape: D={D} (multiple of 64, <= {MAX_WIDTH}), "
+                         f"in0={in0} (multiple of 16, <= D), n_blocks={n_blocks} (> {FIRST_RGB})")
+    if mm_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"mm dtype must be float32 or bfloat16, got {mm_dtype}")
+    expect = {"x": (x, (b, n, in0)), "s": (s, (b, L, D)), "d": (d, (b, L, D)),
+              "w0": (weights.w0, (in0, D)), "wrest": (weights.wrest, (L - 1, D, D)),
+              "wr": (weights.wr, (n_blocks - FIRST_RGB, D, 3)),
+              "br": (weights.br, (n_blocks - FIRST_RGB, 3))}
+    for name, (t, shape) in expect.items():
+        if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != dev:
+            raise ValueError(f"{name}: expected float32 {shape} on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    x, s, d = x.contiguous(), s.contiguous(), d.contiguous()
+    w0 = weights.w0.to(mm_dtype).contiguous()
+    wrest = weights.wrest.to(mm_dtype).contiguous()
+    wr = weights.wr.to(mm_dtype).contiguous()
+    br = weights.br.contiguous()
+    out = torch.empty((b, n, 3), dtype=torch.float32, device=dev)
+    lib = build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.cips_inr_tile_forward(
+            x.data_ptr(), s.data_ptr(), d.data_ptr(), w0.data_ptr(), wrest.data_ptr(),
+            wr.data_ptr(), br.data_ptr(), out.data_ptr(),
+            b, n, in0, D, n_blocks, int(mm_dtype == torch.bfloat16), stream)
+    build.check(lib, err, "inr_tile")
+    inr_tile_cuda.launches += 1
+    return out
+
+
+inr_tile_cuda.launches = 0
+
+
+def inr_tile(x, *args, **kwargs):
+    """`inr_tile_plain` for CPU tensors, `inr_tile_cuda` otherwise."""
+    if x.device.type == "cpu":
+        return inr_tile_plain(x, *args, **kwargs)
+    return inr_tile_cuda(x, *args, **kwargs)
+
+
+@torch.no_grad()
+def fused_inr_decode(inr_net, style_dict: Mapping[str, torch.Tensor], x: torch.Tensor, *,
+                     img_size: int = 1024, dtype=torch.float32) -> torch.Tensor:
+    """Forward equivalent of `CIPSNet.forward` for pre_rgb_dim = 3:
+    x (b, n, in0) → tanh(rgb) (b, n, 3) in ``dtype``.  Forward only."""
+    n_blocks = num_blocks(img_size)
+    if n_blocks <= FIRST_RGB:
+        raise ValueError(f"fused_inr_decode needs >= 4 blocks (img_size >= 32); got "
+                         f"img_size={img_size} - use CIPSNet")
+    mm_dtype = torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
+    weights, mods = extract_inr_weights(inr_net, n_blocks)
+    s, d = compute_inr_mods(mods, style_dict, weights.wrest.shape[-1])
+    return inr_tile(x.float().contiguous(), s, d, weights, mm_dtype=mm_dtype).to(dtype)
