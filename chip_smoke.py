@@ -18,9 +18,26 @@ Phases, each printing one line (plus detail lines):
      that both kernels were launched by that run, and hold a small frame
      against the plain path on the CPU;
   5. median times (CUDA events) of each kernel and its plain version, and
-     frame latencies.
-The second-to-last line is a JSON summary of the kernels, the last line
-the device summary.  Any failed check raises, so the exit code is not 0.
+     frame latencies;
+  6. the training kernels at r64, b = 4, S = 12 (16384 rays), density noise
+     0 and 0.5, f32 and bf16: the ray tile with residuals against its plain
+     version (outputs and residuals), and the backward kernel in both modes
+     (residual, exact sine; recompute, polynomial sine) against the plain
+     backward and against autograd of the plain forward: weight and FiLM
+     grads by the normalised error max|a-b| / (max|b| + 1), d pts per ray,
+     two runs bit for bit, bf16 against an f32-kernel control; beside each
+     noise case a float64-resample witness;
+  7. training at the flagship's full width, r64, b = 4, aux on: 10 steps of
+     the exact-sine config (ray tile with residuals + residual backward in
+     the G phase) and of the polynomial-sine config (recompute backward);
+     losses finite, G, D and EMA move, every kernel of each path launched;
+     then one r32, b = 2 step on the card against the same step on the CPU
+     (same weights, same draws);
+  8. median step time and images/s of both configs, and the median CUDA
+     event times of the training kernels beside their plain versions.
+The second-to-last line is a JSON summary of the kernels (with each one's
+bound on the card: the larger of its multiply-adds over the 67 TFLOP/s f32
+FMA peak and its bytes over 3.35 TB/s), the last line the device summary.  Any failed check raises, so the exit code is not 0.
 Without CUDA (or without the package beside it) the script exits with an
 error before printing any result.
 """
@@ -52,6 +69,13 @@ MAX_OUTSIDE = 1e-3        # share of rays/pixels allowed outside the tolerance
 # plain version.  A kernel that skipped the rounding would be closer to f32.
 BF16_CLOSER = 2.0
 FRAME_ATOL = 1e-3         # end-to-end frame vs plain CPU path: 1/8 of an 8-bit level
+# backward: weight and FiLM grads by max|a-b| / (max|b| + 1) (tests/test_pallas_ray.py);
+# d pts per ray, any element beyond D_PTS_TOL * (max|b| + 1) puts the ray outside
+BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+D_PTS_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+STEP_TOL = dict(loss_rtol=1e-4, grad=3e-4, param=2e-2)   # card step vs CPU step, as the CPU tests
+F32_PEAK = 67e12          # FLOP/s, f32 FMA outside the tensor cores (H100 SXM data sheet)
+HBM_RATE = 3.35e12        # B/s
 
 
 def log(msg):
@@ -110,6 +134,35 @@ def check_bf16(name, kernel_bf16, plain_bf16, plain_f32, kernel_f32, tol):
         raise AssertionError(f"{name}: the checks do not tell a kernel without bf16 rounding apart")
 
 
+def grad_err(a, b):
+    """max|a - b| / (max|b| + 1) of one gradient leaf."""
+    a, b = a.detach().double(), b.detach().double()
+    return ((a - b).abs().max() / (b.abs().max() + 1)).item()
+
+
+def max_grad_err(ga, gb):
+    return max(grad_err(a, b) for a, b in zip(ga, gb))
+
+
+def rays_outside(a, b, tol):
+    """Share of rays (the first two axes) with any element beyond
+    tol * (max|b| + 1)."""
+    err = (a.detach().double() - b.detach().double()).abs()
+    bound = tol * (b.detach().double().abs().max() + 1)
+    return (err > bound).reshape(a.shape[0] * a.shape[1], -1).any(-1).double().mean().item()
+
+
+def bound_ms(flops, nbytes):
+    """The least time on the card: (ms, what bounds it)."""
+    t_ops, t_bytes = flops / F32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def siren_macs(H, L, C, R):
+    """Multiply-adds of the FiLM-SIREN per point."""
+    return 3 * H + (L - 1) * H * H + H * C + C * R + H
+
+
 def cuda_ms(fns, reps=15, warmup=2):
     """Median ms per call of each function, timed with CUDA events in turns
     (a, b, b, a) so clocks and neighbours weigh on both alike."""
@@ -132,6 +185,421 @@ def cuda_ms(fns, reps=15, warmup=2):
     return [statistics.median(t) for t in times]
 
 
+def kernel_phase(dev, log):
+    """Phase 6: the training kernels against their plain versions at r64,
+    b = 4, S = 12.  Returns the f32 max abs errors of the main-path cases."""
+    import torch
+
+    from cips3d_tpu_torch.models.generator import GeneratorConfig, GeneratorNerfINR, RenderOptions
+    from cips3d_tpu_torch.models.generator import sample_zs
+    from cips3d_tpu_torch.ops import ray_tile as rt
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    b, S, n = 4, 12, 64 * 64
+    gen = GeneratorNerfINR(GeneratorConfig(fused_ray=True),
+                           generator=torch.Generator().manual_seed(10)).to(dev)
+    g = torch.Generator(dev).manual_seed(11)
+    with torch.no_grad():
+        zs = sample_zs(b, gen.cfg, g, device=dev)
+        st = gen.mapping(zs["z_nerf"], zs["z_inr"])
+        world = gen.sample_world(b, RenderOptions(img_size=64, num_steps=S), g)
+        wt = [w.detach() for w in rt.flat_weights(gen.siren, st)]
+    errs = {}
+    log(f"phase 6 compare: training kernels, r64 b={b} S={S} ({b * n} rays), flagship widths")
+    for mode, fs in (("residual", False), ("recompute", True)):
+        for noise in (0.0, 0.5):
+            draws = rt.draw_ray_randoms(b, n, S, noise != 0, g, dev)
+            args = (wt, world.points, world.origins, world.dirs, world.z_vals[..., 0], *draws,
+                    noise)
+            d_fea = torch.randn((b, n, 32), generator=g, device=dev)
+            d_dep = torch.randn((b, n, 1), generator=g, device=dev)
+            tag = f"{mode} fast_sin={fs} noise={noise}"
+            witness = None
+            if noise:   # the plain backward with fine depths from a float64 resample
+                d64 = [t.double() for t in (world.points, world.z_vals[..., 0], draws.u, draws.nc)]
+                fz = rt.plain_fine_depths([w.double() for w in wt], *d64, noise, fast_sin=fs,
+                                          mm_dtype=torch.float64)
+                witness = rt.ray_tile_bwd_plain(*args, d_fea, d_dep, fast_sin=fs,
+                                                fine_z=fz.float())
+            out = {}
+            for mm in (f32, bf16):
+                dn = str(mm)[6:]
+                res = None
+                if mode == "residual":   # kernel #2r: outputs and residuals
+                    fa, da, res = rt.ray_tile_cuda(*args, fast_sin=fs, mm_dtype=mm,
+                                                   with_residuals=True)
+                    fb, db, rp = rt.ray_tile_plain(*args, fast_sin=fs, mm_dtype=mm,
+                                                   with_residuals=True)
+                    tol = TOL["ray_tile", dn]
+                    e, _, _ = compare(f"2r {tag} {dn} feature", fa, fb, tol)
+                    compare(f"2r {tag} {dn} depth", da, db, tol)
+                    # pre-activations reach |a| ~ 20: the tolerance's atol scaled to them
+                    rtol = dict(rtol=tol["rtol"], atol=tol["atol"] * 20)
+                    for name, x, y in zip(("rh", "ra", "rhc", "rac"), res, rp):
+                        if x.dtype != y.dtype or x.shape != y.shape:
+                            raise AssertionError(f"2r residual {name}: {x.dtype} {tuple(x.shape)}")
+                        compare(f"2r {tag} {dn} {name} (points)", x, y, rtol)
+                    if mm == f32 and noise == 0:
+                        errs["ray_tile_residuals"] = e
+                    out[mm, "fwd"] = (fa, fb)
+                ga, pa = rt.ray_tile_bwd_cuda(*args, d_fea, d_dep, residuals=res, fast_sin=fs,
+                                              mm_dtype=mm)
+                gb, pb = rt.ray_tile_bwd_plain(*args, d_fea, d_dep, residuals=res, fast_sin=fs,
+                                               mm_dtype=mm)
+                torch.cuda.synchronize()
+                out[mm] = (ga, gb)
+                ge = max_grad_err(ga, gb)
+                share = rays_outside(pa, pb, D_PTS_TOL[dn])
+                line = (f"  3 {tag} {dn}: grads normalised err {ge:.2e} (tol {BWD_TOL[dn]}); "
+                        f"d_pts rays outside {share:.2e} (bound {MAX_OUTSIDE}); max abs err "
+                        f"{max((a - b_).abs().max().item() for a, b_ in zip(ga, gb)):.3e}")
+                wit_ge = wit_share = None
+                if witness is not None and mm == f32:
+                    wit_ge = max_grad_err(witness[0], gb)
+                    wit_share = rays_outside(witness[1], pb, D_PTS_TOL[dn])
+                    line += (f"; float64-resample witness: grads {wit_ge:.2e}, d_pts rays "
+                             f"outside {wit_share:.2e}")
+                log(line)
+                if not all(torch.isfinite(t).all() for t in ga + [pa]):
+                    raise AssertionError(f"3 {tag} {dn}: non-finite grads")
+                # a miss under noise counts only if the witness does not part as well
+                if ge > BWD_TOL[dn] and not (wit_ge is not None and wit_ge >= BWD_TOL[dn]):
+                    raise AssertionError(f"3 {tag} {dn}: grads outside tolerance")
+                if share > MAX_OUTSIDE and not (wit_share is not None and wit_share >= MAX_OUTSIDE):
+                    raise AssertionError(f"3 {tag} {dn}: d_pts rays outside tolerance")
+                if mm == f32:
+                    if noise == 0:
+                        errs[f"ray_tile_bwd_{mode}"] = max(
+                            (a - b_).abs().max().item() for a, b_ in zip(ga, gb))
+                    again = rt.ray_tile_bwd_cuda(*args, d_fea, d_dep, residuals=res,
+                                                 fast_sin=fs, mm_dtype=mm)
+                    same = all(torch.equal(x, y) for x, y in zip(ga + [pa], again[0] + [again[1]]))
+                    # the plain backward against autograd through the plain forward
+                    leaves = [w.clone().requires_grad_() for w in wt]
+                    with torch.enable_grad():
+                        fea, dep = rt.ray_tile_plain(leaves, *args[1:], fast_sin=fs)
+                        auto = torch.autograd.grad((fea, dep), leaves, (d_fea, d_dep))
+                    ae = max_grad_err(gb, auto)
+                    log(f"  3 {tag} float32: two runs bitwise equal: {same}; plain backward vs "
+                        f"autograd of the plain forward {ae:.2e}; kernel vs autograd "
+                        f"{max_grad_err(ga, auto):.2e}")
+                    if not same or ae > BWD_TOL["float32"]:
+                        raise AssertionError(f"3 {tag}: not deterministic, or plain vs autograd")
+            # bf16: the f32 kernel (no rounding) is the control and must fail the bf16 tolerance
+            ctrl = max_grad_err(out[f32][0], out[bf16][1])
+            log(f"  3 {tag} bfloat16 CONTROL (f32 kernel vs bf16 plain): {ctrl:.2e}, fails "
+                f"{BWD_TOL['bfloat16']}: {ctrl > BWD_TOL['bfloat16']}")
+            if ctrl <= BWD_TOL["bfloat16"]:
+                raise AssertionError(f"3 {tag}: the bf16 tolerance does not see the rounding")
+            if mode == "residual":
+                fa32, fb32 = out[f32, "fwd"]
+                fa16, fb16 = out[bf16, "fwd"]
+                check_bf16(f"2r {tag} bfloat16 feature", fa16, fb16, fb32, fa32,
+                           TOL["ray_tile", "bfloat16"])
+    return errs
+
+
+def step_snapshot(state):
+    import torch
+
+    return [[p.detach().clone() for p in m.parameters()]
+            for m in (state.generator, state.discriminator, state.ema)]
+
+
+def profile_step(fn, state, real, rng, log, label, smi):
+    """One more step under `torch.profiler`: the device time by operation,
+    and the device's busy share of the step's host time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn(state, real, rng=rng)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(
+        e, "self_cuda_time_total", 0)
+    # the device's own events (kernels, copies, sets): an operator's device time is also
+    # credited to the host-side event that launched it, so those are not summed
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in kernels) / 1e3
+    log(f"phase 8 profile: train step {label}: {wall:.1f} ms on the host clock (profiled), "
+        f"device busy {busy:.1f} ms = {100 * busy / wall:.1f} %, idle "
+        f"{100 - 100 * busy / wall:.1f} %, {sum(e.count for e in kernels)} device events "
+        f"[{smi}]; device time by kernel:")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
+        log(f"    {dev_us(e) / 1e3:8.2f} ms {e.count:5d} x {e.key[:90]}")
+
+
+def train_run(dev, cfg_g, steps, log, label="", smi=""):
+    """Phase 7: `steps` training steps at r64, b = 4, aux on; returns (host
+    times per step in ms, launch counts); then profiles one more step."""
+    import torch
+
+    from cips3d_tpu_torch.models.discriminator import DiscriminatorMultiScaleAux
+    from cips3d_tpu_torch.models.generator import GeneratorNerfINR, RenderOptions
+    from cips3d_tpu_torch.ops import inr_tile, ray_tile
+    from cips3d_tpu_torch.train.state import TrainConfig
+    from cips3d_tpu_torch.train.step import init_train_state, make_train_step
+
+    gen = GeneratorNerfINR(cfg_g, generator=torch.Generator().manual_seed(20)).to(dev)
+    disc = DiscriminatorMultiScaleAux(max_size=1024,
+                                      generator=torch.Generator().manual_seed(21)).to(dev)
+    tcfg = TrainConfig(img_size=64, batch_size=4, ema_start_itr=0)
+    state = init_train_state(gen, disc, tcfg)
+    fn = make_train_step(gen, disc, tcfg, RenderOptions(), aux_reg=True)
+    rng = torch.Generator(dev).manual_seed(22)
+    real = torch.rand((steps, 4, 3, 64, 64), generator=rng, device=dev) * 2 - 1
+    before = step_snapshot(state)
+    counters = ((ray_tile.ray_tile_cuda, "launches", "ray_tile"),
+                (ray_tile.ray_tile_cuda, "residual_launches", "ray_tile_residuals"),
+                (ray_tile.ray_tile_bwd_cuda, "launches", "ray_tile_bwd_recompute"),
+                (ray_tile.ray_tile_bwd_cuda, "residual_launches", "ray_tile_bwd_residual"),
+                (inr_tile.inr_tile_cuda, "launches", "inr_tile"))
+    for obj, attr, _ in counters:
+        setattr(obj, attr, 0)
+    times, metrics = [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = fn(state, real[i], rng=rng)   # the metrics' floats wait for the step
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+    counts = {name: getattr(obj, attr) for obj, attr, name in counters}
+    for i, m in enumerate(metrics):
+        if not all(math.isfinite(v) for v in m.values()) or m["d_finite"] != 1 or m["g_finite"] != 1:
+            raise AssertionError(f"step {i}: non-finite metrics {m}")
+    moved = [any(not torch.equal(a, b) for a, b in zip(x, y))
+             for x, y in zip(before, step_snapshot(state))]
+    if not all(moved):
+        raise AssertionError(f"parameters did not move (G, D, EMA): {moved}")
+    first, last = metrics[0], metrics[-1]
+    log(f"  losses step 0 -> {steps - 1}: d {first['d_loss']:.4f} -> {last['d_loss']:.4f}, "
+        f"g {first['g_loss']:.4f} -> {last['g_loss']:.4f}, r1 {first['grad_penalty']:.4f} -> "
+        f"{last['grad_penalty']:.4f}, norms d {last['d_total_norm']:.3f} g "
+        f"{last['g_total_norm']:.3f}; G, D and EMA moved; launches {counts}")
+    profile_step(fn, state, real[-1], rng, log, label, smi)
+    return times, counts
+
+
+def step_vs_cpu(dev, log, noise_disable=False, plain_on_card=False, ref_on_card=False,
+                dphase_inr=True):
+    """Phase 7b: one r32, b = 2 step at full width on the card and on the
+    CPU (plain versions) from the same weights and draws.  With
+    ``plain_on_card`` the card runs the plain versions too (a witness of
+    what the summation order alone moves); with ``ref_on_card`` the
+    reference is the plain versions on the card instead of the CPU; with
+    ``dphase_inr`` False both decode the D phase's fakes through `CIPSNet`
+    instead of the INR tile.  Returns (loss error, [D, G] grad errors,
+    [G, D, EMA] shares of parameters off)."""
+    import copy
+
+    import torch
+
+    import cips3d_tpu_torch.train.step as step_mod
+    from cips3d_tpu_torch.models.discriminator import DiscriminatorMultiScaleAux
+    from cips3d_tpu_torch.models.generator import (ForwardDraws, GeneratorConfig,
+                                                   GeneratorNerfINR, RenderOptions, sample_zs)
+    from cips3d_tpu_torch.ops import inr_tile, ray_tile
+    from cips3d_tpu_torch.train.state import TrainConfig
+    from cips3d_tpu_torch.train.step import (PhaseDraws, StepDraws, init_train_state,
+                                             make_train_step)
+
+    b, img, S = 2, 32, 12
+    cfg = GeneratorConfig(fused_ray=True, fused_ray_vjp="pallas_residual")
+    tcfg = TrainConfig(img_size=img, batch_size=b, ema_start_itr=0,
+                       nerf_noise_disable=noise_disable, fused_dphase_inr=dphase_inr)
+    gc = torch.Generator().manual_seed(30)
+    gen = GeneratorNerfINR(cfg, generator=torch.Generator().manual_seed(31))
+    disc = DiscriminatorMultiScaleAux(max_size=1024, generator=torch.Generator().manual_seed(32))
+
+    def phase_draws():
+        return PhaseDraws(sample_zs(b, cfg, gc), ForwardDraws(
+            torch.rand((b, img * img, S, 1), generator=gc),
+            (torch.randn((b, 1), generator=gc), torch.randn((b, 1), generator=gc)),
+            ray_tile.draw_ray_randoms(b, img * img, S, True, gc, "cpu")))
+
+    draws = StepDraws([phase_draws()], [phase_draws()])
+
+    def to(x, d):
+        if isinstance(x, torch.Tensor):
+            return x.to(d)
+        if isinstance(x, dict):
+            return {k: to(v, d) for k, v in x.items()}
+        if isinstance(x, (tuple, list)):
+            items = [to(v, d) for v in x]
+            return type(x)(*items) if hasattr(x, "_fields") else type(x)(items)
+        return x
+
+    real = torch.rand((b, 3, img, img), generator=gc) * 2 - 1
+    results = {}
+    clip = step_mod.clip_and_guard
+    kernels = (ray_tile.ray_tile_cuda, ray_tile.ray_tile_bwd_cuda, inr_tile.inr_tile_cuda)
+    for name, d in (("cpu", dev if ref_on_card else torch.device("cpu")), ("card", dev)):
+        if (plain_on_card and name == "card") or (ref_on_card and name == "cpu"):
+            ray_tile.ray_tile_cuda = ray_tile.ray_tile_plain
+            ray_tile.ray_tile_bwd_cuda = ray_tile.ray_tile_bwd_plain
+            inr_tile.inr_tile_cuda = inr_tile.inr_tile_plain
+        g_m, d_m = copy.deepcopy(gen).to(d), copy.deepcopy(disc).to(d)
+        state = init_train_state(g_m, d_m, tcfg)
+        seen = []
+
+        def recording(grads, max_norm):
+            out = clip(grads, max_norm)
+            seen.append([x.detach().cpu() for x in out[0]])
+            return out
+
+        step_mod.clip_and_guard = recording
+        try:
+            fn = make_train_step(g_m, d_m, tcfg, RenderOptions(), aux_reg=True)
+            t0 = time.perf_counter()
+            state, m = fn(state, real.to(d), draws=to(draws, d))
+            secs = time.perf_counter() - t0
+        finally:
+            step_mod.clip_and_guard = clip
+            ray_tile.ray_tile_cuda, ray_tile.ray_tile_bwd_cuda, inr_tile.inr_tile_cuda = kernels
+        results[name] = (m, seen, step_snapshot(state), secs)
+    (mc, sc, pc, tc), (mg, sg, pg, tg) = results["cpu"], results["card"]
+    lerr = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-6)
+               for k in ("d_loss", "g_loss", "grad_penalty"))
+    gerr = [max(grad_err(a, b_) for a, b_ in zip(x, y)) for x, y in zip(sg, sc)]
+    names = [n for n, _ in gen.named_parameters()]
+    worst = sorted(((grad_err(a, b_), n) for n, a, b_ in zip(names, sg[1], sc[1])), reverse=True)
+    shares = []
+    for lr, x, y in ((tcfg.gen_lr, pg[0], pc[0]), (tcfg.disc_lr, pg[1], pc[1]),
+                     (tcfg.gen_lr, pg[2], pc[2])):
+        far = sum(((a.cpu() - b_.cpu()).abs() > STEP_TOL["param"] * lr).sum().item()
+                  for a, b_ in zip(x, y))
+        shares.append(far / sum(a.numel() for a in x))
+    log(f"  step r{img} b={b} card ({'plain versions' if plain_on_card else 'kernels'}) vs "
+        f"{'the card' if ref_on_card else 'CPU'} plain path (exact sine, residual backward, noise "
+        f"{0.0 if noise_disable else 1.0}{'' if dphase_inr else ', D-phase INR plain'}): "
+        f"losses rel err {lerr:.2e} (tol {STEP_TOL['loss_rtol']}), clipped grads normalised "
+        f"err D {gerr[0]:.2e} G {gerr[1]:.2e} (tol {STEP_TOL['grad']}), parameters beyond "
+        f"{STEP_TOL['param']} lr: G {shares[0]:.2e} D {shares[1]:.2e} EMA {shares[2]:.2e} "
+        f"(bound {MAX_OUTSIDE}); reference step {tc:.1f} s; largest G grad errors: "
+        + ", ".join(f"{n} {e:.1e}" for e, n in worst[:4]))
+    return lerr, gerr, shares
+
+
+def training_phases(dev, smi, log):
+    """Phases 6-8; returns the summary entries of the training kernels."""
+    import torch
+
+    from cips3d_tpu_torch.models.generator import GeneratorConfig, GeneratorNerfINR, RenderOptions
+    from cips3d_tpu_torch.models.generator import sample_zs
+    from cips3d_tpu_torch.ops import ray_tile as rt
+
+    t0 = time.perf_counter()
+    errs = kernel_phase(dev, log)
+    log(f"phase 6 done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    configs = {
+        "exact sine, residual backward": GeneratorConfig(
+            fast_sin=False, fused_ray=True, fused_ray_vjp="pallas_residual"),
+        "fast_sin, recompute backward": GeneratorConfig(
+            fast_sin=True, fused_ray=True, fused_ray_vjp="pallas"),
+    }
+    need = {"exact sine, residual backward": ("ray_tile", "inr_tile", "ray_tile_residuals",
+                                              "ray_tile_bwd_residual"),
+            "fast_sin, recompute backward": ("ray_tile", "inr_tile", "ray_tile_bwd_recompute")}
+    step_ms, launches = {}, {}
+    for label, cfg in configs.items():
+        log(f"phase 7 train: {label}, r64 b=4 aux on, flagship widths, 10 steps")
+        times, counts = train_run(dev, cfg, 10, log, label, smi)
+        missing = [k for k in need[label] if counts[k] <= 0]
+        if missing:
+            raise AssertionError(f"{label}: kernels not launched by the steps: {missing}")
+        step_ms[label] = statistics.median(times[2:])
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        q = statistics.quantiles(times[2:], n=4)
+        log(f"phase 8 time: train step r64 b=4 {label}: median {step_ms[label]:.1f} ms "
+            f"(quartiles {q[0]:.1f}..{q[2]:.1f}, steps 2-9; first {times[0]:.1f} ms) = "
+            f"{4e3 / step_ms[label]:.2f} images/s [{smi}]")
+    # Without density noise the card's step must agree with the CPU's.  With noise (1.0 at
+    # step 0) the step is chaotic at Adam's first update (beta1 = 0: each element moves by
+    # +-lr by the sign of its grad), and the D phase's INR-tile kernel (3xTF32) rounds its
+    # fakes apart from the plain decode: near-zero D grads flip sign, the G phase sees the
+    # updated D.  So there the ray-tile kernels are held against the plain versions on the
+    # card with the D phase decoding through CIPSNet on both sides (losses and clipped
+    # grads), and the comparisons with the CPU are printed beside it.
+    def agrees(r, params=True):
+        lerr, gerr, shares = r
+        return lerr <= STEP_TOL["loss_rtol"] and max(gerr) <= STEP_TOL["grad"] and \
+            (not params or max(shares) <= MAX_OUTSIDE)
+
+    if not agrees(step_vs_cpu(dev, log, noise_disable=True)):
+        raise AssertionError("the card's training step disagrees with the CPU step (no noise)")
+    step_vs_cpu(dev, log)
+    step_vs_cpu(dev, log, plain_on_card=True)
+    if not agrees(step_vs_cpu(dev, log, ref_on_card=True, dphase_inr=False), params=False):
+        raise AssertionError("the ray-tile kernels' step disagrees with the plain step (noise)")
+    log(f"phase 7 done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+
+    # kernel times at the training shapes (r64, b = 4, S = 12, f32)
+    b, S, n = 4, 12, 64 * 64
+    H, L, C, R = 128, 2, 64, 32
+    gen = GeneratorNerfINR(GeneratorConfig(fused_ray=True),
+                           generator=torch.Generator().manual_seed(40)).to(dev)
+    g = torch.Generator(dev).manual_seed(41)
+    with torch.no_grad():
+        zs = sample_zs(b, gen.cfg, g, device=dev)
+        wt = rt.flat_weights(gen.siren, gen.mapping(zs["z_nerf"], zs["z_inr"]))
+        world = gen.sample_world(b, RenderOptions(img_size=64, num_steps=S), g)
+        args = (wt, world.points, world.origins, world.dirs, world.z_vals[..., 0],
+                *rt.draw_ray_randoms(b, n, S, True, g, dev), 0.5)
+        d_fea = torch.randn((b, n, R), generator=g, device=dev)
+        d_dep = torch.randn((b, n, 1), generator=g, device=dev)
+        res = rt.ray_tile_cuda(*args, with_residuals=True)[2]
+        t_res = cuda_ms([lambda: rt.ray_tile_plain(*args, with_residuals=True),
+                         lambda: rt.ray_tile_cuda(*args, with_residuals=True)], reps=10)
+        t_bres = cuda_ms([lambda: rt.ray_tile_bwd_plain(*args, d_fea, d_dep, residuals=res),
+                          lambda: rt.ray_tile_bwd_cuda(*args, d_fea, d_dep, residuals=res)],
+                         reps=10)
+        t_brec = cuda_ms([lambda: rt.ray_tile_bwd_plain(*args, d_fea, d_dep, fast_sin=True),
+                          lambda: rt.ray_tile_bwd_cuda(*args, d_fea, d_dep, fast_sin=True)],
+                         reps=10)
+    for name, (plain, kern) in (("2r ray tile with residuals (exact sine)", t_res),
+                                ("3 backward, residual mode (exact sine)", t_bres),
+                                ("3 backward, recompute mode (fast_sin)", t_brec)):
+        log(f"phase 8 time: {name} r64 b=4 S=12 noise 0.5 f32: kernel {kern:.3f} ms, plain "
+            f"{plain:.3f} ms [{smi}]")
+    log(f"phase 8 done in {time.perf_counter() - t0:.1f} s (step times in phase 7)")
+    # bounds: multiply-adds at 2 FLOP each over the f32 FMA peak; bytes read once, written once
+    pts = b * n * 2 * S
+    macs = siren_macs(H, L, C, R)
+    in_bytes = 4 * b * n * (S * 3 + 6 + 3 * S + 2 * S) + 4 * macs
+    res_bytes = pts * 4 * (2 * L * H + 2 * C)
+    grad_bytes = 4 * (macs + L * H + C + R + 1 + b * (2 * L * H + 2 * C) + b * n * S * 3)
+    bwd_macs = pts * 2 * macs - (pts // 2) * 3 * H   # d-weight + d-input; fine points: no d x
+    b2r = bound_ms(2 * pts * macs, in_bytes + res_bytes + 4 * b * n * (R + 1))
+    b3s = bound_ms(2 * bwd_macs, in_bytes + res_bytes + 4 * b * n * (R + 1) + grad_bytes)
+    b3c = bound_ms(2 * (bwd_macs + pts * macs), in_bytes + 4 * b * n * (R + 1) + grad_bytes)
+
+    def entry(name, source, replaces, count, err, t, bnd):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": count, "max_abs_err": err, "ms": t[1], "plain_ms": t[0],
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+
+    return [
+        entry("ray_tile_residuals", "cips3d_tpu_torch/csrc/ray_tile.cu",
+              "cips3d_tpu/ops/pallas/ray_tile.py:207", launches["ray_tile_residuals"],
+              errs["ray_tile_residuals"], t_res, b2r),
+        entry("ray_tile_bwd_residual", "cips3d_tpu_torch/csrc/ray_tile_bwd.cu",
+              "cips3d_tpu/ops/pallas/ray_tile.py:421", launches["ray_tile_bwd_residual"],
+              errs["ray_tile_bwd_residual"], t_bres, b3s),
+        entry("ray_tile_bwd_recompute", "cips3d_tpu_torch/csrc/ray_tile_bwd.cu",
+              "cips3d_tpu/ops/pallas/ray_tile.py:421", launches["ray_tile_bwd_recompute"],
+              errs["ray_tile_bwd_recompute"], t_brec, b3c),
+    ]
+
+
 def main():
     import torch
 
@@ -140,8 +608,8 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA GPU")
     from cips3d_tpu_torch.apps.render import render_chunked
     from cips3d_tpu_torch.apps.serve import RenderService, serve
-    from cips3d_tpu_torch.models.generator import (GeneratorConfig, GeneratorNerfINR,
-                                                   RenderOptions, sample_zs)
+    from cips3d_tpu_torch.eval.cli import serving_config
+    from cips3d_tpu_torch.models.generator import GeneratorNerfINR, RenderOptions, sample_zs
     from cips3d_tpu_torch.ops import build, inr_tile, ray_tile
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in full f32
@@ -164,7 +632,7 @@ def main():
             log(f"  ptxas: {line.strip()}")
 
     # ---- the flagship generator at full width ----------------------------
-    cfg = GeneratorConfig(fast_sin=True)
+    cfg = serving_config(fast_sin=True)
     gen = GeneratorNerfINR(cfg, generator=torch.Generator().manual_seed(0)).to(dev).eval()
     g = torch.Generator(dev).manual_seed(1)
 
@@ -178,6 +646,7 @@ def main():
         return gen.sample_world(b, opts, g, pos, -pos), st
 
     # ---- phase 3: kernels vs plain versions ------------------------------
+    t_phase = time.perf_counter()
     log("phase 3 compare: kernel vs plain PyTorch version on the same inputs")
     err_at_main = {}
     f32, bf16 = torch.float32, torch.bfloat16
@@ -242,6 +711,9 @@ def main():
                     err_at_main["inr_tile"] = e
                 check_bf16(tag + " bfloat16", outs[bf16], plain[bf16], plain[f32], outs[f32],
                            TOL[case, "bfloat16"])
+
+    log(f"phase 3 done in {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
 
     # ---- phase 4: the serving path ----------------------------------------
     service = RenderService(gen, img_size=128, num_steps=SERVING_STEPS)
@@ -322,6 +794,9 @@ def main():
     if share > MAX_OUTSIDE or e_dep.max().item() > FRAME_ATOL:
         raise AssertionError("the kernel path disagrees with the plain path")
 
+    log(f"phase 4 done in {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+
     # ---- phase 5: timings -------------------------------------------------
     timings = {}
     with torch.no_grad():
@@ -357,16 +832,33 @@ def main():
             f"median {lat[name]:.2f} ms over {reps} (quartiles {q[0]:.2f}..{q[2]:.2f}, "
             f"min {min(ts):.2f}, max {max(ts):.2f}) [{smi}]")
 
+    log(f"phase 5 done in {time.perf_counter() - t_phase:.1f} s")
+
+    # bounds at the phase-5 shapes (b = 1, 16384 rays, 48 points a ray)
+    n5, H, L, C, R = 128 * 128, 128, 2, 64, 32
+    macs = siren_macs(H, L, C, R)
+    fwd_in_bytes = 4 * n5 * (SERVING_STEPS * 3 + 6 + 3 * SERVING_STEPS + 2 * SERVING_STEPS)
+    serve_bounds = {
+        "ray_tile": bound_ms(2 * n5 * 2 * SERVING_STEPS * macs,
+                             fwd_in_bytes + 4 * macs + 4 * n5 * (R + 1)),
+        "inr_tile": bound_ms(2 * n5 * (32 * 512 + 17 * 512 * 512 + 6 * 512 * 3),
+                             4 * n5 * (32 + 3) + 4 * (32 * 512 + 17 * 512 * 512)),
+    }
+
+    train = training_phases(dev, smi, log)
+
     kernels = [
         {"name": "ray_tile", "route": "cuda", "source": "cips3d_tpu_torch/csrc/ray_tile.cu",
          "replaces": "cips3d_tpu/ops/pallas/ray_tile.py:137", "launches": launches["ray_tile"],
          "max_abs_err": err_at_main["ray_tile"], "ms": timings["ray_tile float32"][1],
-         "plain_ms": timings["ray_tile float32"][0]},
+         "plain_ms": timings["ray_tile float32"][0], "bound_ms": serve_bounds["ray_tile"][0],
+         "bound_by": serve_bounds["ray_tile"][1], "library_ms": None},
         {"name": "inr_tile", "route": "cuda", "source": "cips3d_tpu_torch/csrc/inr_tile.cu",
          "replaces": "cips3d_tpu/ops/pallas/inr_tile.py:48", "launches": launches["inr_tile"],
          "max_abs_err": err_at_main["inr_tile"], "ms": timings["inr_tile float32"][1],
-         "plain_ms": timings["inr_tile float32"][0]},
-    ]
+         "plain_ms": timings["inr_tile float32"][0], "bound_ms": serve_bounds["inr_tile"][0],
+         "bound_by": serve_bounds["inr_tile"][1], "library_ms": None},
+    ] + train
     log(nvidia_smi())   # the card's name and power limit, as nvidia-smi prints them
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -243,8 +243,7 @@ def serve(service: RenderService, host: str = "127.0.0.1", port: int = 8000):
 
 
 def main(argv=None):
-    from cips3d_tpu_torch.eval.cli import load_generator
-    from cips3d_tpu_torch.models.generator import GeneratorConfig
+    from cips3d_tpu_torch.eval.cli import load_generator, serving_config
 
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -259,7 +258,7 @@ def main(argv=None):
                    help="exact sinf inside the same kernels (default: polynomial sine)")
     args = p.parse_args(argv)
 
-    gen_cfg = GeneratorConfig(fast_sin=not args.exact)
+    gen_cfg = serving_config(fast_sin=not args.exact)
     models = {}
     for i, spec in enumerate(args.ckpt):
         name, _, path = spec.rpartition("=")

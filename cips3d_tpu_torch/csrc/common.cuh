@@ -14,6 +14,12 @@ template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v
   return __bfloat162float(v);
 }
 
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
 // Round a float to the matmul-input type and back: the `.astype(mm_dtype)`
 // of the Pallas kernels, applied where they apply it.
 template <typename T> __device__ __forceinline__ float round_mm(float v);

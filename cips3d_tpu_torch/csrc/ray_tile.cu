@@ -1,14 +1,23 @@
 // Fused ray-tile renderer: the hierarchical NeRF stage of
-// GeneratorNerfINR.points_forward, forward only.
+// GeneratorNerfINR.points_forward, forward.
 //
 // Replaces: cips3d_tpu/ops/pallas/ray_tile.py::_ray_tile_kernel (entry
-// fused_ray_render via _pallas_forward, without residual outputs).  Per
-// block of rays:
+// fused_ray_render via _pallas_forward), with and without the residual
+// outputs (`with_residuals`, ray_tile.py:207-214).  Per block of rays:
 //   coarse FiLM-SIREN -> compositing weights -> inverse-CDF importance
 //   sample -> fine FiLM-SIREN -> sort-free compositing of the 2S samples in
 //   [fine, coarse] arrival order -> (feature, depth).
 // Options as in the Pallas kernel: relu/softplus density, density noise
 // (draws made outside), white_back, last_back, fast_sin, bf16 matmul inputs.
+// With residuals (the training forward of the residual-mode backward,
+// ray_tile_bwd.cu) it also writes, per pass and point, every hidden layer's
+// pre-activation a (f32) and output h (mm type), and the colour FiLM's ac
+// and hc: rh/ra (b, 2, n, S, L*H), rhc/rac (b, 2, n, S, C), pass 0 coarse,
+// 1 fine, points ray-major.  That is 2560 B a point in f32 at the flagship
+// widths, written once: at r64, b = 4, S = 12 (0.39 M points) 1.0 GB, or
+// 0.30 ms at 3.35 TB/s beside the MLP's 0.32 ms bound, so with residuals
+// the bound is about twice the plain forward's.  The stores are coalesced
+// (a warp writes 32 neighbouring channels of one point).
 //
 // What bounds it on an H100: the point MLP.  Per sample point it costs
 // 2 * (3H + (L-1)H^2 + HC + CR + H) = 54 kFLOP and L*H + C sines at the
@@ -39,6 +48,7 @@
 
 #include "common.cuh"
 #include "fast_sin.cuh"
+#include "ray_tile.cuh"
 
 namespace {
 
@@ -61,6 +71,10 @@ struct RayArgs {
   const float* films;  // (b, nfilm): g_0, f_0, g_1, f_1, .. (H each), gc, fc (C each); padded
   void* fea;           // (b, n, R) out type
   float* depth;        // (b, n)
+  void* rh;            // residuals, or null: (b, 2, n, S, L*H) mm type
+  float* ra;           // (b, 2, n, S, L*H)
+  void* rhc;           // (b, 2, n, S, C) mm type
+  float* rac;          // (b, 2, n, S, C)
   int b, n, S, L, H, C, R;
   int nw, np, nfilm;   // padded element counts of wbuf, pbuf and one films row
   float noise_std, warp_scale;
@@ -68,7 +82,7 @@ struct RayArgs {
 };
 
 struct RayLayout {
-  size_t w, p, f, bufa, bufb, sig, zall, sall, nfv, t1, t2, rank, uv, ncv, od, rgb, total;
+  size_t w, p, f, bufa, bufb, sig, zall, sall, nfv, t1, t2, rank, uv, ncv, od, rgb, resrow, total;
   int ldb;   // row stride of the chunk buffers
   __host__ __device__ RayLayout(const RayArgs& a, size_t tsize) {
     const int M = 2 * a.S;
@@ -91,6 +105,7 @@ struct RayLayout {
     ncv = take(off, sizeof(float) * kRays * a.S);
     od = take(off, sizeof(float) * kRays * 8);
     rgb = take(off, sizeof(float) * kRays * M * a.R);
+    resrow = take(off, sizeof(long long) * kRows);
     total = off;
   }
   // Offset of the next region of `bytes`; advances `off` past it.
@@ -101,18 +116,17 @@ struct RayLayout {
   }
 };
 
-__device__ __forceinline__ float density(float x, int softplus) {
-  // jax.nn.softplus(x) = logaddexp(x, 0)
-  return softplus ? fmaxf(x, 0.f) + log1pf(expf(-fabsf(x))) : fmaxf(x, 0.f);
-}
-
 // out[r][c] = epi(sum_k in[r][k] W[k][c] + bias[c]) for the 32 rows of a
 // chunk and c < N (N <= 128).  epi: with `gain`, sin(gain[c] v + shift[c])
 // rounded to the mm type (a FiLM-SIREN layer); without, v as is (f32).
-template <typename T>
+// With kRes, row r's pre-activation v and output also go to res_a / res_h
+// at row res_row[r] (row stride res_ld; skipped if < 0).  A template
+// argument, so that the forward without residuals compiles as it did.
+template <typename T, bool kRes = false>
 __device__ void chunk_layer(const float* in, int ld, int K, const T* W, int N,
                             const float* bias, const float* gain, const float* shift,
-                            int fast_sin, float* out) {
+                            int fast_sin, float* out, const long long* res_row = nullptr,
+                            float* res_a = nullptr, T* res_h = nullptr, int res_ld = 0) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const float* x = in + warp * kRowsPerWarp * ld;
   float acc[kRowsPerWarp][kColsPerLane];
@@ -140,17 +154,23 @@ __device__ void chunk_layer(const float* in, int ld, int K, const T* W, int N,
     if (c >= N) continue;
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i) {
+      const int row = warp * kRowsPerWarp + i;
       float v = acc[i][j] + bias[c];
+      const float a = v;
       if (gain != nullptr) {
         const float arg = gain[c] * v + shift[c];
         v = cips::round_mm<T>(fast_sin ? cips_fast_sinf(arg) : sinf(arg));
       }
-      out[(warp * kRowsPerWarp + i) * ld + c] = v;
+      out[row * ld + c] = v;
+      if (kRes && res_row[row] >= 0) {
+        res_a[res_row[row] * res_ld + c] = a;
+        res_h[res_row[row] * res_ld + c] = cips::from_f<T>(v);
+      }
     }
   }
 }
 
-template <typename T>
+template <typename T, bool kRes>
 __global__ void __launch_bounds__(kThreads) ray_tile_kernel(RayArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const RayLayout lay(a, sizeof(T));
@@ -170,6 +190,9 @@ __global__ void __launch_bounds__(kThreads) ray_tile_kernel(RayArgs a) {
   float* ncv = reinterpret_cast<float*>(smem + lay.ncv);
   float* od = reinterpret_cast<float*>(smem + lay.od);       // [ray][org xyz, pad, dir xyz, pad]
   float* rgb = reinterpret_cast<float*>(smem + lay.rgb);     // [ray][slot][R]
+  long long* resrow = reinterpret_cast<long long*>(smem + lay.resrow);
+  T* rh = static_cast<T*>(a.rh);
+  T* rhc = static_cast<T*>(a.rhc);
 
   const int S = a.S, M = 2 * S, H = a.H, C = a.C, R = a.R, L = a.L, n = a.n;
   const int ld = lay.ldb;
@@ -223,13 +246,19 @@ __global__ void __launch_bounds__(kThreads) ray_tile_kernel(RayArgs a) {
         }
         bufa[row * ld + c] = cips::round_mm<T>(v * a.warp_scale);   // UniformBoxWarp
       }
+      for (int row = threadIdx.x; kRes && row < kRows; row += kThreads) {   // residual rows
+        const int q = q0 + row, r = q / S, s = q % S;
+        resrow[row] = q < npts && ray0 + r < n
+                          ? ((((long long)bi * 2 + fine) * n + ray0 + r) * S + s) : -1;
+      }
       __syncthreads();
       float* cur = bufa;
       float* nxt = bufb;
       for (int l = 0; l < L; ++l) {
         const T* w = wsm + (l == 0 ? 0 : 3 * H + (size_t)(l - 1) * H * H);
-        chunk_layer<T>(cur, ld, l == 0 ? 3 : H, w, H, psm + l * H,
-                       fsm + 2 * l * H, fsm + 2 * l * H + H, a.fast_sin, nxt);
+        chunk_layer<T, kRes>(cur, ld, l == 0 ? 3 : H, w, H, psm + l * H,
+                             fsm + 2 * l * H, fsm + 2 * l * H + H, a.fast_sin, nxt, resrow,
+                             kRes ? a.ra + l * H : nullptr, kRes ? rh + l * H : nullptr, L * H);
         __syncthreads();
         float* t = cur; cur = nxt; nxt = t;
       }
@@ -240,7 +269,8 @@ __global__ void __launch_bounds__(kThreads) ray_tile_kernel(RayArgs a) {
         v = cips::warp_sum(v);
         if (lane == 0) sig[row] = v + bs;
       }
-      chunk_layer<T>(cur, ld, H, wc, C, bc, gc, fc, a.fast_sin, nxt);   // colour FiLM
+      chunk_layer<T, kRes>(cur, ld, H, wc, C, bc, gc, fc, a.fast_sin, nxt, resrow,   // colour FiLM
+                           kRes ? a.rac : nullptr, kRes ? rhc : nullptr, C);
       __syncthreads();
       chunk_layer<T>(nxt, ld, C, wr, R, br, nullptr, nullptr, 0, cur);   // rgb head
       __syncthreads();
@@ -266,53 +296,8 @@ __global__ void __launch_bounds__(kThreads) ray_tile_kernel(RayArgs a) {
   run_mlp(false);
 
   // ---- resample: warp = ray, lane = sample ----
-  {
-    const int r = warp;
-    float* zr = zall + r * M;
-    float* lx = t1 + r * M;
-    float* pdf = t2 + r * M;
-    const int i = lane;
-    float alpha = 0.f;
-    if (i < S) {
-      const float zi = zr[S + i];
-      const float delta = i < S - 1 ? zr[S + i + 1] - zi : 1e10f;
-      float sc = sall[r * M + S + i];
-      if (a.use_noise) sc += ncv[r * S + i] * a.noise_std;
-      alpha = 1.f - expf(-delta * density(sc, a.softplus));
-      lx[i] = logf(fmaxf(1.f - alpha, 1e-10f));
-    }
-    __syncwarp();
-    float wcv = 0.f;
-    if (i < S) {
-      float acc = 0.f;
-      for (int j = 0; j < i; ++j) acc += lx[j];
-      wcv = alpha * expf(acc);
-    }
-    const int nb = S - 2;                           // pdf bins
-    const bool bin = i >= 1 && i <= S - 2;          // bin i - 1
-    const float inner = bin ? (wcv + 1e-5f) + 1e-5f : 0.f;
-    const float total = cips::warp_sum(inner);
-    if (bin) pdf[i - 1] = inner / total;
-    __syncwarp();
-    if (i < S - 1) {                                // cdf (S-1 edges), bin mid-points
-      float c = 0.f;
-      for (int k = 0; k < i; ++k) c += pdf[k];
-      lx[i] = c;
-      lx[S + i] = 0.5f * (zr[S + i] + zr[S + i + 1]);
-    }
-    __syncwarp();
-    if (i < S) {
-      const float uu = uv[r * S + i];
-      int inds = 0;
-      for (int j = 0; j < S - 1; ++j) inds += lx[j] < uu;
-      const int below = max(inds - 1, 0), above = min(inds, nb);
-      const float cb = lx[below], ca = lx[above];
-      const float zb = lx[S + below], za = lx[S + above];
-      float denom = ca - cb;
-      if (denom < 1e-5f) denom = 1.f;
-      zr[i] = zb + (uu - cb) / denom * (za - zb);   // fine depth, unsorted
-    }
-  }
+  cips_ray::resample_ray(zall + warp * M, sall + warp * M + S, uv + warp * S, ncv + warp * S,
+                         t1 + warp * M, t2 + warp * M, S, a.use_noise, a.noise_std, a.softplus);
   __syncthreads();
 
   // ---- fine pass ----
@@ -321,63 +306,18 @@ __global__ void __launch_bounds__(kThreads) ray_tile_kernel(RayArgs a) {
   // ---- compositing: warp = ray, lanes own samples lane and lane + 32 ----
   {
     const int r = warp, ray = ray0 + r;
-    const float* zr = zall + r * M;
-    float* lx = t1 + r * M;
     float* wt = t2 + r * M;
-    int* rk = rank + r * M;
-    float zj[2], dens[2], alpha[2], w[2];
-    int rj[2];
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const int j = lane + 32 * t;
-      if (j >= M) continue;
-      zj[t] = zr[j];
-      int c = 0;
-      for (int k = 0; k < M; ++k) {
-        const float zk = zr[k];
-        c += (zk < zj[t]) || (zk == zj[t] && k < j);
-      }
-      rj[t] = c;
-      rk[j] = c;
-      float sg = sall[r * M + j];
-      if (a.use_noise) sg += nfv[r * M + j] * a.noise_std;
-      dens[t] = density(sg, a.softplus);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const int j = lane + 32 * t;
-      if (j >= M) continue;
-      float delta = 1e10f;
-      if (rj[t] != M - 1) {
-        for (int k = 0; k < M; ++k)
-          if (rk[k] == rj[t] + 1) delta = zr[k] - zj[t];
-      }
-      alpha[t] = 1.f - expf(-delta * dens[t]);
-      lx[j] = logf(fmaxf(1.f - alpha[t], 1e-10f));
-    }
-    __syncwarp();
-    float part = 0.f;
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const int j = lane + 32 * t;
-      w[t] = 0.f;
-      if (j >= M) continue;
-      float acc = 0.f;   // before[j, k] <=> rank_k < rank_j
-      for (int k = 0; k < M; ++k)
-        if (rk[k] < rj[t]) acc += lx[k];
-      w[t] = alpha[t] * expf(acc);
-      part += w[t];
-    }
-    const float wsum = cips::warp_sum(part);
+    float wsum;
+    const cips_ray::CompLane cl = cips_ray::composite_ray(
+        zall + r * M, sall + r * M, nfv + r * M, t1 + r * M, rank + r * M, M, a.use_noise,
+        a.noise_std, a.softplus, a.last_back, wsum);
     float dpart = 0.f;
 #pragma unroll
     for (int t = 0; t < 2; ++t) {
       const int j = lane + 32 * t;
       if (j >= M) continue;
-      if (a.last_back && rj[t] == M - 1) w[t] += 1.f - wsum;
-      wt[j] = w[t];
-      dpart += w[t] * zj[t];
+      wt[j] = cl.w[t];
+      dpart += cl.w[t] * cl.z[t];
     }
     const float dep = cips::warp_sum(dpart);
     __syncwarp();
@@ -397,27 +337,28 @@ __global__ void __launch_bounds__(kThreads) ray_tile_kernel(RayArgs a) {
   }
 }
 
-template <typename T>
+template <typename T, bool kRes>
 int launch(const RayArgs& a, cudaStream_t stream) {
   const RayLayout lay(a, sizeof(T));
-  cudaError_t err = cudaFuncSetAttribute(ray_tile_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(ray_tile_kernel<T, kRes>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)lay.total);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.n + kRays - 1) / kRays, a.b);
-  ray_tile_kernel<T><<<grid, kThreads, lay.total, stream>>>(a);
+  ray_tile_kernel<T, kRes><<<grid, kThreads, lay.total, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Shapes as in RayArgs.  The wrapper checks S in [3, 32], H, C, R <= 128
-// and pads wbuf, pbuf and the films rows to 16-byte multiples.  Returns the
+// Shapes as in RayArgs; rh, ra, rhc, rac are all null (no residuals) or
+// all set.  The wrapper checks S in [3, 32], H, C, R <= 128 and pads
+// wbuf, pbuf and the films rows to 16-byte multiples.  Returns the
 // CUDA error of the launch (0 on success).
 extern "C" int cips_ray_tile_forward(
     const void* pts, const void* org, const void* dir, const void* z, const void* u,
     const void* nc, const void* nf, const void* wbuf, const void* pbuf, const void* films,
-    void* fea, void* depth,
+    void* fea, void* depth, void* rh, void* ra, void* rhc, void* rac,
     int b, int n, int S, int L, int H, int C, int R,
     float noise_std, float warp_scale,
     int nw, int np, int nfilm, int softplus, int white_back, int last_back, int flags,
@@ -435,6 +376,10 @@ extern "C" int cips_ray_tile_forward(
   a.films = static_cast<const float*>(films);
   a.fea = fea;
   a.depth = static_cast<float*>(depth);
+  a.rh = rh;
+  a.ra = static_cast<float*>(ra);
+  a.rhc = rhc;
+  a.rac = static_cast<float*>(rac);
   a.b = b; a.n = n; a.S = S; a.L = L; a.H = H; a.C = C; a.R = R;
   a.nw = nw; a.np = np; a.nfilm = nfilm;
   a.noise_std = noise_std;
@@ -447,5 +392,8 @@ extern "C" int cips_ray_tile_forward(
   a.fast_sin = (flags >> 1) & 1;
   a.out_bf16 = (flags >> 3) & 1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (flags >> 2) & 1 ? launch<__nv_bfloat16>(a, st) : launch<float>(a, st);
+  const bool res = rh != nullptr;
+  if ((flags >> 2) & 1)
+    return res ? launch<__nv_bfloat16, true>(a, st) : launch<__nv_bfloat16, false>(a, st);
+  return res ? launch<float, true>(a, st) : launch<float, false>(a, st);
 }

@@ -1,6 +1,9 @@
-"""Generator loading: counterpart of `cips3d_tpu/eval/cli.py::load_generator`."""
+"""Generator loading: counterpart of `cips3d_tpu/eval/cli.py::load_generator`
+and of its ``--serving`` config."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -16,3 +19,10 @@ def load_generator(ckpt_dir: str, gen_cfg: GeneratorConfig, module: str = "G_ema
     gen = GeneratorNerfINR(gen_cfg, dtype=dtype)
     load_jax_params(gen, load_snapshot_module(ckpt_dir, module))
     return gen.to(device).eval()
+
+
+def serving_config(gen_cfg: GeneratorConfig = GeneratorConfig(),
+                   fast_sin: bool = True) -> GeneratorConfig:
+    """The serving flags on ``gen_cfg``: both forward kernels (ray tile and
+    INR tile), with the polynomial sine unless ``fast_sin`` is False."""
+    return dataclasses.replace(gen_cfg, fused_ray=True, fused_inr=True, fast_sin=fast_sin)

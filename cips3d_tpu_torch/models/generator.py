@@ -5,22 +5,24 @@ and rays → the NeRF stage (coarse SIREN → hierarchical resample → fine
 SIREN → compositing) → 32-dim feature per pixel → CIPS INR decode, plus
 the aux RGB head.
 
-Ported for the serving render: the NeRF stage always runs through
-`ops/ray_tile.py` (hierarchical sampling only; the unfused volume path of
-`core/volume.py` is not ported yet) and the INR decode through
-`ops/inr_tile.py`; both run their kernel on CUDA tensors.  Forward only.  Randomness comes from explicit `torch.Generator`s or as
-injected draws.
+The NeRF stage runs through `ops/ray_tile.py` (``fused_ray``, hierarchical
+sampling; the unfused volume path of `core/volume.py` is not ported yet),
+forward and backward.  The INR decode runs through `ops/inr_tile.py`
+(``fused_inr``, forward only: the serving render and the D phase) or
+through `CIPSNet` under autograd (the G phase).  Randomness comes from
+explicit `torch.Generator`s or as injected draws (`ForwardDraws`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
+from cips3d_tpu_torch.core import points as points_lib
 from cips3d_tpu_torch.core import rays as rays_lib
 from cips3d_tpu_torch.models import init as winit
 from cips3d_tpu_torch.models.cips_net import CIPS_RESOLUTIONS, CIPSNet
@@ -28,17 +30,19 @@ from cips3d_tpu_torch.models.layers import TorchLinear
 from cips3d_tpu_torch.models.mapping import MultiHeadMappingNetwork
 from cips3d_tpu_torch.models.nerf_net import NeRFNetwork
 from cips3d_tpu_torch.ops.inr_tile import fused_inr_decode
-from cips3d_tpu_torch.ops.ray_tile import RayDraws, fused_ray_render
+from cips3d_tpu_torch.ops.ray_tile import VJP_IMPLS, RayDraws, fused_ray_render
 
 
 @dataclasses.dataclass(frozen=True)
 class GeneratorConfig:
-    """Architecture hyperparameters; defaults reproduce the FFHQ flagship,
-    as in the JAX package.  The port always renders through the ray-tile
-    and INR-tile kernels, so the JAX package's ``fused_ray`` and
-    ``fused_inr`` switches have no counterpart here; they and the
-    training-only fields (``freeze_nerf``, ``fused_ray_vjp``) come with
-    the unfused and training paths."""
+    """Architecture hyperparameters; defaults and validation as in the JAX
+    package (the FFHQ flagship).  ``fused_ray`` selects the ray-tile
+    kernels for the NeRF stage, ``fused_ray_vjp`` their backward ('pallas':
+    recompute, 'pallas_residual': the forward saves residuals, 'jnp':
+    autograd through the plain version), ``fused_inr`` the forward-only
+    INR-tile kernel.  The unfused NeRF stage is not ported, so a generator
+    with ``fused_ray`` False cannot render yet, and every config needs the
+    kernel's depth (``nerf_hidden_layers >= 1``)."""
 
     z_dim_nerf: int = 256
     z_dim_inr: int = 512
@@ -51,15 +55,22 @@ class GeneratorConfig:
     inr_style_dim: int = 512
     inr_mapping_layers: int = 8
     inr_pre_rgb_dim: int = 3
+    freeze_nerf: bool = False
     fast_sin: bool = False
+    fused_ray: bool = False
+    fused_ray_vjp: str = "pallas"
+    fused_inr: bool = False
 
     def __post_init__(self):
         if self.nerf_hidden_layers < 1:
-            raise ValueError("the ray-tile kernel needs nerf_hidden_layers >= 1; got "
-                             f"nerf_hidden_layers={self.nerf_hidden_layers}.")
-        if self.inr_pre_rgb_dim != 3:
-            raise ValueError("the INR-tile kernel needs inr_pre_rgb_dim == 3; got "
-                             f"inr_pre_rgb_dim={self.inr_pre_rgb_dim}.")
+            raise ValueError("the ray-tile kernel (the port's only NeRF stage) needs "
+                             f"nerf_hidden_layers >= 1; got {self.nerf_hidden_layers}.")
+        if self.fused_inr and self.inr_pre_rgb_dim != 3:
+            raise ValueError("fused_inr=True: the INR-tile kernel needs inr_pre_rgb_dim == 3; "
+                             f"got inr_pre_rgb_dim={self.inr_pre_rgb_dim}.")
+        if self.fused_ray_vjp not in VJP_IMPLS:
+            raise ValueError(f"fused_ray_vjp must be one of {VJP_IMPLS}; "
+                             f"got {self.fused_ray_vjp!r}.")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +94,16 @@ class RenderOptions:
     last_back: bool = False
     nerf_noise: float = 0.0
     psi: float = 1.0
+
+
+class ForwardDraws(NamedTuple):
+    """Every random draw of one `GeneratorNerfINR.forward` (float32)."""
+
+    perturb: torch.Tensor                       # (b, HW, S, 1) depth-jitter uniforms
+    camera: Tuple[torch.Tensor, torch.Tensor]   # (theta, phi) standard normals, (b, 1) each
+    rays: RayDraws                              # ray-tile draws of the (gradient) pixels
+    perm: Optional[torch.Tensor] = None         # (HW,) pixel permutation of grad_points
+    rays_no_grad: Optional[RayDraws] = None     # ray-tile draws of the other pixels
 
 
 class GeneratorNerfINR(nn.Module):
@@ -123,44 +144,67 @@ class GeneratorNerfINR(nn.Module):
     # ------------------------------------------------------------------ #
 
     def mapping(self, z_nerf: torch.Tensor, z_inr: torch.Tensor) -> Dict[str, torch.Tensor]:
-        style_dict = dict(self.mapping_network_nerf(z_nerf))
+        """Both mapping nets; with ``freeze_nerf`` the NeRF styles are
+        detached."""
+        nerf_styles = self.mapping_network_nerf(z_nerf)
+        if self.cfg.freeze_nerf:
+            nerf_styles = {k: v.detach() for k, v in nerf_styles.items()}
+        style_dict = dict(nerf_styles)
         style_dict.update(self.mapping_network_inr(z_inr))
         return style_dict
 
-    @torch.no_grad()
     def points_forward(self, style_dict: Mapping[str, torch.Tensor],
                        world: rays_lib.WorldRays, opts: RenderOptions,
                        generator: Optional[torch.Generator] = None,
-                       draws: Optional[RayDraws] = None, return_depth: bool = False):
-        """Coarse→fine NeRF + INR decode for a set of rays.
+                       draws: Optional[RayDraws] = None, return_depth: bool = False,
+                       idx_grad: Optional[torch.Tensor] = None,
+                       cfg: Optional[GeneratorConfig] = None):
+        """Coarse→fine NeRF + INR decode for a set of rays (differentiable).
 
         Returns (inr_img (b, n, 3), aux_img (b, n, 3)) and, with
-        ``return_depth``, the expected ray depth (b, n, 1).  The ray-tile
-        draws come from ``draws`` or ``generator``."""
-        if not opts.hierarchical_sample:
+        ``return_depth``, the expected ray depth (b, n, 1), detached.  With
+        ``idx_grad`` only those pixels are rendered.  The ray-tile draws
+        come from ``draws`` or ``generator``.  ``cfg`` overrides the
+        module's config for this call (the D phase's kernel choice)."""
+        c = cfg or self.cfg
+        if not (c.fused_ray and opts.hierarchical_sample):
             raise NotImplementedError(
                 "the port renders the NeRF stage through the ray-tile kernel only: it needs "
-                "opts.hierarchical_sample (core/volume.py is not ported)")
+                "fused_ray=True and opts.hierarchical_sample (core/volume.py is not ported)")
+        pts, origins, dirs, z_vals = world.points, world.origins, world.dirs, world.z_vals
+        if idx_grad is not None:
+            pts, origins, dirs, z_vals = (points_lib.gather_points(t, idx_grad)
+                                          for t in (pts, origins, dirs, z_vals))
         fea, depth = fused_ray_render(
-            self.siren, style_dict, world.points, world.origins, world.dirs, world.z_vals,
+            self.siren, style_dict, pts, origins, dirs, z_vals,
             draws=draws, generator=generator, noise_std=float(opts.nerf_noise),
             clamp_mode=opts.clamp_mode, white_back=opts.white_back,
-            last_back=opts.last_back, dtype=self.dtype, fast_sin=self.cfg.fast_sin)
-        return self._decode_pixels(fea, depth, style_dict, return_depth)
+            last_back=opts.last_back, dtype=self.dtype, fast_sin=c.fast_sin,
+            vjp_impl=c.fused_ray_vjp)
+        if c.freeze_nerf:
+            fea, depth = fea.detach(), depth.detach()
+        return self._decode_pixels(fea, depth, style_dict, return_depth, c)
 
-    def _decode_pixels(self, pixels_fea, pixels_depth, style_dict, return_depth):
+    def _decode_pixels(self, pixels_fea, pixels_depth, style_dict, return_depth, c):
         """INR decode (all nine blocks, as the reference's render path) and
         the aux head on composited ray features."""
-        inr_img = fused_inr_decode(self.inr_net, style_dict, pixels_fea, dtype=self.dtype)
-        aux_img = torch.tanh(self.aux_to_rbg(pixels_fea))
+        if c.fused_inr:
+            inr_img = fused_inr_decode(self.inr_net, style_dict, pixels_fea, dtype=self.dtype)
+        else:
+            inr_img = self.inr_net(pixels_fea, style_dict)
+        aux = self.aux_to_rbg(pixels_fea)
+        if c.freeze_nerf:
+            aux = aux.detach()
+        aux_img = torch.tanh(aux)
         if return_depth:
-            return inr_img, aux_img, pixels_depth
+            return inr_img, aux_img, pixels_depth.detach()
         return inr_img, aux_img
 
     def sample_world(self, batch_size: int, opts: RenderOptions,
                      generator: Optional[torch.Generator] = None, camera_pos=None,
                      camera_lookup=None, up_vector=None, perturb_uniform=None,
                      camera_draws=None) -> rays_lib.WorldRays:
+        """Camera, rays and jittered sample points (no gradient flows here)."""
         return rays_lib.get_world_points_and_direction(
             batch_size, opts.num_steps, opts.img_size, opts.fov, opts.ray_start,
             opts.ray_end, opts.h_stddev, opts.v_stddev, opts.h_mean, opts.v_mean,
@@ -171,20 +215,42 @@ class GeneratorNerfINR(nn.Module):
     def device(self) -> torch.device:
         return next(self.parameters()).device
 
-    @torch.no_grad()
     def forward(self, zs: Mapping[str, torch.Tensor], opts: RenderOptions,
                 generator: Optional[torch.Generator] = None, return_aux_img: bool = False,
                 avg_styles: Optional[Mapping[str, torch.Tensor]] = None,
-                camera_pos=None, camera_lookup=None, up_vector=None):
+                camera_pos=None, camera_lookup=None, up_vector=None,
+                grad_points: Optional[int] = None, draws: Optional[ForwardDraws] = None,
+                cfg: Optional[GeneratorConfig] = None):
         """Generate images: (imgs (B, 3, H, W), pitch_yaw (B, 2)); B doubles
         with ``return_aux_img``.  Truncation toward ``avg_styles`` by
-        ``opts.psi``."""
+        ``opts.psi``.  With ``grad_points`` below the pixel count, only a
+        random subset of that many pixels carries gradient; the rest render
+        without it and are scattered back.  ``draws`` supplies every random
+        draw, else they come from ``generator``."""
         b = zs["z_nerf"].shape[0]
         style_dict = self.mapping(zs["z_nerf"], zs["z_inr"])
         if avg_styles is not None:
             style_dict = truncate_styles(style_dict, avg_styles, opts.psi)
-        world = self.sample_world(b, opts, generator, camera_pos, camera_lookup, up_vector)
-        inr_img, aux_img = self.points_forward(style_dict, world, opts, generator)
+        world = self.sample_world(b, opts, generator, camera_pos, camera_lookup, up_vector,
+                                  draws.perturb if draws else None,
+                                  draws.camera if draws else None)
+        rays = draws.rays if draws else None
+        num_points = opts.img_size ** 2
+        if grad_points is not None and grad_points < num_points:
+            perm = (draws.perm if draws else
+                    torch.randperm(num_points, generator=generator, device=self.device))
+            idx_grad, idx_no_grad = perm[:grad_points], perm[grad_points:]
+            inr_g, aux_g = self.points_forward(style_dict, world, opts, generator, rays,
+                                               idx_grad=idx_grad, cfg=cfg)
+            with torch.no_grad():
+                inr_n, aux_n = self.points_forward(
+                    style_dict, world, opts, generator, draws.rays_no_grad if draws else None,
+                    idx_grad=idx_no_grad, cfg=cfg)
+            inr_img = points_lib.scatter_points(idx_grad, inr_g, idx_no_grad, inr_n, num_points)
+            aux_img = points_lib.scatter_points(idx_grad, aux_g, idx_no_grad, aux_n, num_points)
+        else:
+            inr_img, aux_img = self.points_forward(style_dict, world, opts, generator, rays,
+                                                   cfg=cfg)
         h = w = opts.img_size
         imgs = to_nchw(inr_img, h, w)
         pitch_yaw = torch.cat([world.pitch, world.yaw], -1)

@@ -1,13 +1,16 @@
-"""Shared generator layers: counterparts of `cips3d_tpu/models/layers.py`.
+"""Shared layers: counterparts of `cips3d_tpu/models/layers.py`.
 
 Parameters are float32 in the reference's state-dict layout (torch
-``(out, in)`` Linear weights, ``(1, in, out)`` SinStyleMod weights);
-``dtype`` selects the compute precision as in the JAX layers.  Every layer
-takes an explicit `torch.Generator` for its initialization.
+``(out, in)`` Linear weights, ``(1, in, out)`` SinStyleMod weights, OIHW
+conv weights); ``dtype`` selects the compute precision as in the JAX
+layers.  Every layer takes an explicit `torch.Generator` for its
+initialization.  The equalized-lr layers of the discriminator (NCHW) store
+raw N(0, 1) weights and scale them at run time.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -15,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cips3d_tpu_torch.models import init as winit
+from cips3d_tpu_torch.ops.fused_act import fused_leaky_relu
 
 
 class TorchLinear(nn.Module):
@@ -132,3 +136,89 @@ class ToRGB(nn.Module):
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, 0.2)
+
+
+class EqualLinear(nn.Module):
+    """Equalized-lr linear: weight (out, in) ~ N(0, 1/lr_mul), scaled by
+    lr_mul/sqrt(in) at run time; bias starts at ``bias_init_value`` and is
+    scaled by lr_mul; ``activation`` applies the fused bias + leaky ReLU."""
+
+    def __init__(self, in_dim: int, out_dim: int, use_bias: bool = True,
+                 bias_init_value: float = 0.0, lr_mul: float = 1.0,
+                 scale: Optional[float] = None, norm_weight: bool = False,
+                 activation: bool = False, generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.randn((out_dim, in_dim), generator=generator) / lr_mul)
+        self.bias = (nn.Parameter(torch.full((out_dim,), float(bias_init_value)))
+                     if use_bias else None)
+        self.scale = scale if scale is not None else lr_mul / math.sqrt(in_dim)
+        self.lr_mul = lr_mul
+        self.norm_weight = norm_weight
+        self.activation = activation
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight
+        if self.norm_weight:
+            w = w * torch.rsqrt((w * w).sum(1, keepdim=True) + 1e-8)
+        y = x.to(self.dtype) @ (w * self.scale).to(self.dtype).T
+        bias = None if self.bias is None else (self.bias * self.lr_mul).to(self.dtype)
+        if self.activation:
+            return fused_leaky_relu(y, bias)
+        return y if bias is None else y + bias
+
+
+class EqualConv2d(nn.Module):
+    """Equalized-lr conv: OIHW weight ~ N(0, 1) scaled by 1/sqrt(in k^2)."""
+
+    def __init__(self, in_channel: int, out_channel: int, kernel_size: int, stride: int = 1,
+                 padding: int = 0, use_bias: bool = True,
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        k = kernel_size
+        self.weight = nn.Parameter(torch.randn((out_channel, in_channel, k, k),
+                                               generator=generator))
+        self.bias = nn.Parameter(torch.zeros(out_channel)) if use_bias else None
+        self.scale = 1.0 / math.sqrt(in_channel * k * k)
+        self.stride, self.padding, self.dtype = stride, padding, dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return F.conv2d(x.to(self.dtype), (self.weight * self.scale).to(self.dtype), bias,
+                        stride=self.stride, padding=self.padding)
+
+
+class EqualConvTranspose2d(nn.Module):
+    """Equalized-lr transposed conv (IOHW weight), as
+    `F.conv_transpose2d(x, w * scale, stride, padding)`."""
+
+    def __init__(self, in_channel: int, out_channel: int, kernel_size: int, stride: int = 1,
+                 padding: int = 0, use_bias: bool = True,
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        k = kernel_size
+        self.weight = nn.Parameter(torch.randn((in_channel, out_channel, k, k),
+                                               generator=generator))
+        self.bias = nn.Parameter(torch.zeros(out_channel)) if use_bias else None
+        self.scale = 1.0 / math.sqrt(in_channel * k * k)
+        self.stride, self.padding, self.dtype = stride, padding, dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return F.conv_transpose2d(x.to(self.dtype), (self.weight * self.scale).to(self.dtype),
+                                  bias, stride=self.stride, padding=self.padding)
+
+
+def minibatch_stddev(x: torch.Tensor, group_size: int = 4, num_features: int = 1) -> torch.Tensor:
+    """Append the minibatch-stddev channel: (N, C, H, W) -> (N, C+1, H, W),
+    over groups of ``min(N, group_size)`` (biased variance, +1e-8)."""
+    n, c, h, w = x.shape
+    g = min(n, group_size)
+    grouped = x.reshape(g, -1, num_features, c // num_features, h, w)
+    var = grouped.float().var(0, unbiased=False)
+    std = torch.sqrt(var + 1e-8).mean((2, 3, 4))            # (m, feat)
+    std = std[:, :, None, None].repeat(g, 1, h, w)          # (n, feat, h, w)
+    return torch.cat([x, std.to(x.dtype)], 1)

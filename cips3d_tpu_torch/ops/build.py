@@ -1,14 +1,13 @@
 """Build and load the CUDA kernels of `cips3d_tpu_torch/csrc/`.
 
 The kernels have a plain C interface: `nvcc` compiles every ``csrc/*.cu``
-into one shared library for ``sm_90a`` and `ctypes` loads it; no PyTorch
-header is compiled, so a build takes seconds.  The library is named by a
-hash of the sources and lands in ``csrc/build/`` (git-ignored), so an edit
-rebuilds and an unchanged tree reuses the last build.  Nothing here runs at
-import time: the first `library()` call builds.
+for ``sm_90a`` (one process per source, all started together), links the
+objects into one shared library and `ctypes` loads it; no PyTorch header is
+compiled.  The library is named by a hash of the sources and lands in
+``csrc/build/`` (git-ignored), so an edit rebuilds and an unchanged tree
+reuses the last build.  Nothing here runs at import time: the first
+`library()` call builds.
 """
-
-from __future__ import annotations
 
 import ctypes
 import hashlib
@@ -23,7 +22,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 
@@ -35,7 +34,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "cips_ray_tile_forward": [_P] * 12 + [_I] * 7 + [_F, _F] + [_I] * 7 + [_P],
+    "cips_ray_tile_forward": [_P] * 16 + [_I] * 7 + [_F, _F] + [_I] * 7 + [_P],
+    "cips_ray_tile_backward": [_P] * 20 + [_I] * 9 + [_F, _F] + [_I] * 4 + [_P],
+    "cips_ray_tile_backward_row": [_I] * 4,
     "cips_inr_tile_forward": [_P] * 8 + [_I] * 6 + [_P],
 }
 
@@ -66,14 +67,31 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    tag = f"{out.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                           text=True)))
+    log, failed = [], False
+    for obj, proc in jobs:
+        text = proc.communicate()[0]
+        log.append(text)
+        failed |= proc.returncode != 0
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        link = subprocess.run([_nvcc(), "-shared", "-o", str(tmp), *(str(o) for o, _ in jobs)],
+                              capture_output=True, text=True)
+        log.append(link.stdout + link.stderr)
+        failed = link.returncode != 0
+    for obj, _ in jobs:
+        obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-6000:]}")
+    out.with_suffix(".log").write_text("".join(log))
+    if failed:
+        raise RuntimeError(f"nvcc failed:\n{''.join(log)[-6000:]}")
     os.replace(tmp, out)
     return out
 

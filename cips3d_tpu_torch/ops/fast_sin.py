@@ -5,7 +5,9 @@ internals):
 
     y = x / 2pi;  r = y - round(y)  in [-0.5, 0.5];  sin(x) = r * P(r^2)
 
-with P the degree-9 odd least-squares fit (max abs error 1.7e-5).  The
+with P the degree-9 odd least-squares fit (max abs error 1.7e-5), and
+its derivative `fast_sin_grad` (of the polynomial, not cos), which the
+ray-tile backward uses under ``fast_sin``.  The
 internals stay float32 for every input dtype: in bf16 the reduction
 `y - round(y)` would quantize the reduced argument to y's ULP.  `round` is
 half-to-even (`torch.round`, `jnp.round`; `rintf` in `csrc/fast_sin.cuh`).
@@ -35,3 +37,23 @@ def fast_sin(x: torch.Tensor) -> torch.Tensor:
     p = p * r2 + _C3
     p = p * r2 + _C1
     return (r * p).to(x.dtype)
+
+
+def fast_sin_grad(x: torch.Tensor) -> torch.Tensor:
+    """d fast_sin / dx, the derivative of the polynomial itself (what
+    autograd gives for `fast_sin`, not cos): with r the reduced argument,
+    (1/2pi) * (P(r^2) + 2 r^2 P'(r^2)).  float32 internals, cast back to
+    ``x.dtype``."""
+    y = x.float() * _INV_2PI
+    r = y - torch.round(y)
+    r2 = r * r
+    p = torch.full_like(r2, _C9)
+    p = p * r2 + _C7
+    p = p * r2 + _C5
+    p = p * r2 + _C3
+    p = p * r2 + _C1
+    dp = torch.full_like(r2, 4.0 * _C9)
+    dp = dp * r2 + 3.0 * _C7
+    dp = dp * r2 + 2.0 * _C5
+    dp = dp * r2 + _C3
+    return (_INV_2PI * (p + 2.0 * r2 * dp)).to(x.dtype)

@@ -13,7 +13,8 @@ from block 3 and a final tanh.  Two versions of that decode:
   * `inr_tile_plain`, CIPSNet's math in PyTorch ops on the extracted weights;
   * `inr_tile_cuda`, the hand-written kernel of `csrc/inr_tile.cu`.
 `inr_tile` runs the plain version for CPU tensors and the kernel for CUDA
-tensors; a failed build or launch raises.
+tensors; a failed build or launch raises.  Forward only: the G phase
+decodes through `CIPSNet` under autograd.
 """
 
 from __future__ import annotations
@@ -158,16 +159,34 @@ def inr_tile(x, *args, **kwargs):
     return inr_tile_cuda(x, *args, **kwargs)
 
 
-@torch.no_grad()
+class _ForwardOnly(torch.autograd.Function):
+    """Passes the decode's output through; its backward raises, as
+    autodiff of the Pallas decode does: the kernel has no backward."""
+
+    @staticmethod
+    def forward(ctx, out, *inputs):
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("fused_inr_decode is forward only (the INR-tile kernel has no "
+                           "backward): train with GeneratorConfig(fused_inr=False)")
+
+
 def fused_inr_decode(inr_net, style_dict: Mapping[str, torch.Tensor], x: torch.Tensor, *,
                      img_size: int = 1024, dtype=torch.float32) -> torch.Tensor:
     """Forward equivalent of `CIPSNet.forward` for pre_rgb_dim = 3:
-    x (b, n, in0) → tanh(rgb) (b, n, 3) in ``dtype``.  Forward only."""
+    x (b, n, in0) → tanh(rgb) (b, n, 3) in ``dtype``.  Forward only:
+    differentiating the result raises."""
     n_blocks = num_blocks(img_size)
     if n_blocks <= FIRST_RGB:
         raise ValueError(f"fused_inr_decode needs >= 4 blocks (img_size >= 32); got "
                          f"img_size={img_size} - use CIPSNet")
     mm_dtype = torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
-    weights, mods = extract_inr_weights(inr_net, n_blocks)
-    s, d = compute_inr_mods(mods, style_dict, weights.wrest.shape[-1])
-    return inr_tile(x.float().contiguous(), s, d, weights, mm_dtype=mm_dtype).to(dtype)
+    with torch.no_grad():
+        weights, mods = extract_inr_weights(inr_net, n_blocks)
+        s, d = compute_inr_mods(mods, style_dict, weights.wrest.shape[-1])
+        out = inr_tile(x.float().contiguous(), s, d, weights, mm_dtype=mm_dtype).to(dtype)
+    if torch.is_grad_enabled():
+        out = _ForwardOnly.apply(out, x, *style_dict.values())
+    return out

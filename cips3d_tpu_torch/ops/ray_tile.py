@@ -1,17 +1,22 @@
-"""Fused ray-tile renderer: the NeRF stage of `points_forward`, forward only.
+"""Fused ray-tile renderer: the NeRF stage of `points_forward`, forward and
+backward.
 
-Counterpart of `cips3d_tpu/ops/pallas/ray_tile.py` (the forward of
-`fused_ray_render`):
+Counterpart of `cips3d_tpu/ops/pallas/ray_tile.py` (`fused_ray_render`
+and its custom VJP):
 
     coarse FiLM-SIREN -> resample weights -> inverse-CDF importance sample
         -> fine FiLM-SIREN -> sort-free alpha compositing -> (feature, depth)
 
-Two versions of one function over the same inputs:
-  * `ray_tile_plain`, PyTorch ops, ported from the Pallas module's
-    `_jnp_core`;
-  * `ray_tile_cuda`, the hand-written kernel of `csrc/ray_tile.cu`.
-`ray_tile` runs the plain version for tensors on the CPU and the kernel for
-tensors on a CUDA device; a failed build or launch raises.
+Two versions of each function over the same inputs:
+  * forward: `ray_tile_plain` (PyTorch ops, ported from the Pallas module's
+    `_jnp_core`) and `ray_tile_cuda` (`csrc/ray_tile.cu`), both optionally
+    with the residuals of the residual-mode backward;
+  * backward: `ray_tile_bwd_plain` (a mirror of the Pallas backward's
+    stages) and `ray_tile_bwd_cuda` (`csrc/ray_tile_bwd.cu`), each in
+    recompute or residual mode.
+`ray_tile` and `ray_tile_bwd` run the plain version for tensors on the CPU
+and the kernel for tensors on a CUDA device; a failed build or launch
+raises.  `RayTileFunction` puts them under autograd.
 
 The random draws (importance-sample uniforms ``u``, density noise ``nc`` and
 ``nf``) are made outside the kernel, as in the JAX package, and can be
@@ -31,6 +36,7 @@ import torch.nn.functional as F
 
 from cips3d_tpu_torch.ops import build
 from cips3d_tpu_torch.ops.fast_sin import fast_sin as _fast_sin
+from cips3d_tpu_torch.ops.fast_sin import fast_sin_grad
 
 MAX_STEPS = 32     # the kernel gives each of a ray's 2S samples to one lane of a warp pair
 MAX_WIDTH = 128    # the kernel's lane tiling covers layer widths up to 128
@@ -111,22 +117,31 @@ def _density(x, clamp_mode):
     raise ValueError(f"clamp_mode must be 'relu' or 'softplus', got {clamp_mode!r}")
 
 
-def _mlp(wt, p, fast_sin, mm_dtype, warp_scale):
-    """The FiLM-SIREN on points p (b, N, 3) -> rgb (b, N, R), sigma (b, N)."""
+def _mlp(wt, p, fast_sin, mm_dtype, warp_scale, states: bool = False):
+    """The FiLM-SIREN on points p (b, N, 3) -> rgb (b, N, R), sigma (b, N);
+    with ``states`` also the dict of what the backward needs: the rounded
+    input ``x``, per hidden layer the pre-activation ``a`` (f32) and output
+    ``h`` (rounded), the colour FiLM's ``ac`` and ``hc``."""
     layers, (wc, bc, gc, fc, wr, br, ws, bs) = _split(wt)
     sin = _fast_sin if fast_sin else torch.sin
 
     def mm(x):  # round to the matmul-input dtype; products of the rounded values are exact in f32
         return x.to(mm_dtype).to(p.dtype)
 
-    h = mm(p * warp_scale)
+    h = x = mm(p * warp_scale)
+    acts, hids = [], []
     for w_, b_, g_, f_ in layers:
         a = h @ mm(w_) + b_
         h = mm(sin(g_[:, None] * a + f_[:, None]))
+        acts.append(a)
+        hids.append(h)
     sig = h @ mm(ws) + bs
     ac = h @ mm(wc) + bc
     hc = mm(sin(gc[:, None] * ac + fc[:, None]))
-    return hc @ mm(wr) + br, sig[..., 0]
+    rgb = hc @ mm(wr) + br
+    if states:
+        return rgb, sig[..., 0], dict(x=x, a=acts, h=hids, ac=ac, hc=hc)
+    return rgb, sig[..., 0]
 
 
 def _fine_depths(sig_c, z, u, nc, noise_std, clamp_mode):
@@ -169,12 +184,43 @@ def plain_fine_depths(
     return _fine_depths(sig_c.reshape(b, n, S), z, u, nc, noise_std, clamp_mode)
 
 
+def _composite(fine_z, z, sig_f, sig_c, nf, noise_std, clamp_mode, last_back):
+    """Sort-free compositing weights of the 2S samples in [fine, coarse]
+    arrival order, and every intermediate the backward reads."""
+    z_all = torch.cat([fine_z, z], -1)                                  # (b, n, m)
+    m = z_all.shape[-1]
+    sig_all = torch.cat([sig_f, sig_c], -1)
+    less = z_all[..., None, :] < z_all[..., :, None]                   # [j, k]: z_k < z_j
+    equal = z_all[..., None, :] == z_all[..., :, None]
+    ar = torch.arange(m, device=z.device)
+    tie = ar[None, :] < ar[:, None]                                     # k < j: fine first
+    before = (less | (equal & tie)).to(z.dtype)
+    rank = before.sum(-1)
+    if noise_std != 0:
+        sig_all = sig_all + nf * noise_std
+    dens = _density(sig_all, clamp_mode)
+    succ = (rank[..., :, None] + 1.0 == rank[..., None, :]).to(z.dtype)
+    z_next = (succ * z_all[..., None, :]).sum(-1)
+    is_last = (rank == float(m - 1)).to(z.dtype)
+    deltas = torch.where(is_last > 0, torch.full_like(z_all, 1e10), z_next - z_all)
+    expd = torch.exp(-deltas * dens)
+    alpha = 1.0 - expd
+    logx = torch.log(torch.clamp(1.0 - alpha, min=1e-10))
+    trans = torch.exp((before * logx[..., None, :]).sum(-1))
+    w0 = alpha * trans
+    w_sum = w0.sum(-1, keepdim=True)
+    w = w0 + (1.0 - w_sum) * is_last if last_back else w0
+    return dict(z_all=z_all, sig_all=sig_all, before=before, is_last=is_last, deltas=deltas,
+                expd=expd, alpha=alpha, trans=trans, w=w, w_sum=w_sum)
+
+
 def ray_tile_plain(
     wt, pts, org, dirs, z, u, nc, nf, noise_std: float = 0.0, *,
     clamp_mode: str = "relu", white_back: bool = False, last_back: bool = False,
     fast_sin: bool = False, mm_dtype=torch.float32, warp_scale: float = 2.0 / 0.24,
     out_dtype=torch.float32, fine_z: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    with_residuals: bool = False,
+):
     """Plain PyTorch version (the Pallas module's `_jnp_core`).
 
     wt: `flat_weights`.  pts (b, n, S, 3); org, dirs (b, n, 3); z, u, nc
@@ -182,47 +228,157 @@ def ray_tile_plain(
     for a float64 witness).  Returns (feature (b, n, R) in ``out_dtype``,
     depth (b, n, 1) in the inputs' dtype).  ``fine_z`` (b, n, S), if given,
     replaces the importance-sampled depths: a witness for diagnosing where
-    the kernel and this version part."""
+    the kernel and this version part.  The resample and the fine points are
+    detached, as in the reference.  ``with_residuals`` also returns the
+    residuals of the residual-mode backward, (rh, ra, rhc, rac): per pass
+    (0 coarse, 1 fine) and point, the hidden layers' outputs h (mm dtype)
+    and pre-activations a (f32), concatenated over the layers, (b, 2, n, S,
+    L*H), and the colour FiLM's hc (mm dtype) and ac (f32), (b, 2, n, S, C)."""
     b, n, S, _ = pts.shape
-    m = 2 * S
-    use_noise = noise_std != 0
-    rgb_c, sig_c = _mlp(wt, pts.reshape(b, n * S, 3), fast_sin, mm_dtype, warp_scale)
+    rgb_c, sig_c, st_c = _mlp(wt, pts.reshape(b, n * S, 3), fast_sin, mm_dtype, warp_scale,
+                              states=True)
     rgb_c = rgb_c.reshape(b, n, S, -1)
     sig_c = sig_c.reshape(b, n, S)
     if fine_z is None:
         with torch.no_grad():   # the reference resamples under no_grad
             fine_z = _fine_depths(sig_c, z, u, nc, noise_std, clamp_mode)
-    fine_pts = org[:, :, None] + dirs[:, :, None] * fine_z[..., None]
-    rgb_f, sig_f = _mlp(wt, fine_pts.reshape(b, n * S, 3), fast_sin, mm_dtype, warp_scale)
-
-    z_all = torch.cat([fine_z, z], -1)                                  # (b, n, m)
-    sig_all = torch.cat([sig_f.reshape(b, n, S), sig_c], -1)
+    fine_pts = (org[:, :, None] + dirs[:, :, None] * fine_z[..., None]).detach()
+    rgb_f, sig_f, st_f = _mlp(wt, fine_pts.reshape(b, n * S, 3), fast_sin, mm_dtype, warp_scale,
+                              states=True)
+    cp = _composite(fine_z, z, sig_f.reshape(b, n, S), sig_c, nf, noise_std, clamp_mode,
+                    last_back)
     rgb_all = torch.cat([rgb_f.reshape(b, n, S, -1), rgb_c], -2)
-    less = z_all[..., None, :] < z_all[..., :, None]                   # [j, k]: z_k < z_j
-    equal = z_all[..., None, :] == z_all[..., :, None]
-    ar = torch.arange(m, device=z.device)
-    tie = ar[None, :] < ar[:, None]                                     # k < j: fine first
-    before = (less | (equal & tie)).to(z.dtype)
-    rank = before.sum(-1)
-    if use_noise:
-        sig_all = sig_all + nf * noise_std
-    dens = _density(sig_all, clamp_mode)
-    succ = (rank[..., :, None] + 1.0 == rank[..., None, :]).to(z.dtype)
-    z_next = (succ * z_all[..., None, :]).sum(-1)
-    is_last = rank == float(m - 1)
-    deltas_m = torch.where(is_last, torch.full_like(z_all, 1e10), z_next - z_all)
-    alpha = 1.0 - torch.exp(-deltas_m * dens)
-    logx = torch.log(torch.clamp(1.0 - alpha, min=1e-10))
-    trans = torch.exp((before * logx[..., None, :]).sum(-1))
-    w = alpha * trans
-    w_sum = w.sum(-1, keepdim=True)
-    if last_back:
-        w = w + (1.0 - w_sum) * is_last.to(z.dtype)
-    fea = (w[..., None] * rgb_all).sum(-2)
-    depth = (w * z_all).sum(-1, keepdim=True)
+    fea = (cp["w"][..., None] * rgb_all).sum(-2)
+    depth = (cp["w"] * cp["z_all"]).sum(-1, keepdim=True)
     if white_back:
-        fea = fea + 1.0 - w_sum
-    return fea.to(out_dtype), depth
+        fea = fea + 1.0 - cp["w_sum"]
+    if not with_residuals:
+        return fea.to(out_dtype), depth
+
+    def res(key, dtype):
+        parts = [torch.cat(st[key], -1) if isinstance(st[key], list) else st[key]
+                 for st in (st_c, st_f)]
+        return torch.stack([t.reshape(b, n, S, -1) for t in parts], 1).to(dtype).detach()
+
+    residuals = (res("h", mm_dtype), res("a", torch.float32), res("hc", mm_dtype),
+                 res("ac", torch.float32))
+    return fea.to(out_dtype), depth, residuals
+
+
+def ray_tile_bwd_plain(
+    wt, pts, org, dirs, z, u, nc, nf, noise_std: float, d_fea, d_dep, *,
+    residuals=None, clamp_mode: str = "relu", white_back: bool = False,
+    last_back: bool = False, fast_sin: bool = False, mm_dtype=torch.float32,
+    warp_scale: float = 2.0 / 0.24, fine_z: Optional[torch.Tensor] = None,
+) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """Plain PyTorch version of the backward kernel (the Pallas module's
+    `_ray_tile_bwd_kernel`), stage by stage: the MLP states (recomputed, or
+    read from ``residuals`` as `ray_tile_plain` returns them), the detached
+    resample, compositing forward and backward, then `mlp_bwd` for the fine
+    pass (weight and FiLM grads only) and the coarse pass (also d pts).
+    d_fea (b, n, R), d_dep (b, n, 1).  Returns (grads in the order and
+    shapes of ``wt``, d pts (b, n, S, 3)); org, dirs, z, u and the noise get
+    no gradient (the resample is detached).  ``fine_z``, if given, replaces
+    the resampled depths (recompute mode): a witness, as in
+    `ray_tile_plain`."""
+    layers, (wc, bc, gc, fc, wr, br, ws, bs) = _split(wt)
+    L = len(layers)
+    b, n, S, _ = pts.shape
+    dt = pts.dtype
+    sin_grad = fast_sin_grad if fast_sin else torch.cos
+
+    def mm(x):
+        return x.to(mm_dtype).to(dt)
+
+    def states(p, pi):
+        """MLP states of pass ``pi`` at points p (b, N, 3), with sig and rgb."""
+        if residuals is None:
+            rgb, sig, st = _mlp(wt, p, fast_sin, mm_dtype, warp_scale, states=True)
+            return dict(st, sig=sig, rgb=rgb)
+        rh, ra, rhc, rac = (t[:, pi].reshape(b, n * S, -1).to(dt) for t in residuals)
+        H = rh.shape[-1] // L
+        st = dict(x=mm(p * warp_scale), a=list(ra.split(H, -1)), h=list(rh.split(H, -1)),
+                  ac=rac, hc=rhc)
+        st["sig"] = (st["h"][-1] @ mm(ws) + bs)[..., 0]
+        st["rgb"] = rhc @ mm(wr) + br
+        return st
+
+    g = [torch.zeros_like(t) for t in wt]
+    with torch.no_grad():
+        st_c = states(pts.reshape(b, n * S, 3), 0)
+        if fine_z is None:
+            fine_z = _fine_depths(st_c["sig"].reshape(b, n, S), z, u, nc, noise_std, clamp_mode)
+        fine_pts = org[:, :, None] + dirs[:, :, None] * fine_z[..., None]
+        st_f = states(fine_pts.reshape(b, n * S, 3), 1)
+        cp = _composite(fine_z, z, st_f["sig"].reshape(b, n, S), st_c["sig"].reshape(b, n, S),
+                        nf, noise_std, clamp_mode, last_back)
+        rgb_all = torch.cat([st_f["rgb"].reshape(b, n, S, -1),
+                             st_c["rgb"].reshape(b, n, S, -1)], -2)
+
+        # ---- compositing backward ----
+        d_fea = d_fea.to(dt)
+        d_dep = d_dep.to(dt)
+        d_w1 = (rgb_all * d_fea[..., None, :]).sum(-1) + d_dep * cp["z_all"]
+        d_wsum = torch.zeros_like(d_dep)
+        if white_back:
+            d_wsum = d_wsum - d_fea.sum(-1, keepdim=True)
+        if last_back:
+            d_wsum = d_wsum - (d_w1 * cp["is_last"]).sum(-1, keepdim=True)
+        d_w0 = d_w1 + d_wsum
+        d_rgb_all = cp["w"][..., None] * d_fea[..., None, :]
+        alpha, trans = cp["alpha"], cp["trans"]
+        d_acc = trans * (d_w0 * alpha)
+        d_logx = (cp["before"] * d_acc[..., :, None]).sum(-2)
+        one_m = torch.clamp(1.0 - alpha, min=1e-10)
+        d_alpha = d_w0 * trans + torch.where((1.0 - alpha) > 1e-10, -d_logx / one_m,
+                                             torch.zeros_like(alpha))
+        d_dens = d_alpha * cp["deltas"] * cp["expd"]
+        sig_all = cp["sig_all"]
+        if clamp_mode == "softplus":
+            d_sig_all = d_dens * torch.sigmoid(sig_all)
+        else:
+            d_sig_all = d_dens * (sig_all > 0).to(dt)
+
+        def mlp_bwd(st, d_rgb, d_sig, need_dx):
+            """d_rgb (b, N, R), d_sig (b, N): adds the weight and FiLM grads
+            into g; returns d x (b, N, 3) if ``need_dx``."""
+            ow = 4 * L
+            d_rgbm = mm(d_rgb)
+            g[ow + 4] += torch.einsum("bnk,bnc->kc", st["hc"], d_rgbm)
+            g[ow + 5] += d_rgb.sum((0, 1)).reshape(g[ow + 5].shape)
+            d_hc = d_rgbm @ mm(wr).T
+            d_argc = d_hc * sin_grad(gc[:, None] * st["ac"] + fc[:, None])
+            g[ow + 2] += (d_argc * st["ac"]).sum(1)
+            g[ow + 3] += d_argc.sum(1)
+            d_ac = d_argc * gc[:, None]
+            d_acm, d_sigm = mm(d_ac), mm(d_sig)
+            h_last = st["h"][-1]
+            g[ow] += torch.einsum("bnk,bnc->kc", h_last, d_acm)
+            g[ow + 1] += d_ac.sum((0, 1)).reshape(g[ow + 1].shape)
+            g[ow + 6] += torch.einsum("bnk,bn->k", h_last, d_sigm).reshape(g[ow + 6].shape)
+            g[ow + 7] += d_sig.sum().reshape(g[ow + 7].shape)
+            d_h = d_acm @ mm(wc).T + d_sigm[..., None] * mm(ws).reshape(1, 1, -1)
+            for i in reversed(range(L)):
+                w_, _, g_, f_ = layers[i]
+                a = st["a"][i]
+                d_arg = d_h * sin_grad(g_[:, None] * a + f_[:, None])
+                g[4 * i + 2] += (d_arg * a).sum(1)
+                g[4 * i + 3] += d_arg.sum(1)
+                d_a = d_arg * g_[:, None]
+                d_am = mm(d_a)
+                inp = st["h"][i - 1] if i > 0 else st["x"]
+                g[4 * i] += torch.einsum("bnk,bnc->kc", inp, d_am)
+                g[4 * i + 1] += d_a.sum((0, 1)).reshape(g[4 * i + 1].shape)
+                if i == 0 and not need_dx:
+                    return None
+                d_h = d_am @ mm(w_).T
+            return d_h
+
+        mlp_bwd(st_f, d_rgb_all[..., :S, :].reshape(b, n * S, -1),
+                d_sig_all[..., :S].reshape(b, n * S), need_dx=False)
+        d_x = mlp_bwd(st_c, d_rgb_all[..., S:, :].reshape(b, n * S, -1),
+                      d_sig_all[..., S:].reshape(b, n * S), need_dx=True)
+    return g, (d_x * warp_scale).reshape(b, n, S, 3)
 
 
 def _padded(t: torch.Tensor, multiple: int) -> torch.Tensor:
@@ -230,41 +386,12 @@ def _padded(t: torch.Tensor, multiple: int) -> torch.Tensor:
     return F.pad(t, (0, pad)) if pad else t
 
 
-def ray_tile_cuda(
-    wt, pts, org, dirs, z, u, nc, nf, noise_std: float = 0.0, *,
-    clamp_mode: str = "relu", white_back: bool = False, last_back: bool = False,
-    fast_sin: bool = False, mm_dtype=torch.float32, warp_scale: float = 2.0 / 0.24,
-    out_dtype=torch.float32,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The CUDA kernel (`csrc/ray_tile.cu`); same arguments and results as
-    `ray_tile_plain`.  Raises if the library cannot be built or the launch
-    fails; never falls back to the plain version."""
+def _pack(wt, b: int, mm_dtype):
+    """The kernels' weight buffers: wbuf (matrices in the mm dtype: w_0,
+    w_1.., wc, wr, ws), pbuf (biases b_0.., bc, br, bs) and films (b,
+    nfilm: g_0, f_0, g_1, f_1, .., gc, fc), each padded to 16 bytes."""
     layers, (wc, bc, gc, fc, wr, br, ws, bs) = _split(wt)
-    b, n, S, _ = pts.shape
-    L, H, C, R = len(layers), layers[0][0].shape[1], wc.shape[1], wr.shape[1]
-    dev = pts.device
-    if dev.type != "cuda":
-        raise ValueError(f"ray_tile_cuda needs CUDA tensors, got {dev}")
-    if not 3 <= S <= MAX_STEPS or max(H, C, R) > MAX_WIDTH or L < 1:
-        raise ValueError(f"unsupported shape: S={S} (3..{MAX_STEPS}), H={H}, C={C}, R={R} "
-                         f"(<= {MAX_WIDTH}), L={L}")
-    if clamp_mode not in ("relu", "softplus"):
-        raise ValueError(f"clamp_mode must be 'relu' or 'softplus', got {clamp_mode!r}")
-    if mm_dtype not in (torch.float32, torch.bfloat16) or out_dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"mm/out dtype must be float32 or bfloat16, got {mm_dtype}, {out_dtype}")
-    expect = {"pts": (pts, (b, n, S, 3)), "org": (org, (b, n, 3)), "dirs": (dirs, (b, n, 3)),
-              "z": (z, (b, n, S)), "u": (u, (b, n, S)), "nc": (nc, (b, n, S)),
-              "nf": (nf, (b, n, 2 * S))}
-    for name, (t, shape) in expect.items():
-        if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != dev:
-            raise ValueError(f"{name}: expected float32 {shape} on {dev}, got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    for t in wt:
-        if t.device != dev or t.dtype != torch.float32:
-            raise ValueError("weights and films must be float32 on the inputs' device")
-    pts, org, dirs, z, u, nc, nf = (t.contiguous() for t in (pts, org, dirs, z, u, nc, nf))
-
-    mats = [layers[0][0]] + [l[0] for l in layers[1:]] + [wc, wr, ws]
+    mats = [l[0] for l in layers] + [wc, wr, ws]
     wbuf = _padded(torch.cat([w.reshape(-1) for w in mats]).to(mm_dtype), 8).contiguous()
     pbuf = _padded(torch.cat([l[1].reshape(-1) for l in layers] + [bc.reshape(-1), br.reshape(-1),
                                                                   bs.reshape(-1)]), 4).contiguous()
@@ -272,8 +399,67 @@ def ray_tile_cuda(
                     4).contiguous()
     if films.shape[0] != b:
         raise ValueError(f"films have batch {films.shape[0]}, points {b}")
+    return wbuf, pbuf, films
+
+
+def _check(name, wt, pts, org, dirs, z, u, nc, nf, clamp_mode, mm_dtype, extra=()):
+    """Shapes, dtypes and devices the kernels take; returns (L, H, C, R)."""
+    layers, (wc, bc, gc, fc, wr, br, ws, bs) = _split(wt)
+    b, n, S, _ = pts.shape
+    L, H, C, R = len(layers), layers[0][0].shape[1], wc.shape[1], wr.shape[1]
+    dev = pts.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {dev}")
+    if not 3 <= S <= MAX_STEPS or max(H, C, R) > MAX_WIDTH or L < 1:
+        raise ValueError(f"unsupported shape: S={S} (3..{MAX_STEPS}), H={H}, C={C}, R={R} "
+                         f"(<= {MAX_WIDTH}), L={L}")
+    if clamp_mode not in ("relu", "softplus"):
+        raise ValueError(f"clamp_mode must be 'relu' or 'softplus', got {clamp_mode!r}")
+    if mm_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"mm dtype must be float32 or bfloat16, got {mm_dtype}")
+    expect = {"pts": (pts, (b, n, S, 3), torch.float32), "org": (org, (b, n, 3), torch.float32),
+              "dirs": (dirs, (b, n, 3), torch.float32), "z": (z, (b, n, S), torch.float32),
+              "u": (u, (b, n, S), torch.float32), "nc": (nc, (b, n, S), torch.float32),
+              "nf": (nf, (b, n, 2 * S), torch.float32)}
+    expect.update({k: v for k, v in extra})
+    for key, (t, shape, dtype) in expect.items():
+        if tuple(t.shape) != shape or t.dtype != dtype or t.device != dev:
+            raise ValueError(f"{key}: expected {str(dtype)[6:]} {shape} on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    for t in wt:
+        if t.device != dev or t.dtype != torch.float32:
+            raise ValueError("weights and films must be float32 on the inputs' device")
+    return L, H, C, R
+
+
+def _residual_shapes(b, n, S, L, H, C, mm_dtype):
+    return {"rh": ((b, 2, n, S, L * H), mm_dtype), "ra": ((b, 2, n, S, L * H), torch.float32),
+            "rhc": ((b, 2, n, S, C), mm_dtype), "rac": ((b, 2, n, S, C), torch.float32)}
+
+
+def ray_tile_cuda(
+    wt, pts, org, dirs, z, u, nc, nf, noise_std: float = 0.0, *,
+    clamp_mode: str = "relu", white_back: bool = False, last_back: bool = False,
+    fast_sin: bool = False, mm_dtype=torch.float32, warp_scale: float = 2.0 / 0.24,
+    out_dtype=torch.float32, with_residuals: bool = False,
+):
+    """The CUDA kernel (`csrc/ray_tile.cu`); same arguments and results as
+    `ray_tile_plain` (residuals in its layout).  Raises if the library
+    cannot be built or the launch fails; never falls back to the plain
+    version."""
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"out dtype must be float32 or bfloat16, got {out_dtype}")
+    L, H, C, R = _check("ray_tile_cuda", wt, pts, org, dirs, z, u, nc, nf, clamp_mode, mm_dtype)
+    b, n, S, _ = pts.shape
+    dev = pts.device
+    pts, org, dirs, z, u, nc, nf = (t.contiguous() for t in (pts, org, dirs, z, u, nc, nf))
+    wbuf, pbuf, films = _pack(wt, b, mm_dtype)
     fea = torch.empty((b, n, R), dtype=out_dtype, device=dev)
     depth = torch.empty((b, n, 1), dtype=torch.float32, device=dev)
+    res = ([torch.empty(shape, dtype=dt, device=dev)
+            for shape, dt in _residual_shapes(b, n, S, L, H, C, mm_dtype).values()]
+           if with_residuals else [])
+    res_ptrs = [t.data_ptr() for t in res] if res else [None] * 4
     use_noise = noise_std != 0
     flags = (int(use_noise) | int(fast_sin) << 1 | int(mm_dtype == torch.bfloat16) << 2
              | int(out_dtype == torch.bfloat16) << 3)
@@ -283,16 +469,20 @@ def ray_tile_cuda(
         err = lib.cips_ray_tile_forward(
             pts.data_ptr(), org.data_ptr(), dirs.data_ptr(), z.data_ptr(), u.data_ptr(),
             nc.data_ptr(), nf.data_ptr(), wbuf.data_ptr(), pbuf.data_ptr(), films.data_ptr(),
-            fea.data_ptr(), depth.data_ptr(),
+            fea.data_ptr(), depth.data_ptr(), *res_ptrs,
             b, n, S, L, H, C, R, float(noise_std), float(warp_scale),
             wbuf.numel(), pbuf.numel(), films.shape[1],
             int(clamp_mode == "softplus"), int(white_back), int(last_back), flags, stream)
     build.check(lib, err, "ray_tile")
+    if with_residuals:
+        ray_tile_cuda.residual_launches += 1
+        return fea, depth, tuple(res)
     ray_tile_cuda.launches += 1
     return fea, depth
 
 
-ray_tile_cuda.launches = 0
+ray_tile_cuda.launches = 0            # forward launches without residuals (kernel #2)
+ray_tile_cuda.residual_launches = 0   # forward launches with residuals (kernel #2r)
 
 
 def ray_tile(wt, pts, *args, **kwargs):
@@ -302,7 +492,133 @@ def ray_tile(wt, pts, *args, **kwargs):
     return ray_tile_cuda(wt, pts, *args, **kwargs)
 
 
-@torch.no_grad()
+def _unpack_grads(wt, out_w, out_f, L, H, C, R):
+    """The backward kernel's flat grads (wbuf/pbuf order, films order) in
+    the order and shapes of ``wt``."""
+    sizes = [3 * H] + [H * H] * (L - 1) + [H * C, C * R, H] + [H] * L + [C, R, 1]
+    flat = list(out_w.split(sizes))
+    mats, biases = flat[:L + 3], flat[L + 3:]
+    films = list(out_f.split([H] * (2 * L) + [C, C], 1))
+    g = []
+    for i in range(L):
+        g += [mats[i], biases[i], films[2 * i], films[2 * i + 1]]
+    g += [mats[L], biases[L], films[2 * L], films[2 * L + 1], mats[L + 1], biases[L + 1],
+          mats[L + 2], biases[L + 2]]
+    return [gi.reshape(t.shape) for gi, t in zip(g, wt)]
+
+
+def ray_tile_bwd_cuda(
+    wt, pts, org, dirs, z, u, nc, nf, noise_std: float, d_fea, d_dep, *,
+    residuals=None, clamp_mode: str = "relu", white_back: bool = False,
+    last_back: bool = False, fast_sin: bool = False, mm_dtype=torch.float32,
+    warp_scale: float = 2.0 / 0.24,
+) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """The backward kernel (`csrc/ray_tile_bwd.cu`), recompute mode without
+    ``residuals``, residual mode with them; same arguments and results as
+    `ray_tile_bwd_plain`.  Deterministic: per-block partial sums, reduced in
+    a fixed order.  Raises on a failed build or launch."""
+    b, n, S, _ = pts.shape
+    extra = [("d_fea", (d_fea, (b, n, wt[-4].shape[1]), torch.float32)),
+             ("d_dep", (d_dep, (b, n, 1), torch.float32))]
+    layers = _split(wt)[0]
+    if residuals is not None:
+        L, H, C = len(layers), layers[0][0].shape[1], wt[-8].shape[1]
+        extra += [(k, (t, shape, dt)) for (k, (shape, dt)), t in
+                  zip(_residual_shapes(b, n, S, L, H, C, mm_dtype).items(), residuals)]
+    L, H, C, R = _check("ray_tile_bwd_cuda", wt, pts, org, dirs, z, u, nc, nf, clamp_mode,
+                        mm_dtype, extra)
+    dev = pts.device
+    pts, org, dirs, z, u, nc, nf, d_fea, d_dep = (
+        t.contiguous() for t in (pts, org, dirs, z, u, nc, nf, d_fea, d_dep))
+    res_ptrs = ([t.contiguous().data_ptr() for t in residuals] if residuals is not None
+                else [None] * 4)
+    wbuf, pbuf, films = _pack(wt, b, mm_dtype)
+    lib = build.library()
+    P = lib.cips_ray_tile_backward_row(L, H, C, R)
+    n_film = 2 * L * H + 2 * C
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gx = max(1, min((n + 3) // 4, -(-sms // b)))   # about one block per SM
+    partial = torch.empty((b, gx, P), dtype=torch.float32, device=dev)
+    d_pts = torch.empty((b, n, S, 3), dtype=torch.float32, device=dev)
+    out_w = torch.empty((P - n_film,), dtype=torch.float32, device=dev)
+    out_f = torch.empty((b, n_film), dtype=torch.float32, device=dev)
+    flags = int(noise_std != 0) | int(fast_sin) << 1 | int(mm_dtype == torch.bfloat16) << 2
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.cips_ray_tile_backward(
+            pts.data_ptr(), org.data_ptr(), dirs.data_ptr(), z.data_ptr(), u.data_ptr(),
+            nc.data_ptr(), nf.data_ptr(), wbuf.data_ptr(), pbuf.data_ptr(), films.data_ptr(),
+            d_fea.data_ptr(), d_dep.data_ptr(), *res_ptrs, partial.data_ptr(), d_pts.data_ptr(),
+            out_w.data_ptr(), out_f.data_ptr(),
+            b, n, S, L, H, C, R, gx, films.shape[1], float(noise_std), float(warp_scale),
+            int(clamp_mode == "softplus"), int(white_back), int(last_back), flags, stream)
+    build.check(lib, err, "ray_tile_bwd")
+    if residuals is None:
+        ray_tile_bwd_cuda.launches += 1
+    else:
+        ray_tile_bwd_cuda.residual_launches += 1
+    return _unpack_grads(wt, out_w, out_f, L, H, C, R), d_pts
+
+
+ray_tile_bwd_cuda.launches = 0            # recompute mode (kernel #3, 'pallas')
+ray_tile_bwd_cuda.residual_launches = 0   # residual mode (kernel #3, 'pallas_residual')
+
+
+def ray_tile_bwd(wt, pts, *args, **kwargs):
+    """`ray_tile_bwd_plain` for CPU tensors, `ray_tile_bwd_cuda` otherwise."""
+    if pts.device.type == "cpu":
+        return ray_tile_bwd_plain(wt, pts, *args, **kwargs)
+    return ray_tile_bwd_cuda(wt, pts, *args, **kwargs)
+
+
+VJP_IMPLS = ("pallas", "pallas_residual", "jnp")
+
+
+class RayTileFunction(torch.autograd.Function):
+    """The ray tile under autograd (the Pallas module's `_make_core`).
+
+    Forward: the ray-tile kernel (with residuals under 'pallas_residual').
+    Backward per ``vjp_impl``: 'pallas', the backward kernel recomputing
+    the MLP states; 'pallas_residual', the backward kernel reading the
+    residuals; 'jnp', autograd through `ray_tile_plain` (the reference).
+    The kernels give grads to the weights, films and coarse points only:
+    origins, dirs, z, u and the noise get none (the resample is detached)."""
+
+    @staticmethod
+    def forward(ctx, opts, pts, org, dirs, z, u, nc, nf, *wt):
+        noise_std, vjp_impl, kw = opts
+        inputs = (pts, org, dirs, z, u, nc, nf)
+        if vjp_impl == "pallas_residual":
+            fea, depth, res = ray_tile(list(wt), *inputs, noise_std, with_residuals=True, **kw)
+        else:
+            (fea, depth), res = ray_tile(list(wt), *inputs, noise_std, **kw), ()
+        ctx.opts = opts
+        ctx.n_res = len(res)
+        ctx.save_for_backward(*inputs, *res, *wt)
+        return fea, depth
+
+    @staticmethod
+    def backward(ctx, d_fea, d_dep):
+        noise_std, vjp_impl, kw = ctx.opts
+        saved = ctx.saved_tensors
+        inputs, res, wt = saved[:7], saved[7:7 + ctx.n_res], list(saved[7 + ctx.n_res:])
+        d_fea = d_fea.to(kw["out_dtype"]).float()
+        d_dep = d_dep.float()
+        if vjp_impl == "jnp":
+            need = ctx.needs_input_grad[1:]
+            leaves = [t.detach().requires_grad_(r) for t, r in zip(list(inputs) + wt, need)]
+            with torch.enable_grad():
+                fea, depth = ray_tile_plain(leaves[7:], *leaves[:7], noise_std, **kw)
+                wanted = [t for t in leaves if t.requires_grad]
+                grads = iter(torch.autograd.grad((fea.float(), depth), wanted, (d_fea, d_dep),
+                                                 allow_unused=True))
+            return (None,) + tuple(next(grads) if t.requires_grad else None for t in leaves)
+        kw = {k: v for k, v in kw.items() if k != "out_dtype"}
+        d_wt, d_pts = ray_tile_bwd(wt, *inputs, noise_std, d_fea, d_dep,
+                                   residuals=tuple(res) or None, **kw)
+        return (None, d_pts) + (None,) * 6 + tuple(d_wt)
+
+
 def fused_ray_render(
     siren, style_dict: Mapping[str, torch.Tensor],
     pts: torch.Tensor,       # (b, n, S, 3)
@@ -318,22 +634,28 @@ def fused_ray_render(
     last_back: bool = False,
     dtype=torch.float32,
     fast_sin: bool = False,
+    vjp_impl: str = "pallas",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused NeRF stage of `GeneratorNerfINR.points_forward` (hierarchical):
     returns (pixels_fea (b, n, R) in ``dtype``, depth (b, n, 1) f32).
 
     ``draws`` supplies the random draws (see `RayDraws`); without it they are
-    drawn from ``generator``.  Forward only: the resample is detached as in
-    the reference, and no backward kernel is ported yet."""
+    drawn from ``generator``.  Differentiable when grad is enabled and the
+    SIREN's weights or styles (or the points) require it: the backward runs
+    per ``vjp_impl`` (see `RayTileFunction`); the resample is detached as in
+    the reference.  Without grad only the forward kernel runs."""
+    if vjp_impl not in VJP_IMPLS:
+        raise ValueError(f"vjp_impl must be one of {VJP_IMPLS}, got {vjp_impl!r}")
     b, n, S, _ = pts.shape
     if draws is None:
         draws = draw_ray_randoms(b, n, S, noise_std != 0, generator, pts.device)
     mm_dtype = torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
     wt = flat_weights(siren, style_dict)
-    return ray_tile(
-        wt, pts.float(), origins.float(), dirs.float(), z_vals[..., 0].float(),
-        draws.u.float(), draws.nc.float(), draws.nf.float(), float(noise_std),
-        clamp_mode=clamp_mode, white_back=white_back, last_back=last_back,
-        fast_sin=fast_sin, mm_dtype=mm_dtype, warp_scale=2.0 / siren.box_sidelength,
-        out_dtype=dtype,
-    )
+    kw = dict(clamp_mode=clamp_mode, white_back=white_back, last_back=last_back,
+              fast_sin=fast_sin, mm_dtype=mm_dtype, warp_scale=2.0 / siren.box_sidelength,
+              out_dtype=dtype)
+    inputs = (pts.float(), origins.float(), dirs.float(), z_vals[..., 0].float(),
+              draws.u.float(), draws.nc.float(), draws.nf.float())
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in (*wt, inputs[0]))):
+        return ray_tile(wt, *inputs, float(noise_std), **kw)
+    return RayTileFunction.apply((float(noise_std), vjp_impl, kw), *inputs, *wt)

@@ -17,6 +17,11 @@ maps onto it key by key:
     ``inr_net.to_rgbs.{res}`` (zero placeholders for the heads the JAX
     model never creates), ``out_linear`` → ``inr_net.tanh.0``;
   * ``aux_to_rgb`` → ``aux_to_rbg.0``.
+
+The discriminator's tree (``d_params``) maps onto the port's
+`DiscriminatorMultiScaleAux` the same way: ``conv_in_{res}`` →
+``conv_in.{res}``, ``res_{res}`` → ``blocks.{res}``, equalized-lr linear
+kernels (in, out) → weights (out, in); conv weights are OIHW in both.
 """
 
 from __future__ import annotations
@@ -124,6 +129,35 @@ def state_dict_from_jax(params: dict) -> Dict[str, np.ndarray]:
     return sd
 
 
+def _disc_tree(dst: dict, tree: dict, name: str):
+    for k, v in tree.items():
+        if k.startswith("conv_in_"):
+            key = f"{name}conv_in.{k[len('conv_in_'):]}"
+        elif k.startswith("res_"):
+            key = f"{name}blocks.{k[len('res_'):]}"
+        else:
+            key = f"{name}{k}"
+        if isinstance(v, dict):
+            _disc_tree(dst, v, key + ".")
+        elif k == "kernel":
+            dst[f"{name}weight"] = _np(v).T.copy()
+        else:
+            dst[key] = _np(v).copy()
+
+
+def discriminator_state_dict(d_params: dict) -> Dict[str, np.ndarray]:
+    """JAX discriminator params ({"params": {...}} or the inner dict) → the
+    port's `DiscriminatorMultiScale(Aux)` state dict (numpy values)."""
+    sd: Dict[str, np.ndarray] = {}
+    _disc_tree(sd, d_params.get("params", d_params), "")
+    return sd
+
+
+def load_jax_d_params(model, d_params: dict) -> None:
+    """Load a JAX discriminator tree into a port discriminator (strict)."""
+    model.load_state_dict(to_torch(discriminator_state_dict(d_params)), strict=True)
+
+
 def to_torch(sd: Dict[str, np.ndarray]):
     """numpy state dict → torch tensors, for `load_state_dict`."""
     import torch
@@ -134,3 +168,13 @@ def to_torch(sd: Dict[str, np.ndarray]):
 def load_jax_params(model, params: dict) -> None:
     """Load a JAX parameter tree into a port `GeneratorNerfINR` (strict)."""
     model.load_state_dict(to_torch(state_dict_from_jax(params)), strict=True)
+
+
+def load_jax_train_state(state, g_params: dict, d_params: dict, ema_params: dict = None,
+                         step: int = 0) -> None:
+    """Load the G, D and EMA trees and the step counter of a JAX
+    `TrainState` into a port `TrainState` (Adam's moments start afresh)."""
+    load_jax_params(state.generator, g_params)
+    load_jax_d_params(state.discriminator, d_params)
+    load_jax_params(state.ema, g_params if ema_params is None else ema_params)
+    state.step = int(step)

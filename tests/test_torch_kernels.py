@@ -10,7 +10,10 @@ mode); the others check, on any machine, what surrounds the kernels.
 Tolerances: f32 rtol 2e-4 / atol 2e-5 (the Pallas tests').  With bf16
 matmul inputs both versions round the same values but sum in another order:
 ray tile rtol 1e-2 / atol 3e-3, INR tile rtol 1e-2 / atol 1e-3, each tight
-enough that the f32 kernel, which skips the rounding, fails it.
+enough that the f32 kernel, which skips the rounding, fails it.  Backward:
+weight and FiLM grads by the normalised error max|a-b| / (max|b| + 1) of
+`tests/test_pallas_ray.py` (1e-4 in f32, 1e-2 with bf16 inputs, which the
+f32 kernel fails), d pts per ray within 1e-4 (max|b| + 1).
 """
 
 import shutil
@@ -75,7 +78,8 @@ def _close(a, b, tol):
 
 def test_kernel_sources_are_in_the_package():
     names = {p.name for p in build._sources()}
-    assert {"ray_tile.cu", "inr_tile.cu", "common.cu", "common.cuh", "fast_sin.cuh"} <= names
+    assert {"ray_tile.cu", "ray_tile_bwd.cu", "inr_tile.cu", "common.cu", "common.cuh",
+            "fast_sin.cuh", "ray_tile.cuh"} <= names
 
 
 def test_build_needs_nvcc():
@@ -89,6 +93,11 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     wt, args = _ray_inputs("cpu")
     with pytest.raises(ValueError, match="CUDA"):
         ray_tile.ray_tile_cuda(wt, *args)
+    with pytest.raises(ValueError, match="CUDA"):
+        ray_tile.ray_tile_cuda(wt, *args, with_residuals=True)
+    d_fea, d_dep = torch.ones(B, N, 16), torch.ones(B, N, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        ray_tile.ray_tile_bwd_cuda(wt, *args, 0.0, d_fea, d_dep)
     x, s, d, w = _inr_inputs("cpu", 9)
     with pytest.raises(ValueError, match="CUDA"):
         inr_tile.inr_tile_cuda(x, s, d, w)
@@ -98,9 +107,11 @@ def test_dispatch_runs_plain_on_cpu():
     wt, args = _ray_inputs("cpu")
     before = ray_tile.ray_tile_cuda.launches, inr_tile.inr_tile_cuda.launches
     fea, dep = ray_tile.ray_tile(wt, *args)
+    g, d_pts = ray_tile.ray_tile_bwd(wt, *args, 0.0, torch.ones_like(fea), torch.ones_like(dep))
     x, s, d, w = _inr_inputs("cpu", 9)
     out = inr_tile.inr_tile(x, s, d, w)
     assert fea.shape == (B, N, 16) and dep.shape == (B, N, 1) and out.shape == (2, 70, 3)
+    assert [t.shape for t in g] == [t.shape for t in wt] and d_pts.shape == (B, N, S, 3)
     assert (ray_tile.ray_tile_cuda.launches, inr_tile.inr_tile_cuda.launches) == before
 
 
@@ -167,3 +178,100 @@ def test_kernels_check_shapes(cuda_device):
     x, s, d, w = _inr_inputs(cuda_device, 9)
     with pytest.raises(ValueError, match="expected float32"):
         inr_tile.inr_tile_cuda(x.double(), s, d, w)
+
+
+def _grad_err(a, b):
+    """max|a - b| / (max|b| + 1), the normalised error of the Pallas tests."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return ((a - b).abs().max() / (b.abs().max() + 1)).item()
+
+
+def _rays_outside(a, b, tol=1e-4):
+    """Share of rays with any d pts element off by more than tol (max|b| + 1)."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    bound = tol * (b.abs().max() + 1)
+    return ((a - b).abs() > bound).reshape(a.shape[0] * a.shape[1], -1).any(-1).float().mean().item()
+
+
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mm_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ray_tile_residuals_match_plain(cuda_device, mm_dtype):
+    wt, args = _ray_inputs(cuda_device)
+    before = ray_tile.ray_tile_cuda.residual_launches
+    fa, da, ra = ray_tile.ray_tile_cuda(wt, *args, 0.4, mm_dtype=mm_dtype, with_residuals=True)
+    fb, db, rb = ray_tile.ray_tile_plain(wt, *args, 0.4, mm_dtype=mm_dtype, with_residuals=True)
+    torch.cuda.synchronize()
+    assert ray_tile.ray_tile_cuda.residual_launches == before + 1
+    tol = F32_TOL if mm_dtype == torch.float32 else RAY_BF16_TOL
+    _close(fa, fb, tol)
+    _close(da, db, tol)
+    for x, y in zip(ra, rb):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        # pre-activations reach |a| ~ 20: the f32 tolerance scaled to them
+        _close(x, y, dict(rtol=tol["rtol"], atol=tol["atol"] * 20))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["recompute", "residual"])
+@pytest.mark.parametrize("mm_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kwargs", [
+    dict(), dict(clamp_mode="softplus"), dict(noise_std=0.4), dict(white_back=True),
+    dict(last_back=True), dict(fast_sin=True),
+], ids=["relu", "softplus", "noise", "white_back", "last_back", "fast_sin"])
+def test_ray_tile_bwd_matches_plain(cuda_device, mode, mm_dtype, kwargs):
+    wt, args = _ray_inputs(cuda_device)
+    kwargs = dict(kwargs)
+    ns = kwargs.pop("noise_std", 0.0)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    d_fea = torch.randn(B, N, 16, generator=g, device=cuda_device)
+    d_dep = torch.randn(B, N, 1, generator=g, device=cuda_device)
+    res = None
+    if mode == "residual":
+        res = ray_tile.ray_tile_cuda(wt, *args, ns, mm_dtype=mm_dtype, with_residuals=True,
+                                     **kwargs)[2]
+    ga, pa = ray_tile.ray_tile_bwd_cuda(wt, *args, ns, d_fea, d_dep, residuals=res,
+                                        mm_dtype=mm_dtype, **kwargs)
+    gb, pb = ray_tile.ray_tile_bwd_plain(wt, *args, ns, d_fea, d_dep, residuals=res,
+                                         mm_dtype=mm_dtype, **kwargs)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(ga, gb)):
+        assert a.shape == b.shape
+        assert _grad_err(a, b) < BWD_TOL[mm_dtype], f"grad {i}: {_grad_err(a, b):.3e}"
+    assert _rays_outside(pa, pb, 1e-4 if mm_dtype == torch.float32 else 1e-2) == 0
+    # and the plain backward agrees with autograd through the plain forward
+    leaves = [t.detach().requires_grad_() for t in wt]
+    p = args[0].detach().requires_grad_()
+    fea, dep = ray_tile.ray_tile_plain(leaves, p, *args[1:], ns, mm_dtype=mm_dtype, **kwargs)
+    gc = torch.autograd.grad((fea, dep), leaves + [p], (d_fea, d_dep))
+    if mm_dtype == torch.float32:
+        for a, b in zip(gb, gc[:-1]):
+            assert _grad_err(a, b) < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["recompute", "residual"])
+def test_ray_tile_bwd_deterministic(cuda_device, mode):
+    wt, args = _ray_inputs(cuda_device)
+    d_fea = torch.ones(B, N, 16, device=cuda_device)
+    d_dep = torch.ones(B, N, 1, device=cuda_device)
+    res = ray_tile.ray_tile_cuda(wt, *args, 0.4, with_residuals=True)[2] if mode == "residual" \
+        else None
+    one = ray_tile.ray_tile_bwd_cuda(wt, *args, 0.4, d_fea, d_dep, residuals=res)
+    two = ray_tile.ray_tile_bwd_cuda(wt, *args, 0.4, d_fea, d_dep, residuals=res)
+    for a, b in zip(one[0] + [one[1]], two[0] + [two[1]]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_ray_tile_bwd_bf16_control(cuda_device):
+    """The f32 backward kernel lies outside the bf16 tolerance of the bf16
+    plain backward."""
+    wt, args = _ray_inputs(cuda_device)
+    d_fea = torch.ones(B, N, 16, device=cuda_device)
+    d_dep = torch.ones(B, N, 1, device=cuda_device)
+    ga, _ = ray_tile.ray_tile_bwd_cuda(wt, *args, 0.0, d_fea, d_dep)
+    gb, _ = ray_tile.ray_tile_bwd_plain(wt, *args, 0.0, d_fea, d_dep, mm_dtype=torch.bfloat16)
+    assert max(_grad_err(a, b) for a, b in zip(ga, gb)) > BWD_TOL[torch.bfloat16]

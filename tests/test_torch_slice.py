@@ -33,9 +33,9 @@ from cips3d_tpu_torch.utils.convert import load_jax_params
 TINY = dict(z_dim_nerf=16, z_dim_inr=32, nerf_hidden_dim=32, nerf_style_dim=32,
             nerf_rgb_dim=16, nerf_mapping_layers=2, inr_hidden_dim=32, inr_style_dim=32,
             inr_mapping_layers=2)
-# the port always renders through its kernels; the JAX package switches them on
-SERVING = dict(fast_sin=True)
-JAX_SERVING = dict(fused_ray=True, fused_inr=True, **SERVING)
+# the serving flags, in both packages: both forward kernels and fast_sin
+SERVING = dict(fused_ray=True, fused_inr=True, fast_sin=True)
+JAX_SERVING = SERVING
 KERNEL_TOL = dict(rtol=2e-4, atol=2e-5)
 
 
@@ -138,7 +138,7 @@ def test_points_forward_needs_the_fused_ray_path():
     with pytest.raises(ValueError, match="ray-tile kernel"):
         GeneratorConfig(**TINY, nerf_hidden_layers=0)
     with pytest.raises(ValueError, match="INR-tile kernel"):
-        GeneratorConfig(**TINY, inr_pre_rgb_dim=4)
+        GeneratorConfig(**TINY, fused_inr=True, inr_pre_rgb_dim=4)
 
 
 # ---------------------------------------------------------------- service
