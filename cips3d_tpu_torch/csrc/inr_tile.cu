@@ -17,8 +17,13 @@
 //   * bf16 inputs: m16n8k16 on exactly the bf16-rounded values the Pallas
 //     kernel multiplies, f32 accumulation;
 //   * f32 inputs: 3xTF32, m16n8k8 on each operand split into a TF32 high
-//     part and a TF32 remainder (hi*hi + hi*lo + lo*hi), whose error is
-//     close to f32's and far inside the f32 parity tolerance.
+//     part and a TF32 remainder (hi*hi + hi*lo + lo*hi).  The tensor core
+//     does not round its additions as IEEE f32 does, so a 512-deep dot kept
+//     in the MMA's own C register drifts: on the D phase's noisy features
+//     (r64, b = 4, H100) that version was 10.9x further from a float64
+//     decode than the f32 plain version.  So each k-step's three products
+//     go into a fresh zero partial, added to the accumulator with an
+//     ordinary f32 add: 0.4x, about 8 % slower (chip_smoke.py, phases 5-6).
 // The Pallas kernel keeps all 18 weight matrices in VMEM; here they do not
 // fit in the 227 KB of shared memory (18.9 MB in f32), so each block
 // streams every layer's weights from L2, which holds all of them (50 MB),
@@ -117,7 +122,13 @@ __device__ __forceinline__ void tile_mma(float acc[kMT][kNT][4], const float* x,
       cips::split_tf32(wc[t * ldw], bhi[0], blo[0]);
       cips::split_tf32(wc[(t + 4) * ldw], bhi[1], blo[1]);
 #pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) cips::mma_3xtf32(acc[mt][nt], ahi[mt], alo[mt], bhi, blo);
+      for (int mt = 0; mt < kMT; ++mt) {
+        // a fresh partial per k-step, added to the accumulator in f32 (see the header)
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+        cips::mma_3xtf32(part, ahi[mt], alo[mt], bhi, blo);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[mt][nt][j] += part[j];
+      }
     }
   }
 }

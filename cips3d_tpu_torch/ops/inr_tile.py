@@ -83,13 +83,15 @@ def compute_inr_mods(mods, style_dict: Mapping[str, torch.Tensor], D: int,
 def inr_tile_plain(x: torch.Tensor, s: torch.Tensor, d: torch.Tensor, weights: InrWeights,
                    mm_dtype=torch.float32) -> torch.Tensor:
     """Plain PyTorch version: x (b, n, in0), s/d (b, L, D) → tanh(rgb)
-    (b, n, 3) f32."""
+    (b, n, 3) f32; with ``mm_dtype`` float64 all of it runs in float64 (a
+    witness of the f32 versions' rounding)."""
+    acc = torch.float64 if mm_dtype == torch.float64 else torch.float32
 
-    def mm(t):  # round to the matmul-input dtype; products of the rounded values are exact in f32
-        return t.to(mm_dtype).float()
+    def mm(t):  # round to the matmul-input dtype; products of the rounded values are exact in acc
+        return t.to(mm_dtype).to(acc)
 
     n_blocks = (weights.wrest.shape[0] + 1) // 2
-    x = x.float()
+    x, s, d = x.to(acc), s.to(acc), d.to(acc)
     rgb = None
     for blk in range(n_blocks):
         x_orig = x
@@ -102,7 +104,7 @@ def inr_tile_plain(x: torch.Tensor, s: torch.Tensor, d: torch.Tensor, weights: I
             x = x + x_orig
         if blk >= FIRST_RGB:
             r = blk - FIRST_RGB
-            out = mm(x) @ mm(weights.wr[r]) + weights.br[r]
+            out = mm(x) @ mm(weights.wr[r]) + weights.br[r].to(acc)
             rgb = out if rgb is None else rgb + out
     return torch.tanh(rgb)
 

@@ -1,18 +1,16 @@
-"""upfirdn2d (upsample, FIR filter, downsample): counterpart of
-`cips3d_tpu/ops/upfirdn2d.py`, NCHW only.
+"""upfirdn2d (FIR filter, then downsample): counterpart of
+`cips3d_tpu/ops/upfirdn2d.py`, NCHW only, for the separable kernels the
+discriminator blurs with.
 
 The JAX package computes this outside any Pallas kernel, and so does the
-port, in plain PyTorch, with the JAX package's two lowerings:
-  * a separable kernel (every blur of the discriminator) becomes one small
-    banded (out, in) matrix per axis and two matrix products;
-  * any other kernel: zero-stuff by ``up``, pad (negative pads crop),
-    correlate every channel with the flipped kernel through `F.conv2d` on
-    (N*C, 1, H, W), and stride by ``down``.
-Both are differentiable to any order, which R1's gradient of a gradient
-needs.  The banded products also keep that double backward fast: cuDNN
-runs the double backward of a single-channel convolution over N*C images
-as a slow implicit GEMM, which took most of a training step's device time
-on the GPU.
+port, in plain PyTorch, with the JAX package's lowering of a separable
+kernel: one small banded (out, in) matrix per axis (pad, correlate with
+the flipped taps, stride by ``down``) and two matrix products.  They are
+differentiable to any order, which R1's gradient of a gradient needs, and
+keep that double backward fast: cuDNN runs the double backward of a
+single-channel `F.conv2d` over N*C images as a slow implicit GEMM, which
+took most of a training step's device time on the GPU.  The port has no
+upsampling blur (the transposed convolution upsamples), so no ``up``.
 """
 
 from __future__ import annotations
@@ -22,7 +20,6 @@ from typing import Sequence, Tuple, Union
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 
 def make_kernel(k: Union[Sequence[float], np.ndarray]) -> np.ndarray:
@@ -33,43 +30,36 @@ def make_kernel(k: Union[Sequence[float], np.ndarray]) -> np.ndarray:
     return k / np.sum(k)
 
 
-def upfirdn2d(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
+def upfirdn2d(x: torch.Tensor, kernel, down: int = 1,
               pad: Tuple[int, int] = (0, 0)) -> torch.Tensor:
-    """x (N, C, H, W); the same ``pad`` (before, after) on both axes.
-    Output size per axis: ``(in * up + pad0 + pad1 - k) // down + 1``."""
-    n, c, h, w = x.shape
-    k = np.asarray(kernel, np.float32)
+    """x (N, C, H, W), a separable 2-D ``kernel``; the same ``pad``
+    (before, after) on both axes (negative pads crop).  Output size per
+    axis: ``(in + pad0 + pad1 - k) // down + 1``."""
+    _, _, h, w = x.shape
+    u, s, vt = np.linalg.svd(np.asarray(kernel, np.float32))
+    if not (s[0] > 0 and s[1:].max(initial=0.0) < 1e-6 * s[0]):
+        raise NotImplementedError("upfirdn2d: only separable kernels are ported")
     p0, p1 = pad
-    u, s, vt = np.linalg.svd(k)
-    if s[0] > 0 and s[1:].max(initial=0.0) < 1e-6 * s[0]:   # separable: banded products
-        my = _axis_matrix(h, tuple((u[:, 0] * s[0]).tolist()), up, down, p0, p1)
-        mx = _axis_matrix(w, tuple(vt[0].tolist()), up, down, p0, p1)
-        my = torch.as_tensor(my, dtype=x.dtype, device=x.device)
-        mx = torch.as_tensor(mx, dtype=x.dtype, device=x.device)
-        return torch.einsum("ncow,pw->ncop", torch.einsum("oh,nchw->ncow", my, x), mx)
-    kt = torch.as_tensor(k, dtype=x.dtype, device=x.device)
-    y = x.reshape(n * c, 1, h, w)
-    if up > 1:   # zero-stuff to in * up, trailing zeros included
-        y = F.pad(y.reshape(n * c, 1, h, 1, w, 1), (0, up - 1, 0, 0, 0, up - 1))
-        y = y.reshape(n * c, 1, h * up, w * up)
-    y = F.pad(y, (p0, p1, p0, p1))
-    y = F.conv2d(y, torch.flip(kt, (0, 1))[None, None], stride=down)
-    return y.reshape(n, c, y.shape[2], y.shape[3])
+    my = _axis_matrix(h, tuple((u[:, 0] * s[0]).tolist()), down, p0, p1)
+    mx = _axis_matrix(w, tuple(vt[0].tolist()), down, p0, p1)
+    my = torch.as_tensor(my, dtype=x.dtype, device=x.device)
+    mx = torch.as_tensor(mx, dtype=x.dtype, device=x.device)
+    return torch.einsum("ncow,pw->ncop", torch.einsum("oh,nchw->ncow", my, x), mx)
 
 
 @functools.lru_cache(maxsize=None)
-def _axis_matrix(in_size: int, k1d: Tuple[float, ...], up: int, down: int, pad0: int,
+def _axis_matrix(in_size: int, k1d: Tuple[float, ...], down: int, pad0: int,
                  pad1: int) -> np.ndarray:
-    """(out, in) matrix of the 1-D upfirdn on one axis: zero-stuff by ``up``
-    (to in * up), pad, correlate with the flipped taps, stride by ``down``."""
+    """(out, in) matrix of the 1-D upfirdn on one axis: pad, correlate with
+    the flipped taps, stride by ``down``."""
     kflip = k1d[::-1]
-    out_size = (in_size * up + pad0 + pad1 - len(k1d)) // down + 1
+    out_size = (in_size + pad0 + pad1 - len(k1d)) // down + 1
     m = np.zeros((out_size, in_size), np.float32)
     for o in range(out_size):
         for t, tap in enumerate(kflip):
             j = o * down + t - pad0
-            if 0 <= j < in_size * up and j % up == 0:
-                m[o, j // up] += tap
+            if 0 <= j < in_size:
+                m[o, j] += tap
     return m
 
 

@@ -149,16 +149,22 @@ def test_upsampling_conv_layer_matches_upfirdn_spec():
                                          pad=(1, 1))), **TOL)
 
 
-@pytest.mark.parametrize("kernel", ["separable", "general"])
-@pytest.mark.parametrize("up,down,pad", [(1, 2, (2, 1)), (2, 1, (2, 1)), (1, 1, (-1, -1))])
-def test_upfirdn2d_matches_jax(kernel, up, down, pad):
-    """Both lowerings: banded products (separable) and `F.conv2d` (general)."""
-    k = (make_kernel((1, 3, 3, 1)) if kernel == "separable"
-         else np.outer([1, 2, 1], [1, 0, -1]).astype(np.float32) + np.eye(3, dtype=np.float32))
+@pytest.mark.parametrize("kernel", ["blur", "blur_x4_asymmetric"])
+@pytest.mark.parametrize("down,pad", [(2, (2, 1)), (1, (2, 1)), (1, (-1, -1))])
+def test_upfirdn2d_matches_jax(kernel, down, pad):
+    """The banded products against JAX, for separable kernels."""
+    k = (make_kernel((1, 3, 3, 1)) if kernel == "blur"
+         else np.outer([1, 2, 1], [1, 3, 3, 2]).astype(np.float32) * 4.0)
     x = _x((2, 3, 9, 9), 7)
-    ref = jax_upfirdn2d(jnp.asarray(x), k, up, down, pad)
-    out = port_upfirdn.upfirdn2d(torch.from_numpy(x), k, up, down, pad)
+    ref = jax_upfirdn2d(jnp.asarray(x), k, 1, down, pad)
+    out = port_upfirdn.upfirdn2d(torch.from_numpy(x), k, down, pad)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=2e-6)
+
+
+def test_upfirdn2d_rejects_non_separable_kernel():
+    k = np.outer([1, 2, 1], [1, 0, -1]).astype(np.float32) + np.eye(3, dtype=np.float32)
+    with pytest.raises(NotImplementedError, match="separable"):
+        port_upfirdn.upfirdn2d(torch.zeros(1, 1, 5, 5), k)
 
 
 def test_diffaug_is_not_ported():

@@ -115,6 +115,14 @@ def test_dispatch_runs_plain_on_cpu():
     assert (ray_tile.ray_tile_cuda.launches, inr_tile.inr_tile_cuda.launches) == before
 
 
+def test_inr_tile_plain_float64_witness():
+    """``mm_dtype=float64`` runs the whole plain decode in float64."""
+    x, s, d, w = _inr_inputs("cpu", 9)
+    exact = inr_tile.inr_tile_plain(x, s, d, w, mm_dtype=torch.float64)
+    assert exact.dtype == torch.float64
+    _close(inr_tile.inr_tile_plain(x, s, d, w), exact.float(), dict(rtol=1e-5, atol=1e-6))
+
+
 # ---------------------------------------------------------------- on the card
 
 @pytest.mark.gpu
@@ -148,6 +156,19 @@ def test_inr_tile_kernel_matches_plain(cuda_device, mm_dtype, n_blocks):
     torch.cuda.synchronize()
     assert ref.abs().max() > 0.1   # the chain, not only the biases, reaches the output
     _close(out, ref, F32_TOL if mm_dtype == torch.float32 else INR_BF16_TOL)
+
+
+@pytest.mark.gpu
+def test_inr_tile_kernel_as_close_to_float64_as_plain(cuda_device):
+    """At the flagship's width (D = 512, 18 layers of 512-deep dots) on
+    order-1 features, the f32 kernel is at most twice as far from a float64
+    decode as the f32 plain version."""
+    x, s, d, w = _inr_inputs(cuda_device, 9, D=512, in0=32, n=256)
+    out = inr_tile.inr_tile_cuda(x, s, d, w)
+    ref = inr_tile.inr_tile_plain(x, s, d, w)
+    exact = inr_tile.inr_tile_plain(x, s, d, w, mm_dtype=torch.float64)
+    torch.cuda.synchronize()
+    assert (out.double() - exact).abs().max() <= 2 * (ref.double() - exact).abs().max()
 
 
 @pytest.mark.gpu
