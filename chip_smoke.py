@@ -18,7 +18,8 @@ Phases, each printing one line (plus detail lines):
      that both kernels were launched by that run, and hold a small frame
      against the plain path on the CPU;
   5. median times (CUDA events) of each kernel and its plain version, and
-     frame latencies;
+     frame latencies; beside the ray tile's time its resident warps per SM
+     (CUDA occupancy API), shared memory and the ptxas registers and spills;
   6. the training kernels at r64, b = 4, S = 12 (16384 rays): the INR tile
      on the D phase's features (density noise 1.0) against its plain
      version, and both against a float64 decode; at density noise 0 and
@@ -27,8 +28,10 @@ Phases, each printing one line (plus detail lines):
      (residual, exact sine; recompute, polynomial sine) against the plain
      backward and against autograd of the plain forward: weight and FiLM
      grads by the normalised error max|a-b| / (max|b| + 1), d pts per ray,
-     two runs bit for bit, bf16 against an f32-kernel control; beside each
-     noise case a float64-resample witness;
+     two runs bit for bit, bf16 against an f32-kernel control; without noise
+     the f32 kernel at most F64_RATIO times as far from a float64 run of the
+     plain backward as the f32 plain backward; beside each noise case a
+     float64-resample witness;
   7. training at the flagship's full width, r64, b = 4, aux on: 10 steps of
      the exact-sine config (ray tile with residuals + residual backward in
      the G phase) and of the polynomial-sine config (recompute backward);
@@ -39,7 +42,9 @@ Phases, each printing one line (plus detail lines):
      the INR tile on that step's D-phase features, and a witness (the CPU
      step with its D-phase fakes moved by rounding-sized noise);
   8. median step time and images/s of both configs, and the median CUDA
-     event times of the training kernels beside their plain versions.
+     event times of the training kernels beside their plain versions, each
+     with the warps per SM, shared memory, registers and spills of the
+     kernels it launches.
 The second-to-last line is a JSON summary of the kernels (with each one's
 bound on the card: the larger of its multiply-adds over the 67 TFLOP/s f32
 FMA peak and its bytes over 3.35 TB/s), the last line the device summary.
@@ -51,6 +56,7 @@ error before printing any result.
 import copy
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -80,8 +86,9 @@ FRAME_ATOL = 1e-3         # end-to-end frame vs plain CPU path: 1/8 of an 8-bit 
 BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 D_PTS_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 STEP_TOL = dict(loss_rtol=1e-4, grad=3e-4, param=2e-2)   # card step vs CPU step, as the CPU tests
-# The INR-tile kernel on the D phase's features: its max abs error against a float64
-# decode at most this multiple of the f32 plain version's
+# The INR-tile kernel on the D phase's features (max abs error) and the ray-tile backward at
+# density noise 0 (normalised grad error): at most this multiple of the f32 plain version's
+# distance from a float64 run of the plain version
 F64_RATIO = 2.0
 F32_PEAK = 67e12          # FLOP/s, f32 FMA outside the tensor cores (H100 SXM data sheet)
 HBM_RATE = 3.35e12        # B/s
@@ -170,6 +177,48 @@ def bound_ms(flops, nbytes):
 def siren_macs(H, L, C, R):
     """Multiply-adds of the FiLM-SIREN per point."""
     return 3 * H + (L - 1) * H * H + H * C + C * R + H
+
+
+def ptxas_resources(text):
+    """{entry function: (registers, spill store bytes, spill load bytes)}
+    from the build log of `nvcc -Xptxas -v`."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur:
+            out[cur] = (None, int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur in out:
+            out[cur] = (int(m.group(1)),) + out[cur][1:]
+    return out
+
+
+# the kernels of each timed ray-tile entry: (occupancy key, mangled-name pattern of the f32 build)
+RAY_KERNELS = {
+    "ray_tile": [("ray_tile", r"ray_tile_kernelIfLb0E")],
+    "ray_tile_residuals": [("ray_tile_residuals", r"ray_tile_kernelIfLb1E")],
+    "ray_tile_bwd_residual": [("ray_tile_bwd_cot", r"ray_tile_bwd_cotIfE"),
+                              ("ray_tile_bwd_wgrad", r"ray_tile_bwd_wgradIfE")],
+    "ray_tile_bwd_recompute": [("ray_tile_residuals", r"ray_tile_kernelIfLb1E"),
+                               ("ray_tile_bwd_cot", r"ray_tile_bwd_cotIfE"),
+                               ("ray_tile_bwd_wgrad", r"ray_tile_bwd_wgradIfE")],
+}
+
+
+def resources_line(entry, occ, ptxas):
+    """Resident warps per SM (CUDA occupancy API), shared memory and the
+    ptxas registers and spills of each kernel an entry launches (f32)."""
+    parts = []
+    for key, pat in RAY_KERNELS[entry]:
+        warps, smem, threads = occ[key]
+        regs = [v for k, v in ptxas.items() if re.search(pat, k)]
+        r = (f"{regs[0][0]} registers, spills {regs[0][1]}/{regs[0][2]} B" if regs
+             else "ptxas report not found")
+        parts.append(f"{key}: {warps} warps/SM ({threads} threads, {smem / 1024:.1f} KB shared), {r}")
+    return "; ".join(parts)
 
 
 def cuda_ms(fns, reps=15, warmup=2):
@@ -285,6 +334,19 @@ def kernel_phase(dev, log):
                     if noise == 0:
                         errs[f"ray_tile_bwd_{mode}"] = max(
                             (a - b_).abs().max().item() for a, b_ in zip(ga, gb))
+                        # both against a float64 run of the plain backward
+                        g64, _ = rt.ray_tile_bwd_plain(
+                            [w.double() for w in wt], *[t.double() for t in args[1:8]], 0.0,
+                            d_fea.double(), d_dep.double(), residuals=res, fast_sin=fs,
+                            mm_dtype=torch.float64)
+                        ek, ep = max_grad_err(ga, g64), max_grad_err(gb, g64)
+                        log(f"  3 {tag} float32 vs a float64 plain backward: normalised grad "
+                            f"err kernel {ek:.2e}, plain {ep:.2e} ({ek / max(ep, 1e-30):.2f}x, "
+                            f"need <= {F64_RATIO})")
+                        del g64
+                        if ek > F64_RATIO * ep:
+                            raise AssertionError(f"3 {tag}: the kernel is further from float64 "
+                                                 f"than {F64_RATIO}x the plain backward")
                     again = rt.ray_tile_bwd_cuda(*args, d_fea, d_dep, residuals=res,
                                                  fast_sin=fs, mm_dtype=mm)
                     same = all(torch.equal(x, y) for x, y in zip(ga + [pa], again[0] + [again[1]]))
@@ -573,6 +635,7 @@ def training_phases(dev, smi, log):
 
     from cips3d_tpu_torch.models.generator import GeneratorConfig, GeneratorNerfINR, RenderOptions
     from cips3d_tpu_torch.models.generator import sample_zs
+    from cips3d_tpu_torch.ops import build
     from cips3d_tpu_torch.ops import ray_tile as rt
 
     t0 = time.perf_counter()
@@ -641,11 +704,14 @@ def training_phases(dev, smi, log):
         t_brec = cuda_ms([lambda: rt.ray_tile_bwd_plain(*args, d_fea, d_dep, fast_sin=True),
                           lambda: rt.ray_tile_bwd_cuda(*args, d_fea, d_dep, fast_sin=True)],
                          reps=10)
-    for name, (plain, kern) in (("2r ray tile with residuals (exact sine)", t_res),
-                                ("3 backward, residual mode (exact sine)", t_bres),
-                                ("3 backward, recompute mode (fast_sin)", t_brec)):
+    occ = rt.kernel_occupancy(S, L, H, C, R)
+    ptxas = ptxas_resources(build.build().with_suffix(".log").read_text())
+    for name, key, (plain, kern) in (
+            ("2r ray tile with residuals (exact sine)", "ray_tile_residuals", t_res),
+            ("3 backward, residual mode (exact sine)", "ray_tile_bwd_residual", t_bres),
+            ("3 backward, recompute mode (fast_sin)", "ray_tile_bwd_recompute", t_brec)):
         log(f"phase 8 time: {name} r64 b=4 S=12 noise 0.5 f32: kernel {kern:.3f} ms, plain "
-            f"{plain:.3f} ms [{smi}]")
+            f"{plain:.3f} ms [{smi}]; {resources_line(key, occ, ptxas)}")
     log(f"phase 8 done in {time.perf_counter() - t0:.1f} s (step times in phase 7)")
     # bounds: multiply-adds at 2 FLOP each over the f32 FMA peak; bytes read once, written once
     pts = b * n * 2 * S
@@ -891,9 +957,12 @@ def main():
             timings[f"inr_tile {dn}"] = cuda_ms(
                 [lambda: inr_tile.inr_tile_plain(fea, s, d, weights, mm_dtype=mm),
                  lambda: inr_tile.inr_tile_cuda(fea, s, d, weights, mm_dtype=mm)])
+    occ = ray_tile.kernel_occupancy(SERVING_STEPS, 2, 128, 64, 32)
+    ptxas = ptxas_resources(lib_path.with_suffix(".log").read_text())
     for k, (plain, kern) in timings.items():
+        extra = f"; {resources_line('ray_tile', occ, ptxas)}" if k == "ray_tile float32" else ""
         log(f"phase 5 time: {k} r128 x{SERVING_STEPS} (n=16384): kernel {kern:.3f} ms, "
-            f"plain {plain:.3f} ms [{smi}]")
+            f"plain {plain:.3f} ms [{smi}]{extra}")
     lat = {}
     for name, svc, reps in (("r128 x24", service, 41), ("r256 x12", service_r256, 21)):
         svc.frame(seed=9)

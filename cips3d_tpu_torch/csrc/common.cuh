@@ -44,6 +44,28 @@ __device__ __forceinline__ void copy16(void* dst, const void* src, size_t bytes)
 
 __host__ __device__ inline size_t align16(size_t bytes) { return (bytes + 15) & ~size_t(15); }
 
+// Offset of the next 16-byte aligned region of `bytes`; advances `off` past it.
+__host__ __device__ inline size_t take(size_t& off, size_t bytes) {
+  const size_t o = off;
+  off += align16(bytes);
+  return o;
+}
+
+// Resident warps per SM of `kernel` at `threads` threads and `smem` bytes of
+// dynamic shared memory: out[0] warps, out[1] shared bytes, out[2] threads.
+template <typename K>
+int occupancy(K kernel, int threads, size_t smem, int* out) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  out[0] = blocks * threads / 32;
+  out[1] = (int)smem;
+  out[2] = threads;
+  return (int)err;
+}
+
 // ---- tensor-core products (warp-level mma.sync, sm_80+) ------------------
 // Fragment layouts (PTX ISA, mma.m16n8k8 / m16n8k16): with g = lane / 4 and
 // t = lane % 4, A rows g and g + 8, B column g, C rows g and g + 8 at

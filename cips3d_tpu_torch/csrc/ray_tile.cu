@@ -10,53 +10,47 @@
 // Options as in the Pallas kernel: relu/softplus density, density noise
 // (draws made outside), white_back, last_back, fast_sin, bf16 matmul inputs.
 // With residuals (the training forward of the residual-mode backward,
-// ray_tile_bwd.cu) it also writes, per pass and point, every hidden layer's
-// pre-activation a (f32) and output h (mm type), and the colour FiLM's ac
-// and hc: rh/ra (b, 2, n, S, L*H), rhc/rac (b, 2, n, S, C), pass 0 coarse,
-// 1 fine, points ray-major.  That is 2560 B a point in f32 at the flagship
-// widths, written once: at r64, b = 4, S = 12 (0.39 M points) 1.0 GB, or
-// 0.30 ms at 3.35 TB/s beside the MLP's 0.32 ms bound, so with residuals
-// the bound is about twice the plain forward's.  The stores are coalesced
-// (a warp writes 32 neighbouring channels of one point).
+// ray_tile_bwd.cu, which also runs this kernel for its recompute mode) it
+// also writes, per pass and point, every hidden layer's pre-activation a
+// (f32) and output h (mm type), and the colour FiLM's ac and hc: rh/ra
+// (b, 2, n, S, L*H), rhc/rac (b, 2, n, S, C), pass 0 coarse, 1 fine, points
+// ray-major: 2560 B a point in f32 at the flagship widths.  The stores go
+// from the accumulator fragments: each warp store fills whole 32-byte
+// sectors of 8 rows (f32).
 //
 // What bounds it on an H100: the point MLP.  Per sample point it costs
 // 2 * (3H + (L-1)H^2 + HC + CR + H) = 54 kFLOP and L*H + C sines at the
 // flagship widths (H=128, L=2, C=64, R=32); a 128x128 frame at S=24 is
-// 0.79 M points, 43 GFLOP and 0.25 G sines, which this kernel runs on the
-// f32 FMA units at about a tenth of their rate.  The products are not what
-// bounds it: moved to the tensor cores (3xTF32) they left the f32 time
-// unchanged on an H100, so the time goes to what surrounds them (per-chunk
-// barriers with 4 warps per SM, the sines, the per-ray stages); that
-// variant was not kept.  The per-ray stages are O(S^2) (resample) and
-// O((2S)^2) (compositing) scalar work, one warp per ray.
-//
-// Design: as on the TPU, every intermediate of a block of rays stays on
-// chip and only per-ray inputs and (feature, depth) touch device memory.
-// The weights of the whole SIREN (106 KB in f32 at the flagship widths)
-// are copied once per block into shared memory.  The per-point hidden state
-// of a whole ray block does not fit beside them, so a block of 4 rays walks
-// its S points per pass in chunks of 32 points, keeping one chunk's hidden
-// states in two 32 x 128 f32 buffers; the per-point sigma and rgb of both
-// passes stay in shared memory for compositing.  The per-ray stages run one
-// warp per ray with one lane per sample, so they need no sort: ranks are
-// counted, and the [fine, coarse] stable tie-break follows from counting
-// equal depths at lower arrival index.  The Pallas kernel's floors and
-// guards are kept exactly: max(1 - alpha, 1e-10), never + eps; the
-// `cdf < u` count with the denom < 1e-5 -> 1 guard; the successor delta and
-// the 1e10 last delta.  Finding what bounds it, and a persistent grid that
-// loads the weights once per SM, are later work.
+// 0.79 M points and 43 GFLOP, 0.64 ms at the 67 TFLOP/s f32 FMA rate, and a
+// tenth of that on the tensor cores.  An earlier version ran the products on
+// the FMA units with 4 warps per SM and spent 89 % of its time in the
+// per-element epilogues between barriers.  This design:
+//   * 16 warps share one copy of the weights (one block of 512 threads per
+//     SM, 16 rays a block: one warp per ray in the per-ray stages);
+//   * a persistent grid (about one block per SM) walks the ray blocks of all
+//     batch rows, so the weights (121 KB in f32, rows padded) are loaded
+//     once per SM rather than once per 4 rays;
+//   * the products run on the tensor cores (ray_mlp.cuh: 3xTF32 with a fresh
+//     partial per k-step in f32, bf16 m16n8k16), and the bias + FiLM + sine
+//     + rounding epilogues work on the accumulator fragments in registers;
+//   * the per-sample rgb of a ray block (16 x 2S x R floats, 48 KB at S = 24,
+//     R = 32) goes to a per-block scratch slot in device memory, which
+//     stays in L2, since it does not fit beside the weights.
+// The per-ray stages are those of ray_tile.cuh (the backward runs the same
+// code, so it reproduces the fine depths bit for bit).  The Pallas kernel's
+// floors and guards are kept exactly: max(1 - alpha, 1e-10), never + eps;
+// the `cdf < u` count with the denom < 1e-5 -> 1 guard; the successor delta
+// and the 1e10 last delta.
 
-#include "common.cuh"
-#include "fast_sin.cuh"
+#include "ray_mlp.cuh"
 #include "ray_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;     // 4 warps
-constexpr int kRays = 4;          // rays per block: one warp per ray in the per-ray stages
-constexpr int kRows = 32;         // points per MLP chunk; warp w owns rows 8w..8w+7
-constexpr int kRowsPerWarp = kRows / (kThreads / 32);
-constexpr int kColsPerLane = 4;   // layer widths up to 128; S <= 32 (two of 2S samples per lane)
+using cips_mlp::kRows;
+using cips_mlp::kThreads;
+using cips_mlp::kXLd;
+constexpr int kRays = cips_mlp::kWarps;   // rays per block: one warp per ray
 
 struct RayArgs {
   const float* pts;    // (b, n, S, 3) coarse points
@@ -66,7 +60,7 @@ struct RayArgs {
   const float* u;      // (b, n, S) importance-sample uniforms
   const float* nc;     // (b, n, S) resample density noise
   const float* nf;     // (b, n, 2S) compositing density noise
-  const void* wbuf;    // mm type: w_0 (3,H), w_1.. (H,H), wc (H,C), wr (C,R), ws (H); padded
+  const void* wbuf;    // mm type: w_0 (3,H), w_1.. (H,H), wc (H,C), wr (C,R), ws (H)
   const float* pbuf;   // b_0.. (H), bc (C), br (R), bs (1); padded
   const float* films;  // (b, nfilm): g_0, f_0, g_1, f_1, .. (H each), gc, fc (C each); padded
   void* fea;           // (b, n, R) out type
@@ -75,110 +69,53 @@ struct RayArgs {
   float* ra;           // (b, 2, n, S, L*H)
   void* rhc;           // (b, 2, n, S, C) mm type
   float* rac;          // (b, 2, n, S, C)
-  int b, n, S, L, H, C, R;
-  int nw, np, nfilm;   // padded element counts of wbuf, pbuf and one films row
+  float* rgb;          // scratch (grid, kRays, 2S, R)
+  int b, n, S, L, H, C, R, grid;
+  int np, nfilm;       // padded element counts of pbuf and one films row
   float noise_std, warp_scale;
   int softplus, white_back, last_back, use_noise, fast_sin, out_bf16;
 };
 
 struct RayLayout {
-  size_t w, p, f, bufa, bufb, sig, zall, sall, nfv, t1, t2, rank, uv, ncv, od, rgb, resrow, total;
-  int ldb;   // row stride of the chunk buffers
-  __host__ __device__ RayLayout(const RayArgs& a, size_t tsize) {
+  size_t w, p, f, xb, hb, sig, zall, sall, nfv, t1, t2, rank, uv, ncv, od, total;
+  int ldh;   // row stride of the hidden-state buffer
+  template <typename T>
+  __host__ __device__ static RayLayout make(const RayArgs& a) {
+    RayLayout y;
     const int M = 2 * a.S;
-    ldb = a.H > a.C ? a.H : a.C;
-    if (a.R > ldb) ldb = a.R;
+    const cips_mlp::WLayout wl = cips_mlp::WLayout::make<T>(a.L, a.H, a.C, a.R);
+    y.ldh = (a.H > a.C ? a.H : a.C) + 4;
     size_t off = 0;
-    w = take(off, tsize * a.nw);
-    p = take(off, sizeof(float) * a.np);
-    f = take(off, sizeof(float) * a.nfilm);
-    bufa = take(off, sizeof(float) * kRows * ldb);
-    bufb = take(off, sizeof(float) * kRows * ldb);
-    sig = take(off, sizeof(float) * kRows);
-    zall = take(off, sizeof(float) * kRays * M);
-    sall = take(off, sizeof(float) * kRays * M);
-    nfv = take(off, sizeof(float) * kRays * M);
-    t1 = take(off, sizeof(float) * kRays * M);
-    t2 = take(off, sizeof(float) * kRays * M);
-    rank = take(off, sizeof(int) * kRays * M);
-    uv = take(off, sizeof(float) * kRays * a.S);
-    ncv = take(off, sizeof(float) * kRays * a.S);
-    od = take(off, sizeof(float) * kRays * 8);
-    rgb = take(off, sizeof(float) * kRays * M * a.R);
-    resrow = take(off, sizeof(long long) * kRows);
-    total = off;
-  }
-  // Offset of the next region of `bytes`; advances `off` past it.
-  __host__ __device__ static size_t take(size_t& off, size_t bytes) {
-    const size_t o = off;
-    off += cips::align16(bytes);
-    return o;
+    y.w = cips::take(off, sizeof(T) * wl.total);
+    y.p = cips::take(off, sizeof(float) * a.np);
+    y.f = cips::take(off, sizeof(float) * a.nfilm);
+    y.xb = cips::take(off, sizeof(float) * kRows * kXLd);
+    y.hb = cips::take(off, sizeof(float) * kRows * y.ldh);
+    y.sig = cips::take(off, sizeof(float) * kRows);
+    y.zall = cips::take(off, sizeof(float) * kRays * M);
+    y.sall = cips::take(off, sizeof(float) * kRays * M);
+    y.nfv = cips::take(off, sizeof(float) * kRays * M);
+    y.t1 = cips::take(off, sizeof(float) * kRays * M);
+    y.t2 = cips::take(off, sizeof(float) * kRays * M);
+    y.rank = cips::take(off, sizeof(int) * kRays * M);
+    y.uv = cips::take(off, sizeof(float) * kRays * a.S);
+    y.ncv = cips::take(off, sizeof(float) * kRays * a.S);
+    y.od = cips::take(off, sizeof(float) * kRays * 8);
+    y.total = off;
+    return y;
   }
 };
 
-// out[r][c] = epi(sum_k in[r][k] W[k][c] + bias[c]) for the 32 rows of a
-// chunk and c < N (N <= 128).  epi: with `gain`, sin(gain[c] v + shift[c])
-// rounded to the mm type (a FiLM-SIREN layer); without, v as is (f32).
-// With kRes, row r's pre-activation v and output also go to res_a / res_h
-// at row res_row[r] (row stride res_ld; skipped if < 0).  A template
-// argument, so that the forward without residuals compiles as it did.
-template <typename T, bool kRes = false>
-__device__ void chunk_layer(const float* in, int ld, int K, const T* W, int N,
-                            const float* bias, const float* gain, const float* shift,
-                            int fast_sin, float* out, const long long* res_row = nullptr,
-                            float* res_a = nullptr, T* res_h = nullptr, int res_ld = 0) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float* x = in + warp * kRowsPerWarp * ld;
-  float acc[kRowsPerWarp][kColsPerLane];
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i)
-#pragma unroll
-    for (int j = 0; j < kColsPerLane; ++j) acc[i][j] = 0.f;
-  for (int k = 0; k < K; ++k) {
-    float w[kColsPerLane];
-#pragma unroll
-    for (int j = 0; j < kColsPerLane; ++j) {
-      const int c = lane + 32 * j;
-      w[j] = c < N ? cips::to_f(W[k * N + c]) : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const float xv = x[i * ld + k];
-#pragma unroll
-      for (int j = 0; j < kColsPerLane; ++j) acc[i][j] = fmaf(xv, w[j], acc[i][j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < kColsPerLane; ++j) {
-    const int c = lane + 32 * j;
-    if (c >= N) continue;
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const int row = warp * kRowsPerWarp + i;
-      float v = acc[i][j] + bias[c];
-      const float a = v;
-      if (gain != nullptr) {
-        const float arg = gain[c] * v + shift[c];
-        v = cips::round_mm<T>(fast_sin ? cips_fast_sinf(arg) : sinf(arg));
-      }
-      out[row * ld + c] = v;
-      if (kRes && res_row[row] >= 0) {
-        res_a[res_row[row] * res_ld + c] = a;
-        res_h[res_row[row] * res_ld + c] = cips::from_f<T>(v);
-      }
-    }
-  }
-}
-
 template <typename T, bool kRes>
-__global__ void __launch_bounds__(kThreads) ray_tile_kernel(RayArgs a) {
+__global__ void __launch_bounds__(kThreads, 1) ray_tile_kernel(RayArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const RayLayout lay(a, sizeof(T));
-  const T* wsm = reinterpret_cast<const T*>(smem + lay.w);
-  const float* psm = reinterpret_cast<const float*>(smem + lay.p);
-  const float* fsm = reinterpret_cast<const float*>(smem + lay.f);
-  float* bufa = reinterpret_cast<float*>(smem + lay.bufa);
-  float* bufb = reinterpret_cast<float*>(smem + lay.bufb);
+  const RayLayout lay = RayLayout::make<T>(a);
+  const cips_mlp::WLayout wl = cips_mlp::WLayout::make<T>(a.L, a.H, a.C, a.R);
+  T* wsm = reinterpret_cast<T*>(smem + lay.w);
+  float* psm = reinterpret_cast<float*>(smem + lay.p);
+  float* fsm = reinterpret_cast<float*>(smem + lay.f);
+  float* xb = reinterpret_cast<float*>(smem + lay.xb);
+  float* hb = reinterpret_cast<float*>(smem + lay.hb);
   float* sig = reinterpret_cast<float*>(smem + lay.sig);
   float* zall = reinterpret_cast<float*>(smem + lay.zall);   // [ray][fine 0..S-1, coarse S..2S-1]
   float* sall = reinterpret_cast<float*>(smem + lay.sall);
@@ -189,122 +126,81 @@ __global__ void __launch_bounds__(kThreads) ray_tile_kernel(RayArgs a) {
   float* uv = reinterpret_cast<float*>(smem + lay.uv);
   float* ncv = reinterpret_cast<float*>(smem + lay.ncv);
   float* od = reinterpret_cast<float*>(smem + lay.od);       // [ray][org xyz, pad, dir xyz, pad]
-  float* rgb = reinterpret_cast<float*>(smem + lay.rgb);     // [ray][slot][R]
-  long long* resrow = reinterpret_cast<long long*>(smem + lay.resrow);
   T* rh = static_cast<T*>(a.rh);
   T* rhc = static_cast<T*>(a.rhc);
 
-  const int S = a.S, M = 2 * S, H = a.H, C = a.C, R = a.R, L = a.L, n = a.n;
-  const int ld = lay.ldb;
-  const int bi = blockIdx.y, ray0 = blockIdx.x * kRays;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int S = a.S, M = 2 * S, R = a.R, n = a.n, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int nrb = (n + kRays - 1) / kRays;
+  float* rgbs = a.rgb + (size_t)blockIdx.x * kRays * M * R;   // this block's slot
 
-  cips::copy16(smem + lay.w, a.wbuf, sizeof(T) * a.nw);
-  cips::copy16(smem + lay.p, a.pbuf, sizeof(float) * a.np);
-  cips::copy16(smem + lay.f, a.films + (size_t)bi * a.nfilm, sizeof(float) * a.nfilm);
-  for (int i = threadIdx.x; i < kRays * S; i += kThreads) {
-    const int r = i / S, s = i % S, ray = ray0 + r;
-    const bool ok = ray < n;
-    const size_t idx = ((size_t)bi * n + ray) * S + s;
-    zall[r * M + S + s] = ok ? a.z[idx] : 0.f;
-    uv[i] = ok ? a.u[idx] : 0.f;
-    ncv[i] = ok && a.use_noise ? a.nc[idx] : 0.f;
-  }
-  for (int i = threadIdx.x; i < kRays * M; i += kThreads) {
-    const int r = i / M, m = i % M, ray = ray0 + r;
-    nfv[i] = ray < n && a.use_noise ? a.nf[((size_t)bi * n + ray) * M + m] : 0.f;
-  }
-  for (int i = threadIdx.x; i < kRays * 3; i += kThreads) {
-    const int r = i / 3, c = i % 3, ray = ray0 + r;
-    const size_t idx = ((size_t)bi * n + ray) * 3 + c;
-    od[r * 8 + c] = ray < n ? a.org[idx] : 0.f;
-    od[r * 8 + 4 + c] = ray < n ? a.dir[idx] : 0.f;
-  }
-  __syncthreads();
+  cips_mlp::load_weights<T>(wsm, static_cast<const T*>(a.wbuf), wl, a.L, a.H, a.C, R);
+  for (int i = tid; i < a.np; i += kThreads) psm[i] = a.pbuf[i];
+  for (int i = tid; i < kRows * kXLd; i += kThreads) xb[i] = 0.f;   // columns 3.. stay zero
+  const cips_mlp::Mlp<T> mlp{wsm, wl, psm, fsm, a.L, a.H, a.C, R, a.fast_sin};
 
-  const T* wc = wsm + 3 * H + (size_t)(L - 1) * H * H;
-  const T* wr = wc + H * C;
-  const T* ws = wr + C * R;
-  const float* bc = psm + L * H;
-  const float* br = bc + C;
-  const float bs = br[R];
-  const float* gc = fsm + 2 * L * H;
-  const float* fc = gc + C;
-
-  // FiLM-SIREN over one pass of the block's kRays * S points.
-  auto run_mlp = [&](bool fine) {
-    const int npts = kRays * S;
-    for (int q0 = 0; q0 < npts; q0 += kRows) {
-      for (int i = threadIdx.x; i < kRows * 3; i += kThreads) {
-        const int row = i / 3, c = i % 3, q = q0 + row;
-        float v = 0.f;
-        if (q < npts) {
-          const int r = q / S, s = q % S, ray = ray0 + r;
-          if (ray < n)
-            v = fine ? od[r * 8 + c] + od[r * 8 + 4 + c] * zall[r * M + s]
-                     : a.pts[(((size_t)bi * n + ray) * S + s) * 3 + c];
-        }
-        bufa[row * ld + c] = cips::round_mm<T>(v * a.warp_scale);   // UniformBoxWarp
-      }
-      for (int row = threadIdx.x; kRes && row < kRows; row += kThreads) {   // residual rows
-        const int q = q0 + row, r = q / S, s = q % S;
-        resrow[row] = q < npts && ray0 + r < n
-                          ? ((((long long)bi * 2 + fine) * n + ray0 + r) * S + s) : -1;
-      }
-      __syncthreads();
-      float* cur = bufa;
-      float* nxt = bufb;
-      for (int l = 0; l < L; ++l) {
-        const T* w = wsm + (l == 0 ? 0 : 3 * H + (size_t)(l - 1) * H * H);
-        chunk_layer<T, kRes>(cur, ld, l == 0 ? 3 : H, w, H, psm + l * H,
-                             fsm + 2 * l * H, fsm + 2 * l * H + H, a.fast_sin, nxt, resrow,
-                             kRes ? a.ra + l * H : nullptr, kRes ? rh + l * H : nullptr, L * H);
-        __syncthreads();
-        float* t = cur; cur = nxt; nxt = t;
-      }
-      for (int i = 0; i < kRowsPerWarp; ++i) {   // sigma head
-        const int row = warp * kRowsPerWarp + i;
-        float v = 0.f;
-        for (int k = lane; k < H; k += 32) v = fmaf(cur[row * ld + k], cips::to_f(ws[k]), v);
-        v = cips::warp_sum(v);
-        if (lane == 0) sig[row] = v + bs;
-      }
-      chunk_layer<T, kRes>(cur, ld, H, wc, C, bc, gc, fc, a.fast_sin, nxt, resrow,   // colour FiLM
-                           kRes ? a.rac : nullptr, kRes ? rhc : nullptr, C);
-      __syncthreads();
-      chunk_layer<T>(nxt, ld, C, wr, R, br, nullptr, nullptr, 0, cur);   // rgb head
-      __syncthreads();
-      for (int i = threadIdx.x; i < kRows * R; i += kThreads) {
-        const int row = i / R, c = i % R, q = q0 + row;
-        if (q < npts) {
-          const int r = q / S, s = q % S;
-          rgb[(r * M + (fine ? s : S + s)) * R + c] = cur[row * ld + c];
-        }
-      }
-      for (int row = threadIdx.x; row < kRows; row += kThreads) {
-        const int q = q0 + row;
-        if (q < npts) {
-          const int r = q / S, s = q % S;
-          sall[r * M + (fine ? s : S + s)] = sig[row];
-        }
-      }
-      __syncthreads();
+  for (int task = blockIdx.x; task < a.b * nrb; task += gridDim.x) {
+    const int bi = task / nrb, ray0 = (task % nrb) * kRays;
+    const int nvalid = min(kRays, n - ray0) * S;   // points of the block's existing rays
+    __syncthreads();   // the previous ray block is done with the shared buffers
+    for (int i = tid; i < a.nfilm; i += kThreads) fsm[i] = a.films[(size_t)bi * a.nfilm + i];
+    for (int i = tid; i < kRays * S; i += kThreads) {
+      const int r = i / S, s = i % S, ray = ray0 + r;
+      const bool ok = ray < n;
+      const size_t idx = ((size_t)bi * n + ray) * S + s;
+      zall[r * M + S + s] = ok ? a.z[idx] : 0.f;
+      uv[i] = ok ? a.u[idx] : 0.f;
+      ncv[i] = ok && a.use_noise ? a.nc[idx] : 0.f;
     }
-  };
+    for (int i = tid; i < kRays * M; i += kThreads) {
+      const int r = i / M, j = i % M, ray = ray0 + r;
+      nfv[i] = ray < n && a.use_noise ? a.nf[((size_t)bi * n + ray) * M + j] : 0.f;
+    }
+    for (int i = tid; i < kRays * 3; i += kThreads) {
+      const int r = i / 3, c = i % 3, ray = ray0 + r;
+      const size_t idx = ((size_t)bi * n + ray) * 3 + c;
+      od[r * 8 + c] = ray < n ? a.org[idx] : 0.f;
+      od[r * 8 + 4 + c] = ray < n ? a.dir[idx] : 0.f;
+    }
+    __syncthreads();
 
-  // ---- coarse pass ----
-  run_mlp(false);
+    // FiLM-SIREN over one pass of the block's kRays * S points, 64 at a time.
+    auto run_pass = [&](bool fine) {
+      for (int q0 = 0; q0 < kRays * S; q0 += kRows) {
+        for (int i = tid; i < kRows * 3; i += kThreads) {
+          const int row = i / 3, c = i % 3, q = q0 + row;
+          float v = 0.f;
+          if (q < nvalid) {
+            const int r = q / S, s = q % S;
+            v = fine ? od[r * 8 + c] + od[r * 8 + 4 + c] * zall[r * M + s]
+                     : a.pts[(((size_t)bi * n + ray0 + r) * S + s) * 3 + c];
+          }
+          xb[row * kXLd + c] = cips::round_mm<T>(v * a.warp_scale);   // UniformBoxWarp
+        }
+        __syncthreads();
+        auto store_rgb = [&](int row, int col, float v) {
+          const int q = q0 + row;
+          if (q < nvalid) rgbs[((q / S) * M + (fine ? q % S : S + q % S)) * R + col] = v;
+        };
+        const long long res0 = (((long long)bi * 2 + fine) * n + ray0) * S + q0;
+        cips_mlp::chunk_mlp<T, kRes>(mlp, xb, hb, lay.ldh, sig, store_rgb,
+                                     max(0, min(kRows, nvalid - q0)), res0, a.ra, rh, a.rac, rhc);
+        __syncthreads();
+        for (int row = tid; row < kRows; row += kThreads) {
+          const int q = q0 + row;
+          if (q < kRays * S) sall[(q / S) * M + (fine ? q % S : S + q % S)] = sig[row];
+        }
+      }
+      __syncthreads();
+    };
 
-  // ---- resample: warp = ray, lane = sample ----
-  cips_ray::resample_ray(zall + warp * M, sall + warp * M + S, uv + warp * S, ncv + warp * S,
-                         t1 + warp * M, t2 + warp * M, S, a.use_noise, a.noise_std, a.softplus);
-  __syncthreads();
+    run_pass(false);
+    cips_ray::resample_ray(zall + warp * M, sall + warp * M + S, uv + warp * S, ncv + warp * S,
+                           t1 + warp * M, t2 + warp * M, S, a.use_noise, a.noise_std, a.softplus);
+    __syncthreads();
+    run_pass(true);
 
-  // ---- fine pass ----
-  run_mlp(true);
-
-  // ---- compositing: warp = ray, lanes own samples lane and lane + 32 ----
-  {
+    // ---- compositing: warp = ray, lanes own samples lane and lane + 32 ----
     const int r = warp, ray = ray0 + r;
     float* wt = t2 + r * M;
     float wsum;
@@ -323,9 +219,10 @@ __global__ void __launch_bounds__(kThreads) ray_tile_kernel(RayArgs a) {
     __syncwarp();
     if (ray < n) {
       const size_t o = (size_t)bi * n + ray;
+      const float* rgr = rgbs + r * M * R;
       for (int c = lane; c < R; c += 32) {
         float acc = 0.f;
-        for (int j = 0; j < M; ++j) acc = fmaf(wt[j], rgb[(r * M + j) * R + c], acc);
+        for (int j = 0; j < M; ++j) acc = fmaf(wt[j], rgr[j * R + c], acc);
         if (a.white_back) acc += 1.f - wsum;
         if (a.out_bf16)
           static_cast<__nv_bfloat16*>(a.fea)[o * R + c] = __float2bfloat16_rn(acc);
@@ -339,29 +236,32 @@ __global__ void __launch_bounds__(kThreads) ray_tile_kernel(RayArgs a) {
 
 template <typename T, bool kRes>
 int launch(const RayArgs& a, cudaStream_t stream) {
-  const RayLayout lay(a, sizeof(T));
+  const RayLayout lay = RayLayout::make<T>(a);
   cudaError_t err = cudaFuncSetAttribute(ray_tile_kernel<T, kRes>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)lay.total);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.n + kRays - 1) / kRays, a.b);
-  ray_tile_kernel<T, kRes><<<grid, kThreads, lay.total, stream>>>(a);
+  ray_tile_kernel<T, kRes><<<a.grid, kThreads, lay.total, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// Rays per block of the forward (and of the backward's cotangent kernel).
+extern "C" int cips_ray_tile_block_rays() { return kRays; }
+
 // Shapes as in RayArgs; rh, ra, rhc, rac are all null (no residuals) or
-// all set.  The wrapper checks S in [3, 32], H, C, R <= 128 and pads
-// wbuf, pbuf and the films rows to 16-byte multiples.  Returns the
-// CUDA error of the launch (0 on success).
+// all set.  rgb is (grid, kRays, 2S, R) f32 scratch.  The wrapper checks S
+// in [3, 32], H, C, R multiples of 16 up to 128, and pads pbuf and the
+// films rows to 16-byte multiples.  Returns the CUDA error of the launch (0
+// on success).
 extern "C" int cips_ray_tile_forward(
     const void* pts, const void* org, const void* dir, const void* z, const void* u,
     const void* nc, const void* nf, const void* wbuf, const void* pbuf, const void* films,
-    void* fea, void* depth, void* rh, void* ra, void* rhc, void* rac,
-    int b, int n, int S, int L, int H, int C, int R,
+    void* fea, void* depth, void* rh, void* ra, void* rhc, void* rac, void* rgb,
+    int b, int n, int S, int L, int H, int C, int R, int grid,
     float noise_std, float warp_scale,
-    int nw, int np, int nfilm, int softplus, int white_back, int last_back, int flags,
+    int np, int nfilm, int softplus, int white_back, int last_back, int flags,
     void* stream) {
   RayArgs a;
   a.pts = static_cast<const float*>(pts);
@@ -380,8 +280,10 @@ extern "C" int cips_ray_tile_forward(
   a.ra = static_cast<float*>(ra);
   a.rhc = rhc;
   a.rac = static_cast<float*>(rac);
+  a.rgb = static_cast<float*>(rgb);
   a.b = b; a.n = n; a.S = S; a.L = L; a.H = H; a.C = C; a.R = R;
-  a.nw = nw; a.np = np; a.nfilm = nfilm;
+  a.grid = grid;
+  a.np = np; a.nfilm = nfilm;
   a.noise_std = noise_std;
   a.warp_scale = warp_scale;
   a.softplus = softplus;
@@ -396,4 +298,23 @@ extern "C" int cips_ray_tile_forward(
   if ((flags >> 2) & 1)
     return res ? launch<__nv_bfloat16, true>(a, st) : launch<__nv_bfloat16, false>(a, st);
   return res ? launch<float, true>(a, st) : launch<float, false>(a, st);
+}
+
+// Resident warps per SM, dynamic shared memory and threads of the forward
+// at these widths (flags as above, bit 4: with residuals) into out[0..2].
+extern "C" int cips_ray_tile_forward_occupancy(int S, int L, int H, int C, int R, int flags,
+                                               int* out) {
+  RayArgs a = {};
+  a.S = S; a.L = L; a.H = H; a.C = C; a.R = R;
+  a.np = L * H + C + R + 4;
+  a.nfilm = 2 * L * H + 2 * C;
+  const bool bf16 = (flags >> 2) & 1, res = (flags >> 4) & 1;
+  if (bf16) {
+    const size_t sm = RayLayout::make<__nv_bfloat16>(a).total;
+    return res ? cips::occupancy(ray_tile_kernel<__nv_bfloat16, true>, kThreads, sm, out)
+               : cips::occupancy(ray_tile_kernel<__nv_bfloat16, false>, kThreads, sm, out);
+  }
+  const size_t sm = RayLayout::make<float>(a).total;
+  return res ? cips::occupancy(ray_tile_kernel<float, true>, kThreads, sm, out)
+             : cips::occupancy(ray_tile_kernel<float, false>, kThreads, sm, out);
 }

@@ -34,9 +34,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "cips_ray_tile_forward": [_P] * 16 + [_I] * 7 + [_F, _F] + [_I] * 7 + [_P],
-    "cips_ray_tile_backward": [_P] * 20 + [_I] * 9 + [_F, _F] + [_I] * 4 + [_P],
-    "cips_ray_tile_backward_row": [_I] * 4,
+    "cips_ray_tile_forward": [_P] * 17 + [_I] * 8 + [_F, _F] + [_I] * 6 + [_P],
+    "cips_ray_tile_forward_occupancy": [_I] * 6 + [_P],
+    "cips_ray_tile_block_rays": [],
+    "cips_ray_tile_backward": [_P] * 23 + [_I] * 12 + [_F, _F] + [_I] * 4 + [_P],
+    "cips_ray_tile_backward_cot_width": [_I] * 4,
+    "cips_ray_tile_backward_occupancy": [_I] * 7 + [_P],
     "cips_inr_tile_forward": [_P] * 8 + [_I] * 6 + [_P],
 }
 

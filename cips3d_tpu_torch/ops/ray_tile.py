@@ -39,7 +39,11 @@ from cips3d_tpu_torch.ops.fast_sin import fast_sin as _fast_sin
 from cips3d_tpu_torch.ops.fast_sin import fast_sin_grad
 
 MAX_STEPS = 32     # the kernel gives each of a ray's 2S samples to one lane of a warp pair
-MAX_WIDTH = 128    # the kernel's lane tiling covers layer widths up to 128
+MAX_WIDTH = 128    # the kernels' MMA tiling covers layer widths up to 128 ...
+WIDTH_STEP = 16    # ... in multiples of 16 (one bf16 k-step)
+BLOCK_RAYS = 16    # rays per block of the forward and of the backward's cotangent kernel
+SPLIT_ROWS = 2048  # points per block of the backward's weight-grad kernel (a multiple of 32)
+POINT_WIDTH = 8    # row of the backward's point scratch (3 used)
 
 
 class RayDraws(NamedTuple):
@@ -402,17 +406,47 @@ def _pack(wt, b: int, mm_dtype):
     return wbuf, pbuf, films
 
 
+def forward_grid(b: int, n: int, sms: int) -> int:
+    """Blocks of the persistent forward: one per SM, or one per ray block
+    when there are fewer."""
+    return max(1, min(b * -(-n // BLOCK_RAYS), sms))
+
+
+class BwdPlan(NamedTuple):
+    """Grid and scratch sizes of the backward kernels."""
+
+    gx: int          # cotangent-kernel blocks per batch row (grid (gx, b))
+    rows: int        # points of the call, both passes: b 2 n S
+    nsplit: int      # weight-grad blocks per matrix, SPLIT_ROWS points each
+    cot_width: int   # a point's cotangent row: d a_l (L H), d ac (C), d sigma (+7), d rgb (R)
+    n_weight: int    # weight-grad elements (wbuf order)
+    n_bias: int      # bias-grad elements (pbuf order)
+    n_film: int      # FiLM-grad elements of one batch row (films order)
+
+
+def bwd_plan(b: int, n: int, S: int, L: int, H: int, C: int, R: int, sms: int) -> BwdPlan:
+    """The backward's split: about one cotangent block per SM, each walking
+    the ray blocks x, x + gx, .. of one batch row; SPLIT_ROWS points per
+    weight-grad block, a fixed split, so the sums keep their order."""
+    rows = b * 2 * n * S
+    return BwdPlan(gx=max(1, min(-(-n // BLOCK_RAYS), -(-sms // b))), rows=rows,
+                   nsplit=-(-rows // SPLIT_ROWS), cot_width=L * H + C + 8 + R,
+                   n_weight=3 * H + (L - 1) * H * H + H * C + C * R + H,
+                   n_bias=L * H + C + R + 1, n_film=2 * L * H + 2 * C)
+
+
 def _check(name, wt, pts, org, dirs, z, u, nc, nf, clamp_mode, mm_dtype, extra=()):
     """Shapes, dtypes and devices the kernels take; returns (L, H, C, R)."""
     layers, (wc, bc, gc, fc, wr, br, ws, bs) = _split(wt)
     b, n, S, _ = pts.shape
     L, H, C, R = len(layers), layers[0][0].shape[1], wc.shape[1], wr.shape[1]
+    if (not 3 <= S <= MAX_STEPS or max(H, C, R) > MAX_WIDTH or L < 1
+            or any(w % WIDTH_STEP for w in (H, C, R))):
+        raise ValueError(f"unsupported shape: S={S} (3..{MAX_STEPS}), H={H}, C={C}, R={R} "
+                         f"(multiples of {WIDTH_STEP} up to {MAX_WIDTH}), L={L}")
     dev = pts.device
     if dev.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got {dev}")
-    if not 3 <= S <= MAX_STEPS or max(H, C, R) > MAX_WIDTH or L < 1:
-        raise ValueError(f"unsupported shape: S={S} (3..{MAX_STEPS}), H={H}, C={C}, R={R} "
-                         f"(<= {MAX_WIDTH}), L={L}")
     if clamp_mode not in ("relu", "softplus"):
         raise ValueError(f"clamp_mode must be 'relu' or 'softplus', got {clamp_mode!r}")
     if mm_dtype not in (torch.float32, torch.bfloat16):
@@ -437,6 +471,38 @@ def _residual_shapes(b, n, S, L, H, C, mm_dtype):
             "rhc": ((b, 2, n, S, C), mm_dtype), "rac": ((b, 2, n, S, C), torch.float32)}
 
 
+def _flags(noise_std, fast_sin, mm_dtype, out_dtype=torch.float32):
+    return (int(noise_std != 0) | int(fast_sin) << 1 | int(mm_dtype == torch.bfloat16) << 2
+            | int(out_dtype == torch.bfloat16) << 3)
+
+
+def _launch_forward(lib, inputs, packed, dims, noise_std, res, *, clamp_mode, white_back,
+                    last_back, fast_sin, mm_dtype, warp_scale, out_dtype):
+    """One launch of `csrc/ray_tile.cu` on contiguous CUDA ``inputs`` (pts,
+    org, dirs, z, u, nc, nf); ``res`` is the four residual tensors or empty.
+    Returns (feature, depth)."""
+    b, n, S, L, H, C, R = dims
+    wbuf, pbuf, films = packed
+    dev = inputs[0].device
+    if lib.cips_ray_tile_block_rays() != BLOCK_RAYS:
+        raise RuntimeError("the kernel library's ray block is not BLOCK_RAYS")
+    grid = forward_grid(b, n, torch.cuda.get_device_properties(dev).multi_processor_count)
+    fea = torch.empty((b, n, R), dtype=out_dtype, device=dev)
+    depth = torch.empty((b, n, 1), dtype=torch.float32, device=dev)
+    rgb = torch.empty((grid, BLOCK_RAYS, 2 * S, R), dtype=torch.float32, device=dev)
+    res_ptrs = [t.data_ptr() for t in res] if res else [None] * 4
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.cips_ray_tile_forward(
+            *(t.data_ptr() for t in inputs), wbuf.data_ptr(), pbuf.data_ptr(), films.data_ptr(),
+            fea.data_ptr(), depth.data_ptr(), *res_ptrs, rgb.data_ptr(),
+            b, n, S, L, H, C, R, grid, float(noise_std), float(warp_scale),
+            pbuf.numel(), films.shape[1], int(clamp_mode == "softplus"), int(white_back),
+            int(last_back), _flags(noise_std, fast_sin, mm_dtype, out_dtype), stream)
+    build.check(lib, err, "ray_tile")
+    return fea, depth
+
+
 def ray_tile_cuda(
     wt, pts, org, dirs, z, u, nc, nf, noise_std: float = 0.0, *,
     clamp_mode: str = "relu", white_back: bool = False, last_back: bool = False,
@@ -451,29 +517,14 @@ def ray_tile_cuda(
         raise ValueError(f"out dtype must be float32 or bfloat16, got {out_dtype}")
     L, H, C, R = _check("ray_tile_cuda", wt, pts, org, dirs, z, u, nc, nf, clamp_mode, mm_dtype)
     b, n, S, _ = pts.shape
-    dev = pts.device
-    pts, org, dirs, z, u, nc, nf = (t.contiguous() for t in (pts, org, dirs, z, u, nc, nf))
-    wbuf, pbuf, films = _pack(wt, b, mm_dtype)
-    fea = torch.empty((b, n, R), dtype=out_dtype, device=dev)
-    depth = torch.empty((b, n, 1), dtype=torch.float32, device=dev)
-    res = ([torch.empty(shape, dtype=dt, device=dev)
+    inputs = [t.contiguous() for t in (pts, org, dirs, z, u, nc, nf)]
+    res = ([torch.empty(shape, dtype=dt, device=pts.device)
             for shape, dt in _residual_shapes(b, n, S, L, H, C, mm_dtype).values()]
            if with_residuals else [])
-    res_ptrs = [t.data_ptr() for t in res] if res else [None] * 4
-    use_noise = noise_std != 0
-    flags = (int(use_noise) | int(fast_sin) << 1 | int(mm_dtype == torch.bfloat16) << 2
-             | int(out_dtype == torch.bfloat16) << 3)
-    lib = build.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.cips_ray_tile_forward(
-            pts.data_ptr(), org.data_ptr(), dirs.data_ptr(), z.data_ptr(), u.data_ptr(),
-            nc.data_ptr(), nf.data_ptr(), wbuf.data_ptr(), pbuf.data_ptr(), films.data_ptr(),
-            fea.data_ptr(), depth.data_ptr(), *res_ptrs,
-            b, n, S, L, H, C, R, float(noise_std), float(warp_scale),
-            wbuf.numel(), pbuf.numel(), films.shape[1],
-            int(clamp_mode == "softplus"), int(white_back), int(last_back), flags, stream)
-    build.check(lib, err, "ray_tile")
+    fea, depth = _launch_forward(
+        build.library(), inputs, _pack(wt, b, mm_dtype), (b, n, S, L, H, C, R), noise_std, res,
+        clamp_mode=clamp_mode, white_back=white_back, last_back=last_back, fast_sin=fast_sin,
+        mm_dtype=mm_dtype, warp_scale=warp_scale, out_dtype=out_dtype)
     if with_residuals:
         ray_tile_cuda.residual_launches += 1
         return fea, depth, tuple(res)
@@ -513,10 +564,11 @@ def ray_tile_bwd_cuda(
     last_back: bool = False, fast_sin: bool = False, mm_dtype=torch.float32,
     warp_scale: float = 2.0 / 0.24,
 ) -> Tuple[List[torch.Tensor], torch.Tensor]:
-    """The backward kernel (`csrc/ray_tile_bwd.cu`), recompute mode without
-    ``residuals``, residual mode with them; same arguments and results as
-    `ray_tile_bwd_plain`.  Deterministic: per-block partial sums, reduced in
-    a fixed order.  Raises on a failed build or launch."""
+    """The backward kernels (`csrc/ray_tile_bwd.cu`), recompute mode without
+    ``residuals`` (the forward kernel runs again with residuals into
+    scratch), residual mode with them; same arguments and results as
+    `ray_tile_bwd_plain`.  Deterministic: a fixed split (`bwd_plan`) summed
+    in a fixed order.  Raises on a failed build or launch."""
     b, n, S, _ = pts.shape
     extra = [("d_fea", (d_fea, (b, n, wt[-4].shape[1]), torch.float32)),
              ("d_dep", (d_dep, (b, n, 1), torch.float32))]
@@ -528,30 +580,40 @@ def ray_tile_bwd_cuda(
     L, H, C, R = _check("ray_tile_bwd_cuda", wt, pts, org, dirs, z, u, nc, nf, clamp_mode,
                         mm_dtype, extra)
     dev = pts.device
-    pts, org, dirs, z, u, nc, nf, d_fea, d_dep = (
-        t.contiguous() for t in (pts, org, dirs, z, u, nc, nf, d_fea, d_dep))
-    res_ptrs = ([t.contiguous().data_ptr() for t in residuals] if residuals is not None
-                else [None] * 4)
-    wbuf, pbuf, films = _pack(wt, b, mm_dtype)
+    inputs = [t.contiguous() for t in (pts, org, dirs, z, u, nc, nf)]
+    d_fea, d_dep = d_fea.contiguous(), d_dep.contiguous()
+    packed = _pack(wt, b, mm_dtype)
+    wbuf, pbuf, films = packed
     lib = build.library()
-    P = lib.cips_ray_tile_backward_row(L, H, C, R)
-    n_film = 2 * L * H + 2 * C
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    gx = max(1, min((n + 3) // 4, -(-sms // b)))   # about one block per SM
-    partial = torch.empty((b, gx, P), dtype=torch.float32, device=dev)
+    plan = bwd_plan(b, n, S, L, H, C, R, torch.cuda.get_device_properties(dev).multi_processor_count)
+    if lib.cips_ray_tile_backward_cot_width(L, H, C, R) != plan.cot_width:
+        raise RuntimeError("the kernel library's cotangent row is not bwd_plan's")
+    opts = dict(clamp_mode=clamp_mode, white_back=white_back, last_back=last_back,
+                fast_sin=fast_sin, mm_dtype=mm_dtype, warp_scale=warp_scale)
+    if residuals is None:   # recompute mode: the MLP states from the forward kernel, again
+        res = [torch.empty(shape, dtype=dt, device=dev)
+               for shape, dt in _residual_shapes(b, n, S, L, H, C, mm_dtype).values()]
+        _launch_forward(lib, inputs, packed, (b, n, S, L, H, C, R), noise_std, res,
+                        out_dtype=torch.float32, **opts)
+    else:
+        res = [t.contiguous() for t in residuals]
+    xs = torch.empty((b, 2, n, S, POINT_WIDTH), dtype=mm_dtype, device=dev)
+    dq = torch.empty((b, 2, n, S, plan.cot_width), dtype=mm_dtype, device=dev)
+    part_b = torch.empty((b, plan.gx, plan.n_bias + plan.n_film), dtype=torch.float32, device=dev)
+    part_w = torch.empty((plan.nsplit, plan.n_weight), dtype=torch.float32, device=dev)
     d_pts = torch.empty((b, n, S, 3), dtype=torch.float32, device=dev)
-    out_w = torch.empty((P - n_film,), dtype=torch.float32, device=dev)
-    out_f = torch.empty((b, n_film), dtype=torch.float32, device=dev)
-    flags = int(noise_std != 0) | int(fast_sin) << 1 | int(mm_dtype == torch.bfloat16) << 2
+    out_w = torch.empty((plan.n_weight + plan.n_bias,), dtype=torch.float32, device=dev)
+    out_f = torch.empty((b, plan.n_film), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.cips_ray_tile_backward(
-            pts.data_ptr(), org.data_ptr(), dirs.data_ptr(), z.data_ptr(), u.data_ptr(),
-            nc.data_ptr(), nf.data_ptr(), wbuf.data_ptr(), pbuf.data_ptr(), films.data_ptr(),
-            d_fea.data_ptr(), d_dep.data_ptr(), *res_ptrs, partial.data_ptr(), d_pts.data_ptr(),
+            *(t.data_ptr() for t in inputs), wbuf.data_ptr(), pbuf.data_ptr(), films.data_ptr(),
+            d_fea.data_ptr(), d_dep.data_ptr(), *(t.data_ptr() for t in res), xs.data_ptr(),
+            dq.data_ptr(), part_b.data_ptr(), part_w.data_ptr(), d_pts.data_ptr(),
             out_w.data_ptr(), out_f.data_ptr(),
-            b, n, S, L, H, C, R, gx, films.shape[1], float(noise_std), float(warp_scale),
-            int(clamp_mode == "softplus"), int(white_back), int(last_back), flags, stream)
+            b, n, S, L, H, C, R, plan.gx, plan.nsplit, SPLIT_ROWS, pbuf.numel(), films.shape[1],
+            float(noise_std), float(warp_scale), int(clamp_mode == "softplus"), int(white_back),
+            int(last_back), _flags(noise_std, fast_sin, mm_dtype), stream)
     build.check(lib, err, "ray_tile_bwd")
     if residuals is None:
         ray_tile_bwd_cuda.launches += 1
@@ -562,6 +624,29 @@ def ray_tile_bwd_cuda(
 
 ray_tile_bwd_cuda.launches = 0            # recompute mode (kernel #3, 'pallas')
 ray_tile_bwd_cuda.residual_launches = 0   # residual mode (kernel #3, 'pallas_residual')
+
+
+def kernel_occupancy(S: int, L: int, H: int, C: int, R: int, mm_dtype=torch.float32):
+    """Resident warps per SM, dynamic shared memory (bytes) and threads of
+    each ray-tile kernel at these widths, from the CUDA occupancy API:
+    {name: (warps, smem, threads)}."""
+    import ctypes
+
+    lib = build.library()
+    bf16 = int(mm_dtype == torch.bfloat16) << 2
+    out = {}
+    for name, call in (
+            ("ray_tile", lambda o: lib.cips_ray_tile_forward_occupancy(S, L, H, C, R, bf16, o)),
+            ("ray_tile_residuals",
+             lambda o: lib.cips_ray_tile_forward_occupancy(S, L, H, C, R, bf16 | 16, o)),
+            ("ray_tile_bwd_cot",
+             lambda o: lib.cips_ray_tile_backward_occupancy(0, S, L, H, C, R, bf16, o)),
+            ("ray_tile_bwd_wgrad",
+             lambda o: lib.cips_ray_tile_backward_occupancy(1, S, L, H, C, R, bf16, o))):
+        buf = (ctypes.c_int * 3)()
+        build.check(lib, call(buf), name)
+        out[name] = tuple(buf)
+    return out
 
 
 def ray_tile_bwd(wt, pts, *args, **kwargs):

@@ -9,8 +9,10 @@ The ``gpu`` cases skip without a CUDA device (the kernels have no CPU
 mode); the others check, on any machine, what surrounds the kernels.
 Tolerances: f32 rtol 2e-4 / atol 2e-5 (the Pallas tests').  With bf16
 matmul inputs both versions round the same values but sum in another order:
-ray tile rtol 1e-2 / atol 3e-3, INR tile rtol 1e-2 / atol 1e-3, each tight
-enough that the f32 kernel, which skips the rounding, fails it.  Backward:
+ray tile rtol 1e-2 / atol 3e-3 (5e-3 at the flagship widths, as in
+`chip_smoke.py`: wider sums flip more bf16 roundings of the hidden states),
+INR tile rtol 1e-2 / atol 1e-3, each tight enough that the f32 kernel, which
+skips the rounding, fails it.  Backward:
 weight and FiLM grads by the normalised error max|a-b| / (max|b| + 1) of
 `tests/test_pallas_ray.py` (1e-4 in f32, 1e-2 with bf16 inputs, which the
 f32 kernel fails), d pts per ray within 1e-4 (max|b| + 1).
@@ -28,11 +30,15 @@ from cips3d_tpu_torch.ops import build, inr_tile, ray_tile
 
 F32_TOL = dict(rtol=2e-4, atol=2e-5)
 RAY_BF16_TOL = dict(rtol=1e-2, atol=3e-3)
+RAY_BF16_WIDE_TOL = dict(rtol=1e-2, atol=5e-3)   # chip_smoke.py's, at the flagship widths
 INR_BF16_TOL = dict(rtol=1e-2, atol=1e-3)
-B, N, S = 2, 45, 10          # N not a multiple of the kernel's 4-ray block
+B, N, S = 2, 45, 10          # N not a multiple of the kernels' 16-ray block
+N_WIDE = 101                 # at the flagship widths: 6 full ray blocks and a ragged one
+FLAGSHIP = dict(hidden=128, rgb=32)   # H 128, C 64, R 32, L 2
 
 
-def _ray_inputs(device, hidden=32, rgb=16):
+def _ray_inputs(device, hidden=32, rgb=16, n=N, steps=S):
+    N, S = n, steps
     g = torch.Generator().manual_seed(0)
     siren = NeRFNetwork(hidden_dim=hidden, hidden_layers=2, rgb_dim=rgb, style_dim=hidden,
                         generator=g).to(device)
@@ -69,6 +75,13 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _points_outside(a, b, tol):
+    """Share of rows (the last axis) with any element outside the tolerance."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    far = (a - b).abs() > tol["atol"] + tol["rtol"] * b.abs()
+    return far.reshape(-1, a.shape[-1]).any(-1).float().mean().item()
+
+
 def _close(a, b, tol):
     np.testing.assert_allclose(a.detach().float().cpu().numpy(),
                                b.detach().float().cpu().numpy(), **tol)
@@ -103,6 +116,19 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         inr_tile.inr_tile_cuda(x, s, d, w)
 
 
+@pytest.mark.parametrize("widths", [dict(hidden=40), dict(rgb=24)], ids=["H40", "R24"])
+def test_cuda_wrappers_refuse_widths_off_the_mma_tiling(widths):
+    """The kernels tile the layers in 16-wide MMA steps: other widths raise
+    before any launch (the plain version takes them)."""
+    wt, args = _ray_inputs("cpu", **widths)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        ray_tile.ray_tile_cuda(wt, *args)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        ray_tile.ray_tile_bwd_cuda(wt, *args, 0.0, torch.ones(B, N, wt[-4].shape[1]),
+                                   torch.ones(B, N, 1))
+    assert ray_tile.ray_tile_plain(wt, *args)[0].shape == (B, N, wt[-4].shape[1])
+
+
 def test_dispatch_runs_plain_on_cpu():
     wt, args = _ray_inputs("cpu")
     before = ray_tile.ray_tile_cuda.launches, inr_tile.inr_tile_cuda.launches
@@ -113,6 +139,52 @@ def test_dispatch_runs_plain_on_cpu():
     assert fea.shape == (B, N, 16) and dep.shape == (B, N, 1) and out.shape == (2, 70, 3)
     assert [t.shape for t in g] == [t.shape for t in wt] and d_pts.shape == (B, N, S, 3)
     assert (ray_tile.ray_tile_cuda.launches, inr_tile.inr_tile_cuda.launches) == before
+
+
+@pytest.mark.parametrize("b,n,steps,sms", [(4, 4096, 12, 132), (1, 16384, 24, 132), (2, 45, 10, 132),
+                                            (3, 17, 32, 8), (1, 1, 3, 132)])
+def test_bwd_plan_split(b, n, steps, sms):
+    """The backward's grid and scratch: every ray block of a batch row is
+    walked by one of its gx blocks, the fixed split covers every point once,
+    and the flat grad sizes are those of the weights."""
+    wt, _ = _ray_inputs("cpu", **FLAGSHIP)
+    L, H, C, R = 2, 128, 64, 32
+    plan = ray_tile.bwd_plan(b, n, steps, L, H, C, R, sms)
+    blocks = -(-n // ray_tile.BLOCK_RAYS)
+    assert 1 <= plan.gx <= blocks and (plan.gx == blocks or plan.gx * b >= sms)
+    assert plan.rows == b * 2 * n * steps
+    assert (plan.nsplit - 1) * ray_tile.SPLIT_ROWS < plan.rows <= plan.nsplit * ray_tile.SPLIT_ROWS
+    assert ray_tile.SPLIT_ROWS % 32 == 0
+    layers, (wc, bc, gc, fc, wr, br, ws, bs) = ray_tile._split(wt)
+    assert plan.n_weight == sum(t.numel() for t in [l[0] for l in layers] + [wc, wr, ws])
+    assert plan.n_bias == sum(t.numel() for t in [l[1] for l in layers] + [bc, br, bs])
+    assert plan.n_film == sum(t.shape[1] for t in [x for l in layers for x in l[2:]] + [gc, fc])
+    # a point's cotangent row: d a of each hidden layer, d ac, d sigma (+7 zeros), d rgb,
+    # each block starting on 16 bytes in bf16
+    assert plan.cot_width == L * H + C + 8 + R and plan.cot_width % 8 == 0
+
+
+@pytest.mark.parametrize("b,n,sms", [(1, 16384, 132), (4, 4096, 132), (2, 45, 132), (1, 5, 132)])
+def test_forward_grid(b, n, sms):
+    """The persistent forward: one block per SM, fewer when there are fewer
+    ray blocks."""
+    grid = ray_tile.forward_grid(b, n, sms)
+    assert grid == min(sms, b * -(-n // ray_tile.BLOCK_RAYS)) and grid >= 1
+
+
+def test_ray_tile_bwd_plain_float64():
+    """The plain backward runs in float64 (the witness the f32 kernel is held
+    to on the card) and agrees with its f32 run."""
+    wt, args = _ray_inputs("cpu")
+    g = torch.Generator().manual_seed(4)
+    d_fea, d_dep = torch.randn(B, N, 16, generator=g), torch.randn(B, N, 1, generator=g)
+    g32, p32 = ray_tile.ray_tile_bwd_plain(wt, *args, 0.0, d_fea, d_dep)
+    g64, p64 = ray_tile.ray_tile_bwd_plain([w.double() for w in wt], *[a.double() for a in args],
+                                           0.0, d_fea.double(), d_dep.double(),
+                                           mm_dtype=torch.float64)
+    assert all(t.dtype == torch.float64 for t in g64 + [p64])
+    for a, b in zip(g32 + [p32], g64 + [p64]):
+        assert _grad_err(a, b) < 1e-4
 
 
 def test_inr_tile_plain_float64_witness():
@@ -274,10 +346,16 @@ def test_ray_tile_bwd_matches_plain(cuda_device, mode, mm_dtype, kwargs):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["recompute", "residual"])
-def test_ray_tile_bwd_deterministic(cuda_device, mode):
-    wt, args = _ray_inputs(cuda_device)
-    d_fea = torch.ones(B, N, 16, device=cuda_device)
-    d_dep = torch.ones(B, N, 1, device=cuda_device)
+@pytest.mark.parametrize("widths", ["narrow", "flagship"])
+def test_ray_tile_bwd_deterministic(cuda_device, mode, widths):
+    """Two runs give the same bits; at the flagship widths and S 24 over
+    several weight-grad splits."""
+    wide = widths == "flagship"
+    n, out = (N_WIDE, 32) if wide else (N, 16)
+    wt, args = _ray_inputs(cuda_device, n=n, steps=24, **FLAGSHIP) if wide \
+        else _ray_inputs(cuda_device)
+    d_fea = torch.ones(B, n, out, device=cuda_device)
+    d_dep = torch.ones(B, n, 1, device=cuda_device)
     res = ray_tile.ray_tile_cuda(wt, *args, 0.4, with_residuals=True)[2] if mode == "residual" \
         else None
     one = ray_tile.ray_tile_bwd_cuda(wt, *args, 0.4, d_fea, d_dep, residuals=res)
@@ -296,3 +374,73 @@ def test_ray_tile_bwd_bf16_control(cuda_device):
     ga, _ = ray_tile.ray_tile_bwd_cuda(wt, *args, 0.0, d_fea, d_dep)
     gb, _ = ray_tile.ray_tile_bwd_plain(wt, *args, 0.0, d_fea, d_dep, mm_dtype=torch.bfloat16)
     assert max(_grad_err(a, b) for a, b in zip(ga, gb)) > BWD_TOL[torch.bfloat16]
+
+
+# ---------------------------------------------- on the card, flagship widths
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("steps", [10, 12, 24])
+@pytest.mark.parametrize("mm_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("residuals", [False, True], ids=["plain", "residuals"])
+def test_ray_tile_kernel_flagship(cuda_device, steps, mm_dtype, residuals):
+    """#2 and #2r at H 128, C 64, R 32 with n ragged against the 16-ray block."""
+    wt, args = _ray_inputs(cuda_device, n=N_WIDE, steps=steps, **FLAGSHIP)
+    out = ray_tile.ray_tile_cuda(wt, *args, 0.0, mm_dtype=mm_dtype, with_residuals=residuals)
+    ref = ray_tile.ray_tile_plain(wt, *args, 0.0, mm_dtype=mm_dtype, with_residuals=residuals)
+    torch.cuda.synchronize()
+    tol = F32_TOL if mm_dtype == torch.float32 else RAY_BF16_WIDE_TOL
+    _close(out[0], ref[0], tol)
+    _close(out[1], ref[1], tol)
+    if residuals:
+        # a hidden state within rounding of a bf16 step, or a sine of a large argument, can
+        # part alone: as chip_smoke.py, at most 0.1 % of the points may lie outside
+        for x, y in zip(out[2], ref[2]):
+            assert x.dtype == y.dtype and x.shape == y.shape
+            assert _points_outside(x, y, dict(rtol=tol["rtol"], atol=tol["atol"] * 20)) <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("steps", [10, 12, 24])
+@pytest.mark.parametrize("mm_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("mode", ["recompute", "residual"])
+def test_ray_tile_bwd_flagship(cuda_device, steps, mm_dtype, mode):
+    """#3 at H 128, C 64, R 32 (several weight-grad splits at S 24) with n
+    ragged against the 16-ray block."""
+    wt, args = _ray_inputs(cuda_device, n=N_WIDE, steps=steps, **FLAGSHIP)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    d_fea = torch.randn(B, N_WIDE, 32, generator=g, device=cuda_device)
+    d_dep = torch.randn(B, N_WIDE, 1, generator=g, device=cuda_device)
+    res = None
+    if mode == "residual":
+        res = ray_tile.ray_tile_cuda(wt, *args, 0.0, mm_dtype=mm_dtype, with_residuals=True)[2]
+    ga, pa = ray_tile.ray_tile_bwd_cuda(wt, *args, 0.0, d_fea, d_dep, residuals=res,
+                                        mm_dtype=mm_dtype)
+    gb, pb = ray_tile.ray_tile_bwd_plain(wt, *args, 0.0, d_fea, d_dep, residuals=res,
+                                         mm_dtype=mm_dtype)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(ga, gb)):
+        assert a.shape == b.shape
+        assert _grad_err(a, b) < BWD_TOL[mm_dtype], f"grad {i}: {_grad_err(a, b):.3e}"
+    assert _rays_outside(pa, pb, 1e-4 if mm_dtype == torch.float32 else 1e-2) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["recompute", "residual"])
+def test_ray_tile_bwd_as_close_to_float64_as_plain(cuda_device, mode):
+    """At the flagship widths the f32 backward kernel is at most twice as far
+    from a float64 run of the plain backward as the f32 plain backward."""
+    wt, args = _ray_inputs(cuda_device, n=N_WIDE, steps=24, **FLAGSHIP)
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    d_fea = torch.randn(B, N_WIDE, 32, generator=g, device=cuda_device)
+    d_dep = torch.randn(B, N_WIDE, 1, generator=g, device=cuda_device)
+    res = ray_tile.ray_tile_cuda(wt, *args, 0.0, with_residuals=True)[2] if mode == "residual" \
+        else None
+    ga, _ = ray_tile.ray_tile_bwd_cuda(wt, *args, 0.0, d_fea, d_dep, residuals=res)
+    gb, _ = ray_tile.ray_tile_bwd_plain(wt, *args, 0.0, d_fea, d_dep, residuals=res)
+    g64, _ = ray_tile.ray_tile_bwd_plain([w.double() for w in wt], *[a.double() for a in args],
+                                         0.0, d_fea.double(), d_dep.double(), residuals=res,
+                                         mm_dtype=torch.float64)
+    torch.cuda.synchronize()
+    far = lambda gs: max(((a.double() - b).abs().max() / (b.abs().max() + 1)).item()
+                         for a, b in zip(gs, g64))
+    assert far(ga) <= 2 * far(gb)
