@@ -7,7 +7,8 @@ Phases, each printing one line (plus detail lines):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from `cips3d_tpu_torch/csrc/` (nvcc, sm_90a);
   3. hold each kernel against its plain PyTorch version on the same inputs
-     at the serving shapes, in f32 and bf16, and bound the share of rays or
+     at the serving shapes (the INR tile also at b = 2 with n ragged against
+     its 64-pixel tile), in f32 and bf16, and bound the share of rays or
      pixels outside the stated tolerance; check that the bf16 kernels round
      where the plain versions do, against a control that does not; beside
      each density-noise case, print how far a float64 resample moves the
@@ -18,8 +19,9 @@ Phases, each printing one line (plus detail lines):
      that both kernels were launched by that run, and hold a small frame
      against the plain path on the CPU;
   5. median times (CUDA events) of each kernel and its plain version, and
-     frame latencies; beside the ray tile's time its resident warps per SM
-     (CUDA occupancy API), shared memory and the ptxas registers and spills;
+     frame latencies; beside the ray tile's and the INR tile's times their
+     resident warps per SM (CUDA occupancy API), shared memory and the
+     ptxas registers and spills;
   6. the training kernels at r64, b = 4, S = 12 (16384 rays): the INR tile
      on the D phase's features (density noise 1.0) against its plain
      version, and both against a float64 decode; at density noise 0 and
@@ -196,8 +198,10 @@ def ptxas_resources(text):
     return out
 
 
-# the kernels of each timed ray-tile entry: (occupancy key, mangled-name pattern of the f32 build)
-RAY_KERNELS = {
+# the kernels of each timed entry: (occupancy key, mangled-name pattern of its build)
+KERNEL_PARTS = {
+    "inr_tile float32": [("inr_tile float32", r"inr_tile_kernelIfE")],
+    "inr_tile bfloat16": [("inr_tile bfloat16", r"inr_tile_kernelI13__nv_bfloat16E")],
     "ray_tile": [("ray_tile", r"ray_tile_kernelIfLb0E")],
     "ray_tile_residuals": [("ray_tile_residuals", r"ray_tile_kernelIfLb1E")],
     "ray_tile_bwd_residual": [("ray_tile_bwd_cot", r"ray_tile_bwd_cotIfE"),
@@ -210,9 +214,10 @@ RAY_KERNELS = {
 
 def resources_line(entry, occ, ptxas):
     """Resident warps per SM (CUDA occupancy API), shared memory and the
-    ptxas registers and spills of each kernel an entry launches (f32)."""
+    ptxas registers and spills of each kernel an entry launches (the ray
+    tile's in f32)."""
     parts = []
-    for key, pat in RAY_KERNELS[entry]:
+    for key, pat in KERNEL_PARTS[entry]:
         warps, smem, threads = occ[key]
         regs = [v for k, v in ptxas.items() if re.search(pat, k)]
         r = (f"{regs[0][0]} registers, spills {regs[0][1]}/{regs[0][2]} B" if regs
@@ -835,10 +840,11 @@ def main():
                                         world.origins, world.dirs, world.z_vals[..., 0],
                                         *ray_tile.draw_ray_randoms(2, 4096, 12, False, g, dev),
                                         fast_sin=True)
-        for b in (1, 2):
+        # b = 2 with n ragged against the kernel's 64-pixel tile: 4059 = 63 x 64 + 27
+        for b, n in ((1, 4096), (2, 4096), (2, 4059)):
             weights, mods = inr_tile.extract_inr_weights(gen.inr_net, 9)
             s, d = inr_tile.compute_inr_mods(mods, {k: v[:b] for k, v in st.items()}, 512)
-            x = fea[:b].contiguous()
+            x = fea[:b, :n].contiguous()
             # at init the ToRGB heads are tiny (frequency_init(100)) and the output
             # sits near tanh(bias); x100 heads make the whole chain show in it
             for rgb_scale in (1, 100):
@@ -846,10 +852,10 @@ def main():
                 outs = {mm: inr_tile.inr_tile_cuda(x, s, d, w_s, mm_dtype=mm) for mm in (f32, bf16)}
                 plain = {mm: inr_tile.inr_tile_plain(x, s, d, w_s, mm_dtype=mm) for mm in (f32, bf16)}
                 case = f"inr_tile x{rgb_scale}"
-                tag = (f"inr_tile b={b} n=4096 D=512 blocks=9 ToRGB x{rgb_scale} "
+                tag = (f"inr_tile b={b} n={n} D=512 blocks=9 ToRGB x{rgb_scale} "
                        f"(out {plain[f32].min().item():.3f}..{plain[f32].max().item():.3f})")
                 e, _, _ = compare(tag + " float32", outs[f32], plain[f32], TOL[case, "float32"])
-                if b == 1 and rgb_scale == 1:
+                if b == 1 and rgb_scale == 1:   # the served shape: one batch row
                     err_at_main["inr_tile"] = e
                 check_bf16(tag + " bfloat16", outs[bf16], plain[bf16], plain[f32], outs[f32],
                            TOL[case, "bfloat16"])
@@ -958,9 +964,12 @@ def main():
                 [lambda: inr_tile.inr_tile_plain(fea, s, d, weights, mm_dtype=mm),
                  lambda: inr_tile.inr_tile_cuda(fea, s, d, weights, mm_dtype=mm)])
     occ = ray_tile.kernel_occupancy(SERVING_STEPS, 2, 128, 64, 32)
+    for mm in (torch.float32, torch.bfloat16):
+        occ[f"inr_tile {str(mm)[6:]}"] = inr_tile.kernel_occupancy(512, mm)
     ptxas = ptxas_resources(lib_path.with_suffix(".log").read_text())
     for k, (plain, kern) in timings.items():
-        extra = f"; {resources_line('ray_tile', occ, ptxas)}" if k == "ray_tile float32" else ""
+        entry = "ray_tile" if k == "ray_tile float32" else k
+        extra = f"; {resources_line(entry, occ, ptxas)}" if entry in KERNEL_PARTS else ""
         log(f"phase 5 time: {k} r128 x{SERVING_STEPS} (n=16384): kernel {kern:.3f} ms, "
             f"plain {plain:.3f} ms [{smi}]{extra}")
     lat = {}

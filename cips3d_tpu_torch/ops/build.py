@@ -40,7 +40,9 @@ _SIGNATURES = {
     "cips_ray_tile_backward": [_P] * 23 + [_I] * 12 + [_F, _F] + [_I] * 4 + [_P],
     "cips_ray_tile_backward_cot_width": [_I] * 4,
     "cips_ray_tile_backward_occupancy": [_I] * 7 + [_P],
-    "cips_inr_tile_forward": [_P] * 8 + [_I] * 6 + [_P],
+    "cips_inr_tile_forward": [_P] * 9 + [_I] * 7 + [_P],
+    "cips_inr_tile_pixels": [],
+    "cips_inr_tile_occupancy": [_I, _I, _P],
 }
 
 

@@ -28,7 +28,8 @@ import torch.nn.functional as F
 from cips3d_tpu_torch.models.cips_net import CIPS_RESOLUTIONS, FIRST_RGB, FIRST_SKIP
 from cips3d_tpu_torch.ops import build
 
-MAX_WIDTH = 512    # the kernel's 8 warps x 64 channels cover hidden widths up to 512
+MAX_WIDTH = 512    # the kernel's 16 warps x 32 channels cover hidden widths up to 512
+TILE_PIXELS = 64   # pixels per tile of the kernel (`kPix` of csrc/inr_tile.cu)
 
 
 class InrWeights(NamedTuple):
@@ -109,6 +110,20 @@ def inr_tile_plain(x: torch.Tensor, s: torch.Tensor, d: torch.Tensor, weights: I
     return torch.tanh(rgb)
 
 
+def forward_grid(b: int, n: int, sms: int) -> int:
+    """Blocks of the persistent kernel: one per SM, or one per 64-pixel tile
+    when there are fewer.  Block i walks tiles i, i + grid, ... of the
+    b * ceil(n / 64) tiles, tile t covering pixels 64 (t % ceil(n / 64)) on
+    of batch row t // ceil(n / 64)."""
+    return max(1, min(b * -(-n // TILE_PIXELS), sms))
+
+
+def scratch_shape(grid: int, D: int) -> Tuple[int, int, int]:
+    """The kernel's f32 scratch: one slot a block, holding the block input
+    of its tile for the residual."""
+    return (grid, TILE_PIXELS, D)
+
+
 def inr_tile_cuda(x: torch.Tensor, s: torch.Tensor, d: torch.Tensor, weights: InrWeights,
                   mm_dtype=torch.float32) -> torch.Tensor:
     """The CUDA kernel (`csrc/inr_tile.cu`); same arguments and result as
@@ -138,20 +153,36 @@ def inr_tile_cuda(x: torch.Tensor, s: torch.Tensor, d: torch.Tensor, weights: In
     wrest = weights.wrest.to(mm_dtype).contiguous()
     wr = weights.wr.to(mm_dtype).contiguous()
     br = weights.br.contiguous()
-    out = torch.empty((b, n, 3), dtype=torch.float32, device=dev)
     lib = build.library()
+    if lib.cips_inr_tile_pixels() != TILE_PIXELS:
+        raise RuntimeError("the kernel library's tile is not TILE_PIXELS")
+    grid = forward_grid(b, n, torch.cuda.get_device_properties(dev).multi_processor_count)
+    out = torch.empty((b, n, 3), dtype=torch.float32, device=dev)
+    scratch = torch.empty(scratch_shape(grid, D), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.cips_inr_tile_forward(
             x.data_ptr(), s.data_ptr(), d.data_ptr(), w0.data_ptr(), wrest.data_ptr(),
-            wr.data_ptr(), br.data_ptr(), out.data_ptr(),
-            b, n, in0, D, n_blocks, int(mm_dtype == torch.bfloat16), stream)
+            wr.data_ptr(), br.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            b, n, in0, D, n_blocks, int(mm_dtype == torch.bfloat16), grid, stream)
     build.check(lib, err, "inr_tile")
     inr_tile_cuda.launches += 1
     return out
 
 
 inr_tile_cuda.launches = 0
+
+
+def kernel_occupancy(D: int, mm_dtype=torch.float32) -> Tuple[int, int, int]:
+    """Resident warps per SM, dynamic shared memory (bytes) and threads of
+    the kernel at width D, from the CUDA occupancy API."""
+    import ctypes
+
+    lib = build.library()
+    buf = (ctypes.c_int * 3)()
+    build.check(lib, lib.cips_inr_tile_occupancy(D, int(mm_dtype == torch.bfloat16), buf),
+                "inr_tile occupancy")
+    return tuple(buf)
 
 
 def inr_tile(x, *args, **kwargs):
