@@ -36,17 +36,31 @@ Phases, each printing one line (plus detail lines):
      float64-resample witness;
   7. training at the flagship's full width, r64, b = 4, aux on: 10 steps of
      the exact-sine config (ray tile with residuals + residual backward in
-     the G phase) and of the polynomial-sine config (recompute backward);
-     losses finite, G, D and EMA move, every kernel of each path launched;
-     then one r32, b = 2 step on the card against the same step on the CPU
-     (same weights, same draws), without density noise and with 1.0: the D
+     the G phase), of the polynomial-sine config (recompute backward) and
+     of the shipped config (configs/ffhq.yaml: fast_sin, the G phase
+     through the unfused NeRF stage, the D phase on the ray tile and the
+     INR tile); losses finite, G, D and EMA move, every kernel of each path
+     launched; then one r32, b = 2 step on the card against the same step
+     on the CPU (same weights, same draws), exact sine and shipped, without
+     density noise and with 1.0, shipped without hierarchical sampling, and
+     with train_r256's settings (freeze_nerf, DiffAug with the same draws,
+     warmup_d, aux off, no noise): the D
      phase's fakes, losses, clipped grads, parameters after Adam; with noise
      the INR tile on that step's D-phase features, and a witness (the CPU
-     step with its D-phase fakes moved by rounding-sized noise);
-  8. median step time and images/s of both configs, and the median CUDA
-     event times of the training kernels beside their plain versions, each
-     with the warps per SM, shared memory, registers and spills of the
-     kernels it launches.
+     step with its D-phase fakes moved by rounding-sized noise); then
+     train_r256's settings at r256, b = 4: one warm-up and three timed
+     steps with the peak device memory;
+  8. median step time and images/s of the r64 configs, each with a profiled
+     step (device busy time summed over kernels, copies and sets; the
+     record_function ranges listed apart), and the median CUDA event times
+     of the training kernels beside their plain versions, each with the
+     warps per SM, shared memory, registers and spills of the kernels it
+     launches;
+  9. the training CLI in subprocesses at full width on a synthetic blob zip:
+     `train_r32 --debug`, then `train_r64 --debug` finetuning from it (step
+     and FID lines, text logs, JAX-layout snapshots), and r64's G_ema
+     served through `RenderService` on the card.
+Phase 4 also fetches /render and /render?depth=1 and checks the JPEGs.
 The second-to-last line is a JSON summary of the kernels (with each one's
 bound on the card: the larger of its multiply-adds over the 67 TFLOP/s f32
 FMA peak and its bytes over 3.35 TB/s), the last line the device summary.
@@ -92,6 +106,8 @@ STEP_TOL = dict(loss_rtol=1e-4, grad=3e-4, param=2e-2)   # card step vs CPU step
 # density noise 0 (normalised grad error): at most this multiple of the f32 plain version's
 # distance from a float64 run of the plain version
 F64_RATIO = 2.0
+SHIPPED = "shipped: fast_sin, unfused G phase"            # configs/ffhq.yaml's generator
+R256 = "train_r256: freeze_nerf, DiffAug, warmup_d, aux off"   # the r256 stage's settings
 F32_PEAK = 67e12          # FLOP/s, f32 FMA outside the tensor cores (H100 SXM data sheet)
 HBM_RATE = 3.35e12        # B/s
 
@@ -380,6 +396,12 @@ def kernel_phase(dev, log):
     return errs
 
 
+def is_annotation(e):
+    """A `record_function` range (a user annotation), not a kernel."""
+    return bool(getattr(e, "is_user_annotation", False)) or re.match(
+        r"(Optimizer\.\w+#|ProfilerStep#)", e.key) is not None
+
+
 def step_snapshot(state):
     import torch
 
@@ -402,9 +424,14 @@ def profile_step(fn, state, real, rng, log, label, smi):
     dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(
         e, "self_cuda_time_total", 0)
     # the device's own events (kernels, copies, sets): an operator's device time is also
-    # credited to the host-side event that launched it, so those are not summed
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
+    # credited to the host-side event that launched it, so those are not summed.  A
+    # record_function range (Optimizer.step#Adam.step) shows on the device timeline as a
+    # user annotation spanning the kernels inside it and the gaps between them: it is
+    # listed apart and not summed either.
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
+    ranges = [e for e in events if is_annotation(e)]
+    kernels = [e for e in events if not is_annotation(e)]
     busy = sum(dev_us(e) for e in kernels) / 1e3
     log(f"phase 8 profile: train step {label}: {wall:.1f} ms on the host clock (profiled), "
         f"device busy {busy:.1f} ms = {100 * busy / wall:.1f} %, idle "
@@ -412,11 +439,15 @@ def profile_step(fn, state, real, rng, log, label, smi):
         f"[{smi}]; device time by kernel:")
     for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
         log(f"    {dev_us(e) / 1e3:8.2f} ms {e.count:5d} x {e.key[:90]}")
+    log("  record_function ranges on the device timeline (spans, not summed): " + (", ".join(
+        f"{e.key[:60]} {dev_us(e) / 1e3:.2f} ms over {e.count}" for e in ranges) or "none"))
 
 
-def train_run(dev, cfg_g, steps, log, label="", smi=""):
-    """Phase 7: `steps` training steps at r64, b = 4, aux on; returns (host
-    times per step in ms, launch counts); then profiles one more step."""
+def train_run(dev, cfg_g, steps, log, label="", smi="", tcfg=None, disc_kwargs=None,
+              aux_reg=True, profile=True):
+    """Phase 7: `steps` training steps (by default r64, b = 4, aux on);
+    returns (host times per step in ms, launch counts, peak device memory
+    in bytes); then, with ``profile``, profiles one more step."""
     import torch
 
     from cips3d_tpu_torch.models.discriminator import DiscriminatorMultiScaleAux
@@ -426,13 +457,16 @@ def train_run(dev, cfg_g, steps, log, label="", smi=""):
     from cips3d_tpu_torch.train.step import init_train_state, make_train_step
 
     gen = GeneratorNerfINR(cfg_g, generator=torch.Generator().manual_seed(20)).to(dev)
-    disc = DiscriminatorMultiScaleAux(max_size=1024,
+    disc = DiscriminatorMultiScaleAux(max_size=1024, **(disc_kwargs or {}),
                                       generator=torch.Generator().manual_seed(21)).to(dev)
-    tcfg = TrainConfig(img_size=64, batch_size=4, ema_start_itr=0)
+    tcfg = tcfg or TrainConfig(img_size=64, batch_size=4, ema_start_itr=0)
     state = init_train_state(gen, disc, tcfg)
-    fn = make_train_step(gen, disc, tcfg, RenderOptions(), aux_reg=True)
+    fn = make_train_step(gen, disc, tcfg, RenderOptions(), aux_reg=aux_reg)
     rng = torch.Generator(dev).manual_seed(22)
-    real = torch.rand((steps, 4, 3, 64, 64), generator=rng, device=dev) * 2 - 1
+    b, img = tcfg.batch_size, tcfg.img_size
+    real = torch.rand((steps, b, 3, img, img), generator=rng, device=dev) * 2 - 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     before = step_snapshot(state)
     counters = ((ray_tile.ray_tile_cuda, "launches", "ray_tile"),
                 (ray_tile.ray_tile_cuda, "residual_launches", "ray_tile_residuals"),
@@ -450,6 +484,7 @@ def train_run(dev, cfg_g, steps, log, label="", smi=""):
         times.append((time.perf_counter() - t0) * 1e3)
         metrics.append(m)
     counts = {name: getattr(obj, attr) for obj, attr, name in counters}
+    peak = torch.cuda.max_memory_allocated(dev)
     for i, m in enumerate(metrics):
         if not all(math.isfinite(v) for v in m.values()) or m["d_finite"] != 1 or m["g_finite"] != 1:
             raise AssertionError(f"step {i}: non-finite metrics {m}")
@@ -462,8 +497,9 @@ def train_run(dev, cfg_g, steps, log, label="", smi=""):
         f"g {first['g_loss']:.4f} -> {last['g_loss']:.4f}, r1 {first['grad_penalty']:.4f} -> "
         f"{last['grad_penalty']:.4f}, norms d {last['d_total_norm']:.3f} g "
         f"{last['g_total_norm']:.3f}; G, D and EMA moved; launches {counts}")
-    profile_step(fn, state, real[-1], rng, log, label, smi)
-    return times, counts
+    if profile:
+        profile_step(fn, state, real[-1], rng, log, label, smi)
+    return times, counts, peak
 
 
 def inr_check(tag, inr_net, style, fea):
@@ -493,10 +529,14 @@ def inr_check(tag, inr_net, style, fea):
     return e
 
 
-def step_vs_cpu(dev, log, noise):
-    """Phase 7b: one r32, b = 2 step at full width, exact sine, residual
-    backward, density noise ``noise`` at step 0, on the card (kernels) and
-    on the CPU (plain versions) from the same weights and draws.  With noise
+def step_vs_cpu(dev, log, noise, cfg=None, label="exact sine, residual backward",
+                tcfg_kw=None, disc_kw=None, aux=True, opts_kw=None):
+    """Phase 7b: one r32, b = 2 step at full width (by default exact sine,
+    residual backward; else ``cfg``, the TrainConfig fields ``tcfg_kw``,
+    the discriminator's ``disc_kw``, ``aux`` and the RenderOptions fields
+    ``opts_kw``), density noise ``noise``
+    at step 0, on the card (kernels) and on the CPU (plain versions) from
+    the same weights and draws (DiffAug's too).  With noise
     it first holds the INR-tile kernel against its plain version on this
     step's D-phase features.  The D phase's fakes of the two steps are held
     to the ray tile's f32 tolerance.  With noise it also runs the witness:
@@ -510,7 +550,8 @@ def step_vs_cpu(dev, log, noise):
     import torch
 
     import cips3d_tpu_torch.train.step as step_mod
-    from cips3d_tpu_torch.models.discriminator import DiscriminatorMultiScaleAux
+    from cips3d_tpu_torch.models.discriminator import (DiscriminatorMultiScaleAux,
+                                                       draw_disc_diffaug)
     from cips3d_tpu_torch.models.generator import (ForwardDraws, GeneratorConfig,
                                                    GeneratorNerfINR, RenderOptions, sample_zs)
     from cips3d_tpu_torch.ops import ray_tile
@@ -519,27 +560,36 @@ def step_vs_cpu(dev, log, noise):
                                              make_train_step)
 
     b, img, S = 2, 32, 12
-    cfg = GeneratorConfig(fused_ray=True, fused_ray_vjp="pallas_residual")
-    tcfg = TrainConfig(img_size=img, batch_size=b, ema_start_itr=0,
-                       nerf_noise_disable=noise == 0)
+    cfg = cfg or GeneratorConfig(fused_ray=True, fused_ray_vjp="pallas_residual")
+    tcfg = TrainConfig(**dict(dict(img_size=img, batch_size=b, ema_start_itr=0,
+                                   nerf_noise_disable=noise == 0), **(tcfg_kw or {})))
     gc = torch.Generator().manual_seed(30)
     gen = GeneratorNerfINR(cfg, generator=torch.Generator().manual_seed(31))
-    disc = DiscriminatorMultiScaleAux(max_size=1024, generator=torch.Generator().manual_seed(32))
+    disc = DiscriminatorMultiScaleAux(max_size=1024, **(disc_kw or {}),
+                                      generator=torch.Generator().manual_seed(32))
+    n_d = b * (2 if aux else 1)   # D's batch: [inr | aux] fakes, the reals doubled
+    ropts = RenderOptions(**(opts_kw or {}))
 
-    def phase_draws():
+    def phase_draws(d_phase):
+        da = {}
+        if disc.main_disc.diffaug:   # the same DiffAug draws on the card and the CPU
+            da["diffaug"] = draw_disc_diffaug(n_d, img, aux, gc)
+            if d_phase:
+                da["diffaug_real"] = draw_disc_diffaug(n_d, img, aux, gc)
         return PhaseDraws(sample_zs(b, cfg, gc), ForwardDraws(
             torch.rand((b, img * img, S, 1), generator=gc),
             (torch.randn((b, 1), generator=gc), torch.randn((b, 1), generator=gc)),
-            ray_tile.draw_ray_randoms(b, img * img, S, True, gc, "cpu")))
+            ray_tile.draw_ray_randoms(b, img * img, S, True, gc, "cpu",
+                                      hierarchical=ropts.hierarchical_sample)), **da)
 
-    draws = StepDraws([phase_draws()], [phase_draws()])
+    draws = StepDraws([phase_draws(True)], [phase_draws(False)])
 
     def to(x, d):
         if isinstance(x, torch.Tensor):
             return x.to(d)
         if isinstance(x, dict):
             return {k: to(v, d) for k, v in x.items()}
-        if isinstance(x, (tuple, list)):
+        if isinstance(x, (tuple, list)):   # NamedTuples too; None passes through
             items = [to(v, d) for v in x]
             return type(x)(*items) if hasattr(x, "_fields") else type(x)(items)
         return x
@@ -591,7 +641,7 @@ def step_vs_cpu(dev, log, noise):
 
         step_mod.clip_and_guard = recording
         try:
-            fn = make_train_step(g_m, d_m, tcfg, RenderOptions(), aux_reg=True)
+            fn = make_train_step(g_m, d_m, tcfg, ropts, aux_reg=aux)
             t0 = time.perf_counter()
             state, m = fn(state, real.to(d), draws=to(draws, d))
             secs = time.perf_counter() - t0
@@ -600,7 +650,7 @@ def step_vs_cpu(dev, log, noise):
             hook.remove()
         results[name] = (m, seen, step_snapshot(state), secs)
         if name == "card":
-            compare(f"step r{img} b={b} noise {noise}: D-phase fakes (inr | aux), card vs CPU",
+            compare(f"step r{img} b={b} {label} noise {noise}: D-phase fakes, card vs CPU",
                     fakes["card"].permute(0, 2, 3, 1), fakes["cpu"].permute(0, 2, 3, 1),
                     TOL["ray_tile", "float32"])
     names = [n for n, _ in gen.named_parameters()]
@@ -623,7 +673,7 @@ def step_vs_cpu(dev, log, noise):
             shares.append(far / sum(a.numel() for a in x))
         what = ("card (kernels)" if name == "card" else
                 f"CPU, D-phase fakes moved by {rms:.1e} N(0, 1) (witness),")
-        log(f"  step r{img} b={b} {what} vs CPU plain path (exact sine, residual backward, noise "
+        log(f"  step r{img} b={b} {what} vs CPU plain path ({label}, noise "
             f"{noise}): losses rel err {lerr:.2e} (tol {STEP_TOL['loss_rtol']}), clipped grads "
             f"normalised err D {gerr[0]:.2e} G {gerr[1]:.2e} (tol {STEP_TOL['grad']}), "
             f"parameters beyond {STEP_TOL['param']} lr: G {shares[0]:.2e} D {shares[1]:.2e} "
@@ -642,6 +692,7 @@ def training_phases(dev, smi, log):
     from cips3d_tpu_torch.models.generator import sample_zs
     from cips3d_tpu_torch.ops import build
     from cips3d_tpu_torch.ops import ray_tile as rt
+    from cips3d_tpu_torch.train.state import TrainConfig
 
     t0 = time.perf_counter()
     errs = kernel_phase(dev, log)
@@ -653,14 +704,18 @@ def training_phases(dev, smi, log):
             fast_sin=False, fused_ray=True, fused_ray_vjp="pallas_residual"),
         "fast_sin, recompute backward": GeneratorConfig(
             fast_sin=True, fused_ray=True, fused_ray_vjp="pallas"),
+        # configs/ffhq.yaml's generator: the G phase is autograd through the unfused NeRF
+        # stage, the D phase runs the ray tile and the INR tile by the auto-pick
+        SHIPPED: GeneratorConfig(fast_sin=True, fused_ray=False),
     }
     need = {"exact sine, residual backward": ("ray_tile", "inr_tile", "ray_tile_residuals",
                                               "ray_tile_bwd_residual"),
-            "fast_sin, recompute backward": ("ray_tile", "inr_tile", "ray_tile_bwd_recompute")}
+            "fast_sin, recompute backward": ("ray_tile", "inr_tile", "ray_tile_bwd_recompute"),
+            SHIPPED: ("ray_tile", "inr_tile")}
     step_ms, launches = {}, {}
     for label, cfg in configs.items():
         log(f"phase 7 train: {label}, r64 b=4 aux on, flagship widths, 10 steps")
-        times, counts = train_run(dev, cfg, 10, log, label, smi)
+        times, counts, _ = train_run(dev, cfg, 10, log, label, smi)
         missing = [k for k in need[label] if counts[k] <= 0]
         if missing:
             raise AssertionError(f"{label}: kernels not launched by the steps: {missing}")
@@ -677,12 +732,39 @@ def training_phases(dev, smi, log):
     # by rounding-sized noise) stays inside the same tolerance: there the step turns such
     # moves into finite ones (PERF.md, section 7).  Losses and D grads must agree always.
     tols = [STEP_TOL["loss_rtol"], STEP_TOL["grad"], STEP_TOL["grad"]] + [MAX_OUTSIDE] * 3
-    for noise in (0.0, 1.0):
-        card, witness = step_vs_cpu(dev, log, noise)
+    r256 = dict(tcfg_kw=dict(diffaug=True, warmup_d=True, train_aux_img=False,
+                             nerf_noise_disable=True, gen_lr=1e-4, disc_lr=5e-4),
+                disc_kw=dict(diffaug=True), aux=False)
+    r256_cfg = GeneratorConfig(fast_sin=True, fused_ray=False, freeze_nerf=True)
+    for noise, kw in ((0.0, {}), (1.0, {}),
+                      (0.0, dict(cfg=configs[SHIPPED], label=SHIPPED)),
+                      (1.0, dict(cfg=configs[SHIPPED], label=SHIPPED)),
+                      # without hierarchical sampling both phases take the unfused stage
+                      (0.0, dict(cfg=configs[SHIPPED], label=SHIPPED + ", hierarchical off",
+                                 opts_kw=dict(hierarchical_sample=False))),
+                      (0.0, dict(cfg=r256_cfg, label=R256, **r256))):
+        t1 = time.perf_counter()
+        card, witness = step_vs_cpu(dev, log, noise, **kw)
+        log(f"  ({time.perf_counter() - t1:.1f} s)")
         for i, (x, tol) in enumerate(zip(card, tols)):
             if x > tol and (witness is None or i < 2 or witness[i] <= tol):
                 raise AssertionError(f"the card's training step disagrees with the CPU step "
-                                     f"(noise {noise}): {card} against tolerances {tols}")
+                                     f"({kw.get('label', 'exact sine')}, noise {noise}): {card} "
+                                     f"against tolerances {tols}")
+    # train_r256's settings at r256, b = 4, full width: one warm-up step, three timed
+    log(f"phase 7 train: {R256}, r256 b=4, flagship widths, 1 + 3 steps")
+    times, counts, peak = train_run(
+        dev, r256_cfg, 4, log, R256, smi, tcfg=TrainConfig(img_size=256, batch_size=4,
+                                                           ema_start_itr=0, **r256["tcfg_kw"]),
+        disc_kwargs=r256["disc_kw"], aux_reg=False, profile=False)
+    if counts["ray_tile"] <= 0 or counts["inr_tile"] <= 0:
+        raise AssertionError(f"{R256}: kernels not launched by the steps: {counts}")
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"phase 8 time: train step r256 b=4 {R256}: steps 1-3 "
+        f"{', '.join(f'{t:.1f}' for t in times[1:])} ms (median {statistics.median(times[1:]):.1f}"
+        f" ms = {4e3 / statistics.median(times[1:]):.2f} images/s; warm-up {times[0]:.1f} ms), "
+        f"max_memory_allocated {peak / 2 ** 30:.2f} GiB [{smi}]")
     log(f"phase 7 done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
 
@@ -745,6 +827,78 @@ def training_phases(dev, smi, log):
               "cips3d_tpu/ops/pallas/ray_tile.py:421", launches["ray_tile_bwd_recompute"],
               errs["ray_tile_bwd_recompute"], t_brec, b3c),
     ]
+
+
+def cli_phase(log):
+    """Phase 9: the training CLI as a user runs it, in subprocesses at the
+    full width of configs/ffhq.yaml on a blob zip from the port's
+    `data.synthetic`: `train_r32 --debug`, then `train_r64 --debug`
+    finetuning from the r32 tree; then r64's G_ema, read by the port's
+    snapshot reader, serves one frame on the card."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from cips3d_tpu_torch.apps.serve import RenderService
+    from cips3d_tpu_torch.eval.cli import load_generator, serving_config
+    from cips3d_tpu_torch.ops import inr_tile, ray_tile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        data = os.path.join(tmp, "blobs_64.zip")
+        subprocess.run([sys.executable, "-m", "cips3d_tpu_torch.data.synthetic", data, "--num",
+                        "64", "--size", "64", "--seed", "1"], cwd=root, check=True, timeout=300,
+                       capture_output=True)
+        for command, extra in (("train_r32", []),
+                               ("train_r64", ["finetune_dir",
+                                              f"{tmp}/train_r32/ckptdir/best_fid"])):
+            t1 = time.perf_counter()
+            p = subprocess.run(
+                [sys.executable, "-m", "cips3d_tpu_torch.train.cli", "--config",
+                 "configs/ffhq.yaml", "--command", command, "--debug", "--opts", "data_path",
+                 data, "outdir", tmp, "num_workers", "2", *extra],
+                cwd=root, capture_output=True, text=True, timeout=600)
+            lines = [ln for ln in p.stdout.splitlines()
+                     if ln.startswith(("step ", "loading finetune", "monitor"))]
+            log(f"phase 9 cli: {command} --debug exit {p.returncode} in "
+                f"{time.perf_counter() - t1:.1f} s: " + " | ".join(lines))
+            if p.returncode != 0:
+                log(p.stderr[-4000:])
+                raise AssertionError(f"{command}: the training CLI failed")
+            run = os.path.join(tmp, command)
+            logs = os.listdir(os.path.join(run, "textdir"))
+            best = os.path.join(run, "ckptdir", "best_fid")
+            snap = sorted(os.listdir(best)) if os.path.isdir(best) else []
+            want = [f"step {i}: d_loss=" for i in (1, 2)] + ["FID_surrogate="] + (
+                [f"loading finetune weights from {tmp}/train_r32/ckptdir/best_fid"]
+                if command == "train_r64" else [])
+            missing = [w for w in want if w not in p.stdout]
+            missing += [f for f in ("train.d_loss.d_loss.log", "eval.FID_surrogate."
+                                    "FID_surrogate.log") if f not in logs]
+            missing += [f for f in ("generator.npz", "G_ema.npz", "discriminator.npz")
+                        if f not in snap]
+            keys = np.load(os.path.join(best, "G_ema.npz")).files if "G_ema.npz" in snap else []
+            if "['params']['siren']['film_0']['linear']['kernel']" not in keys:
+                missing.append("JAX key paths in G_ema.npz")
+            log(f"  {command}: textdir {len(logs)} logs, ckptdir/best_fid {snap}")
+            if missing:
+                raise AssertionError(f"{command}: missing {missing}")
+        gen = load_generator(os.path.join(tmp, "train_r64", "ckptdir", "best_fid"),
+                             serving_config(), "G_ema", device="cuda")
+        ray_tile.ray_tile_cuda.launches = 0
+        inr_tile.inr_tile_cuda.launches = 0
+        frame = RenderService(gen, img_size=64, num_steps=12).frame(seed=0)
+        counts = (ray_tile.ray_tile_cuda.launches, inr_tile.inr_tile_cuda.launches)
+        log(f"  r64 G_ema served: frame {frame.shape} {frame.dtype}, std {frame.std():.2f}; "
+            f"launches ray_tile {counts[0]}, inr_tile {counts[1]}")
+        if frame.shape != (64, 64, 3) or frame.dtype != np.uint8 or frame.std() == 0 \
+                or min(counts) <= 0:
+            raise AssertionError("the CLI's snapshot did not serve a frame through the kernels")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main():
@@ -883,6 +1037,10 @@ def main():
         base = f"http://127.0.0.1:{httpd.server_address[1]}"
         health = json.loads(urllib.request.urlopen(base + "/healthz", timeout=60).read())
         models = json.loads(urllib.request.urlopen(base + "/models", timeout=60).read())
+        jpegs = {}
+        for path in ("/render?seed=4&yaw=1.4", "/render?seed=4&depth=1"):
+            with urllib.request.urlopen(base + path, timeout=120) as r:
+                jpegs[path] = (r.status, r.headers.get("Content-Type"), r.read())
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -911,6 +1069,14 @@ def main():
         raise AssertionError(f"/healthz or /models wrong: {health} {models}")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the path was not launched: {launches}")
+    for path, (status, ctype, body) in jpegs.items():
+        # a baseline JPEG of a 128 x 128 frame: SOI first, EOI last, smaller than raw RGB
+        ok = (status == 200 and ctype == "image/jpeg" and body[:2] == b"\xff\xd8"
+              and body[-2:] == b"\xff\xd9" and 500 < len(body) < 128 * 128 * 3)
+        log(f"  GET {path}: {status} {ctype}, {len(body)} bytes, SOI {body[:2].hex()} "
+            f"EOI {body[-2:].hex()}")
+        if not ok:
+            raise AssertionError(f"GET {path} did not answer with a JPEG")
     log(f"phase 4 serve: {len(frames)} frames (r128 x{SERVING_STEPS} steps, r256 x12, seeds 0-2, "
         f"yaws, depth, psi 0.7), /healthz {health['device']!r}, /models {models['models']}; "
         f"launches {launches}")
@@ -1000,6 +1166,10 @@ def main():
     }
 
     train = training_phases(dev, smi, log)
+
+    t_phase = time.perf_counter()
+    cli_phase(log)
+    log(f"phase 9 done in {time.perf_counter() - t_phase:.1f} s")
 
     kernels = [
         {"name": "ray_tile", "route": "cuda", "source": "cips3d_tpu_torch/csrc/ray_tile.cu",

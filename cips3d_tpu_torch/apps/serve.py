@@ -17,13 +17,14 @@ Usage:
       --img-size 128 --port 8000
   python -m cips3d_tpu_torch.apps.serve --ckpt ffhq=.../best_fid --ckpt afhq=.../best_fid
 
-``--ckpt`` reads snapshots written by the JAX package (``G_ema.npz``).
+``--ckpt`` reads snapshots in the JAX package's layout (``G_ema.npz``),
+written by either package.  Frames are encoded by the port's own baseline
+JPEG encoder (`utils/video.py`).
 """
 
 from __future__ import annotations
 
 import argparse
-import io
 import json
 import math
 import os
@@ -38,6 +39,7 @@ import torch
 from cips3d_tpu_torch.apps.render import compute_styles, render_chunked
 from cips3d_tpu_torch.eval.images import to_uint8
 from cips3d_tpu_torch.models.generator import GeneratorNerfINR, RenderOptions, sample_zs
+from cips3d_tpu_torch.utils.video import encode_jpeg
 
 _INDEX = """<!doctype html>
 <html><head><meta charset="utf-8"><title>cips3d live</title>
@@ -168,16 +170,6 @@ class RenderService:
         return to_uint8(img[0].float().cpu().numpy())
 
 
-def encode_jpeg(frame: np.ndarray, quality: int = 90) -> bytes:
-    """HWC uint8 RGB → baseline JPEG bytes."""
-    from PIL import Image
-
-    buf = io.BytesIO()
-    Image.fromarray(np.asarray(frame, dtype=np.uint8)).save(
-        buf, format="JPEG", quality=quality, subsampling=0)
-    return buf.getvalue()
-
-
 def device_info() -> dict:
     if torch.cuda.is_available():
         return {"device": torch.cuda.get_device_name(), "devices": torch.cuda.device_count()}
@@ -224,14 +216,14 @@ def make_handler(service: RenderService):
                     self._json(400, {"error": str(e)})
                     return
                 try:
-                    frame = service.frame(**kwargs)
+                    body = encode_jpeg(service.frame(**kwargs), quality=90)
                 except KeyError as e:     # unknown model
                     self._json(404, {"error": str(e)})
                     return
-                except Exception as e:    # surface render errors as 500 JSON
+                except Exception as e:    # surface render and encode errors as 500 JSON
                     self._json(500, {"error": str(e)})
                     return
-                self._send(200, encode_jpeg(frame), "image/jpeg")
+                self._send(200, body, "image/jpeg")
             else:
                 self._send(404, b"not found", "text/plain")
 

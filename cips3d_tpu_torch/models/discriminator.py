@@ -16,8 +16,10 @@ Every per-resolution input head and block exists from construction, as the
 JAX package's ``init_all`` materializes them, so one set of parameters
 spans the whole progressive schedule.  Plain PyTorch throughout: the JAX
 package computes the discriminator with XLA convolutions, outside any
-Pallas kernel.  DiffAug (`ops/diffaug.py`) is not ported: ``diffaug=True``
-raises.
+Pallas kernel.  With ``diffaug`` a D augments its input (`ops/diffaug.py`)
+whenever a call brings its draws: a (main, aux) pair of `DiffAugDraws`,
+as the JAX package splits one key into k1 for the main D and k2 for the
+aux D.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from torch import nn
 
 from cips3d_tpu_torch.models.layers import (EqualConv2d, EqualConvTranspose2d, EqualLinear,
                                             minibatch_stddev)
+from cips3d_tpu_torch.ops.diffaug import DiffAugDraws, diff_augment, draw_diffaug
 from cips3d_tpu_torch.ops.fused_act import fused_leaky_relu, scaled_leaky_relu
 from cips3d_tpu_torch.ops.upfirdn2d import blur_pad_down, blur_pad_up, make_kernel, upfirdn2d
 
@@ -186,8 +189,7 @@ class DiscriminatorMultiScale(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if diffaug:
-            raise NotImplementedError("diffaug is not ported (ops/diffaug.py)")
+        self.diffaug = diffaug
         ch = _table(channels_override,
                     aux_channels(2) if use_aux_channels else stylegan2_channels(channel_multiplier))
         g = dict(generator=generator, dtype=dtype)
@@ -202,7 +204,10 @@ class DiscriminatorMultiScale(nn.Module):
         self.out_linear = EqualLinear(final_in, 1, **g)
         self.stddev_group = stddev_group
 
-    def forward(self, x: torch.Tensor, alpha: float = 1.0, fade_in: bool = True) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, alpha: float = 1.0, fade_in: bool = True,
+                diffaug: Optional[DiffAugDraws] = None) -> torch.Tensor:
+        if self.diffaug and diffaug is not None:
+            x = diff_augment(x, diffaug)
         size = x.shape[-1]
         log_size = int(math.log2(size))
         out = self.blocks[str(size)](self.conv_in[str(size)](x))
@@ -235,11 +240,23 @@ class DiscriminatorMultiScaleAux(nn.Module):
                                                 **common)
 
     def forward(self, x: torch.Tensor, alpha: float = 1.0, use_aux_disc: bool = False,
-                fade_in: bool = True) -> torch.Tensor:
+                fade_in: bool = True, diffaug=None) -> torch.Tensor:
         """With ``use_aux_disc`` the first half of the batch goes to the main
-        D and the second half (the NeRF aux images) to the aux D."""
+        D and the second half (the NeRF aux images) to the aux D.
+        ``diffaug``: (main, aux) draws (see `draw_disc_diffaug`), or None."""
+        d1, d2 = diffaug if diffaug is not None else (None, None)
         if use_aux_disc:
             b = x.shape[0] // 2
-            return torch.cat([self.main_disc(x[:b], alpha, fade_in),
-                              self.aux_disc(x[b:], alpha, fade_in)], 0)
-        return self.main_disc(x, alpha, fade_in)
+            return torch.cat([self.main_disc(x[:b], alpha, fade_in, d1),
+                              self.aux_disc(x[b:], alpha, fade_in, d2)], 0)
+        return self.main_disc(x, alpha, fade_in, d1)
+
+
+def draw_disc_diffaug(n: int, size: int, use_aux_disc: bool,
+                      generator: Optional[torch.Generator] = None, device=None):
+    """The (main, aux) DiffAug draws of one `DiscriminatorMultiScaleAux`
+    call on n images of size x size (aux None without ``use_aux_disc``)."""
+    if use_aux_disc:
+        return (draw_diffaug(n // 2, size, size, generator, device),
+                draw_diffaug(n - n // 2, size, size, generator, device))
+    return draw_diffaug(n, size, size, generator, device), None

@@ -6,15 +6,16 @@ SIREN → compositing) → 32-dim feature per pixel → CIPS INR decode, plus
 the aux RGB head.
 
 The NeRF stage runs through `ops/ray_tile.py` (``fused_ray``, hierarchical
-sampling; the unfused volume path of `core/volume.py` is not ported yet),
-forward and backward.  The INR decode runs through `ops/inr_tile.py`
-(``fused_inr``, forward only: the serving render and the D phase) or
-through `CIPSNet` under autograd (the G phase).  Randomness comes from
+sampling), forward and backward, or unfused: the SIREN under autograd and
+`core/volume.py` for the resample and the compositing.  The INR decode
+runs through `ops/inr_tile.py` (``fused_inr``, forward only: the serving
+render and the D phase) or through `CIPSNet` under autograd (the G phase).  Randomness comes from
 explicit `torch.Generator`s or as injected draws (`ForwardDraws`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Dict, Mapping, NamedTuple, Optional, Tuple
@@ -24,13 +25,14 @@ from torch import nn
 
 from cips3d_tpu_torch.core import points as points_lib
 from cips3d_tpu_torch.core import rays as rays_lib
+from cips3d_tpu_torch.core import volume
 from cips3d_tpu_torch.models import init as winit
 from cips3d_tpu_torch.models.cips_net import CIPS_RESOLUTIONS, CIPSNet
 from cips3d_tpu_torch.models.layers import TorchLinear
 from cips3d_tpu_torch.models.mapping import MultiHeadMappingNetwork
 from cips3d_tpu_torch.models.nerf_net import NeRFNetwork
 from cips3d_tpu_torch.ops.inr_tile import fused_inr_decode
-from cips3d_tpu_torch.ops.ray_tile import VJP_IMPLS, RayDraws, fused_ray_render
+from cips3d_tpu_torch.ops.ray_tile import VJP_IMPLS, RayDraws, draw_ray_randoms, fused_ray_render
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,9 +42,8 @@ class GeneratorConfig:
     kernels for the NeRF stage, ``fused_ray_vjp`` their backward ('pallas':
     recompute, 'pallas_residual': the forward saves residuals, 'jnp':
     autograd through the plain version), ``fused_inr`` the forward-only
-    INR-tile kernel.  The unfused NeRF stage is not ported, so a generator
-    with ``fused_ray`` False cannot render yet, and every config needs the
-    kernel's depth (``nerf_hidden_layers >= 1``)."""
+    INR-tile kernel.  Depth 0 (``nerf_hidden_layers == 0``) is refused only
+    with ``fused_ray``: the kernel has no depth-0 form."""
 
     z_dim_nerf: int = 256
     z_dim_inr: int = 512
@@ -62,9 +63,9 @@ class GeneratorConfig:
     fused_inr: bool = False
 
     def __post_init__(self):
-        if self.nerf_hidden_layers < 1:
-            raise ValueError("the ray-tile kernel (the port's only NeRF stage) needs "
-                             f"nerf_hidden_layers >= 1; got {self.nerf_hidden_layers}.")
+        if self.fused_ray and self.nerf_hidden_layers < 1:
+            raise ValueError("fused_ray=True requires nerf_hidden_layers >= 1; got "
+                             f"nerf_hidden_layers={self.nerf_hidden_layers}.")
         if self.fused_inr and self.inr_pre_rgb_dim != 3:
             raise ValueError("fused_inr=True: the INR-tile kernel needs inr_pre_rgb_dim == 3; "
                              f"got inr_pre_rgb_dim={self.inr_pre_rgb_dim}.")
@@ -165,16 +166,18 @@ class GeneratorNerfINR(nn.Module):
         ``return_depth``, the expected ray depth (b, n, 1), detached.  With
         ``idx_grad`` only those pixels are rendered.  The ray-tile draws
         come from ``draws`` or ``generator``.  ``cfg`` overrides the
-        module's config for this call (the D phase's kernel choice)."""
+        module's config for this call (the D phase's kernel choice).  With
+        ``fused_ray`` and hierarchical sampling the NeRF stage is the ray
+        tile; otherwise it is unfused (`_unfused_nerf`), on the same draws."""
         c = cfg or self.cfg
-        if not (c.fused_ray and opts.hierarchical_sample):
-            raise NotImplementedError(
-                "the port renders the NeRF stage through the ray-tile kernel only: it needs "
-                "fused_ray=True and opts.hierarchical_sample (core/volume.py is not ported)")
         pts, origins, dirs, z_vals = world.points, world.origins, world.dirs, world.z_vals
         if idx_grad is not None:
             pts, origins, dirs, z_vals = (points_lib.gather_points(t, idx_grad)
                                           for t in (pts, origins, dirs, z_vals))
+        if not (c.fused_ray and opts.hierarchical_sample):
+            fea, depth = self._unfused_nerf(style_dict, pts, origins, dirs, z_vals, opts,
+                                            generator, draws, c)
+            return self._decode_pixels(fea, depth, style_dict, return_depth, c)
         fea, depth = fused_ray_render(
             self.siren, style_dict, pts, origins, dirs, z_vals,
             draws=draws, generator=generator, noise_std=float(opts.nerf_noise),
@@ -184,6 +187,48 @@ class GeneratorNerfINR(nn.Module):
         if c.freeze_nerf:
             fea, depth = fea.detach(), depth.detach()
         return self._decode_pixels(fea, depth, style_dict, return_depth, c)
+
+    def _unfused_nerf(self, style_dict, pts, origins, dirs, z_vals, opts, generator, draws, c):
+        """The NeRF stage outside the kernel: coarse SIREN (rgb and sigma
+        apart), the detached resample from the coarse density, fine SIREN,
+        and compositing of [fine, coarse] in arrival order; without
+        hierarchical sampling, compositing of the coarse samples.  ``u``,
+        ``nc`` and ``nf`` of the draws are the resample's uniforms, its
+        density noise and the compositing's density noise (nf (b, n, S)
+        without hierarchical sampling).  Under ``freeze_nerf`` the stage
+        runs without gradient.  Returns (features, depth)."""
+        b, n, s, _ = pts.shape
+        noise_std = float(opts.nerf_noise)
+        if draws is None:
+            draws = draw_ray_randoms(b, n, s, noise_std != 0, generator, pts.device,
+                                     hierarchical=opts.hierarchical_sample)
+
+        noise = noise_std != 0
+
+        def siren(p):
+            rgb, sigma = self.siren(p.reshape(b, n * s, 3), style_dict)
+            return rgb.reshape(b, n, s, -1), sigma.reshape(b, n, s, 1)
+
+        # freeze_nerf: the whole stage without gradient, as the reference runs it
+        with torch.no_grad() if c.freeze_nerf else contextlib.nullcontext():
+            coarse_rgb, coarse_sigma = siren(pts)
+            if opts.hierarchical_sample:
+                fine_pts, fine_z = volume.get_fine_points_from_sigma(
+                    draws.u.reshape(b * n, s), coarse_sigma, z_vals, opts.clamp_mode, noise_std,
+                    s, origins, dirs, noise=draws.nc[..., None] if noise else None)
+                fine_rgb, fine_sigma = siren(fine_pts.to(pts.dtype))
+                all_rgb = torch.cat([fine_rgb, coarse_rgb], -2)
+                all_sigma = torch.cat([fine_sigma, coarse_sigma], -2)
+                all_z = torch.cat([fine_z.to(z_vals.dtype), z_vals], -2)
+                render = volume.volume_render_unsorted
+            else:
+                all_rgb, all_sigma, all_z = coarse_rgb, coarse_sigma, z_vals
+                render = volume.volume_render_split
+            fea, depth, _ = render(all_rgb, all_sigma, all_z,
+                                   noise=draws.nf[..., None] if noise else None,
+                                   noise_std=noise_std, last_back=opts.last_back,
+                                   white_back=opts.white_back, clamp_mode=opts.clamp_mode)
+        return fea, depth
 
     def _decode_pixels(self, pixels_fea, pixels_depth, style_dict, return_depth, c):
         """INR decode (all nine blocks, as the reference's render path) and

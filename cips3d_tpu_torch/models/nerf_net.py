@@ -1,11 +1,13 @@
 """FiLM-SIREN NeRF backbone: counterpart of
 `cips3d_tpu/models/nerf_net.py::NeRFNetwork`.
 
-UniformBoxWarp(0.24) → ``hidden_layers`` FiLM-SIREN layers → sigma linear;
+UniformBoxWarp(0.24) → ``hidden_layers`` FiLM-SIREN layers (0 allowed) →
+sigma linear;
 colour branch: FiLM-SIREN (hidden → hidden/2) → linear(kaiming-leaky) →
 ``rgb_dim`` feature.  Style keys ``nerf_w{i}`` per hidden layer and
-``nerf_rgb`` for the colour FiLM.  On the render path this module only holds
-the weights: `ops/ray_tile.py` runs its math inside the ray-tile kernel.
+``nerf_rgb`` for the colour FiLM.  With ``fused_ray`` this module only
+holds the weights (`ops/ray_tile.py` runs its math inside the ray-tile
+kernel); the unfused NeRF stage calls `forward`.
 """
 
 from __future__ import annotations
@@ -33,9 +35,10 @@ class NeRFNetwork(nn.Module):
                           fast_sin=fast_sin, generator=generator, dtype=dtype)
             for i in range(hidden_layers)
         )
-        self.final_layer = TorchLinear(hidden_dim, 1, generator=generator, dtype=dtype)
+        trunk_dim = hidden_dim if hidden_layers else 3   # depth 0: the heads read the points
+        self.final_layer = TorchLinear(trunk_dim, 1, generator=generator, dtype=dtype)
         color_dim = hidden_dim // 2
-        self.color_layer_sine = FiLMSineLayer(hidden_dim, color_dim, style_dim,
+        self.color_layer_sine = FiLMSineLayer(trunk_dim, color_dim, style_dim,
                                               fast_sin=fast_sin, generator=generator,
                                               dtype=dtype)
         self.color_layer_linear = nn.Sequential(

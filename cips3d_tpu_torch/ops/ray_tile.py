@@ -55,15 +55,19 @@ class RayDraws(NamedTuple):
 
 
 def draw_ray_randoms(b: int, n: int, S: int, use_noise: bool,
-                     generator: Optional[torch.Generator], device) -> RayDraws:
-    """Draw a call's uniforms and (if ``use_noise``) its density noise."""
+                     generator: Optional[torch.Generator], device,
+                     hierarchical: bool = True) -> RayDraws:
+    """Draw a call's uniforms and (if ``use_noise``) its density noise;
+    without ``hierarchical`` (the unfused stage's coarse-only compositing)
+    nf is (b, n, S)."""
+    m = 2 * S if hierarchical else S
     u = torch.rand((b, n, S), generator=generator, device=device)
     if use_noise:
         nc = torch.randn((b, n, S), generator=generator, device=device)
-        nf = torch.randn((b, n, 2 * S), generator=generator, device=device)
+        nf = torch.randn((b, n, m), generator=generator, device=device)
     else:
         nc = torch.zeros((b, n, S), device=device)
-        nf = torch.zeros((b, n, 2 * S), device=device)
+        nf = torch.zeros((b, n, m), device=device)
     return RayDraws(u, nc, nf)
 
 

@@ -12,6 +12,12 @@
   backward under 'pallas'; the INR decode through `CIPSNet`) -> D(fake)
   -> softplus(-logits) -> clip + NaN guard -> Adam -> EMA.
 
+With DiffAug on in the discriminator, D augments the real batch (the R1
+gradient goes through the augmentation) and the fakes of the D phase with
+draws of their own, and the fakes of the G phase with a third set, where
+the JAX step splits k_da1, k_da2 and k_da.  Under ``fused_ray: false`` the
+G phase is autograd through the unfused NeRF stage (`core/volume.py`).
+
 ``batch_split`` is a Python loop over microbatches whose gradients and
 metrics are averaged.  Every random number of a step can be passed in as
 one `StepDraws`; without it the step draws from a `torch.Generator`.
@@ -25,6 +31,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence
 import torch
 
 from cips3d_tpu_torch.core.ema import ema_copy, ema_update
+from cips3d_tpu_torch.models.discriminator import draw_disc_diffaug
 from cips3d_tpu_torch.models.generator import (ForwardDraws, GeneratorNerfINR, RenderOptions,
                                                sample_zs)
 from cips3d_tpu_torch.train import losses
@@ -34,10 +41,14 @@ from cips3d_tpu_torch.train.state import (TrainConfig, TrainState, apply_grads, 
 
 
 class PhaseDraws(NamedTuple):
-    """The draws of one microbatch of one phase."""
+    """The draws of one microbatch of one phase.  ``diffaug`` is the (main,
+    aux) DiffAug draws of D on the fakes, ``diffaug_real`` those on the
+    real batch (D phase only); both unused unless D has DiffAug on."""
 
     zs: Dict[str, torch.Tensor]   # {"z_nerf": (b, z_dim_nerf), "z_inr": (b, z_dim_inr)}
     forward: ForwardDraws         # the generator forward's draws
+    diffaug: Optional[tuple] = None
+    diffaug_real: Optional[tuple] = None
 
 
 class StepDraws(NamedTuple):
@@ -58,8 +69,6 @@ def make_train_step(generator: GeneratorNerfINR, discriminator, cfg: TrainConfig
     """The step for one (aux_reg, d_regularize) variant:
     ``step(state, real_imgs, draws=None, rng=None) -> (state, metrics)``.
     The state's modules and optimizers are updated in place."""
-    if cfg.diffaug:
-        raise NotImplementedError("diffaug is not ported (ops/diffaug.py)")
     num_points = cfg.img_size ** 2
     grad_points = cfg.grad_points ** 2 if cfg.grad_points else None
     if grad_points is not None and grad_points >= num_points:
@@ -68,8 +77,12 @@ def make_train_step(generator: GeneratorNerfINR, discriminator, cfg: TrainConfig
     # ray-tile forward under fast_sin or when asked; the INR-tile forward
     fused_dphase = generator.cfg.fast_sin if cfg.fused_dphase is None else cfg.fused_dphase
     overrides = {}
-    if fused_dphase:
+    if fused_dphase and generator.cfg.nerf_hidden_layers >= 1:
         overrides["fused_ray"] = True
+    elif cfg.fused_dphase and generator.cfg.nerf_hidden_layers < 1:
+        # only the auto-pick may fall back; an explicit request must not
+        raise ValueError("fused_dphase=True requires nerf_hidden_layers >= 1 (the ray-tile "
+                         "kernel has no depth-0 form); unset it (auto) or use the plain D phase")
     if cfg.fused_dphase_inr and generator.cfg.inr_pre_rgb_dim == 3:
         overrides["fused_inr"] = True
     d_cfg = dataclasses.replace(generator.cfg, **overrides)
@@ -77,6 +90,13 @@ def make_train_step(generator: GeneratorNerfINR, discriminator, cfg: TrainConfig
     def render_opts(step):
         return dataclasses.replace(opts, img_size=cfg.img_size,
                                    nerf_noise=nerf_noise_schedule(step, cfg.nerf_noise_disable))
+
+    def diffaug_draws(D, x, given, rng):
+        """D's DiffAug draws for batch ``x``: the given ones, else drawn
+        from ``rng`` when D augments, else None."""
+        if given is not None or not D.main_disc.diffaug:
+            return given
+        return draw_disc_diffaug(x.shape[0], x.shape[-1], aux_reg, rng, x.device)
 
     def d_microbatch(state, real, ropts, alpha, pd, rng):
         G, D = state.generator, state.discriminator
@@ -86,17 +106,19 @@ def make_train_step(generator: GeneratorNerfINR, discriminator, cfg: TrainConfig
                         draws=pd.forward if pd else None, cfg=d_cfg)
         if aux_reg:
             real = torch.cat([real, real], 0)
+        da_real = diffaug_draws(D, real, pd.diffaug_real if pd else None, rng)
+        da_fake = diffaug_draws(D, fake, pd.diffaug if pd else None, rng)
 
-        def d_apply(x):
-            return D(x, alpha, use_aux_disc=aux_reg, fade_in=cfg.warmup_d)
+        def d_apply(x, da):
+            return D(x, alpha, use_aux_disc=aux_reg, fade_in=cfg.warmup_d, diffaug=da)
 
         if d_regularize and cfg.r1_lambda > 0:
-            penalty, real_logits = losses.r1_penalty(d_apply, real, cfg.r1_lambda,
-                                                     cfg.d_reg_every)
+            penalty, real_logits = losses.r1_penalty(lambda x: d_apply(x, da_real), real,
+                                                     cfg.r1_lambda, cfg.d_reg_every)
         else:
-            real_logits = d_apply(real)
+            real_logits = d_apply(real, da_real)
             penalty = torch.zeros_like(real_logits)
-        fake_logits = d_apply(fake.float())
+        fake_logits = d_apply(fake.float(), da_fake)
         loss = (losses.d_logistic_loss(real_logits, fake_logits) + penalty).mean()
         grads = _grads(loss, list(D.parameters()))
         with torch.no_grad():
@@ -113,7 +135,8 @@ def make_train_step(generator: GeneratorNerfINR, discriminator, cfg: TrainConfig
         G, D = state.generator, state.discriminator
         fake, _ = G(zs, ropts, rng, return_aux_img=aux_reg, grad_points=grad_points,
                     draws=pd.forward if pd else None)
-        logits = D(fake.float(), alpha, use_aux_disc=aux_reg, fade_in=cfg.warmup_d)
+        da = diffaug_draws(D, fake, pd.diffaug if pd else None, rng)
+        logits = D(fake.float(), alpha, use_aux_disc=aux_reg, fade_in=cfg.warmup_d, diffaug=da)
         loss = losses.g_nonsaturating_loss(logits).mean()
         grads = _grads(loss, list(G.parameters()))
         return grads, {"g_loss": loss.detach(), "g_logits_fake": logits.detach().mean()}

@@ -1,4 +1,4 @@
-"""JAX parameter tree → the port's `state_dict`, with numpy only.
+"""JAX parameter trees ↔ the port's `state_dict`s, with numpy only.
 
 Counterpart of `cips3d_tpu/utils/convert_torch.py::export_generator_state_dict`:
 the port's modules use the reference's state-dict layout, so a tree of the
@@ -22,6 +22,13 @@ The discriminator's tree (``d_params``) maps onto the port's
 `DiscriminatorMultiScaleAux` the same way: ``conv_in_{res}`` →
 ``conv_in.{res}``, ``res_{res}`` → ``blocks.{res}``, equalized-lr linear
 kernels (in, out) → weights (out, in); conv weights are OIHW in both.
+
+The inverse maps (`jax_tree_from_state_dict`, `jax_d_tree_from_state_dict`)
+rebuild the JAX trees key for key and drop what the JAX model does not
+have (the unused LayerNorms and ToRGB placeholders); `optax_adam_state`
+and `load_optax_adam_state` move Adam's moments and count between
+`torch.optim.Adam` and optax's ``(ScaleByAdamState(count, mu, nu),
+EmptyState())``.  So snapshots move both ways between the packages.
 """
 
 from __future__ import annotations
@@ -178,3 +185,153 @@ def load_jax_train_state(state, g_params: dict, d_params: dict, ema_params: dict
     load_jax_d_params(state.discriminator, d_params)
     load_jax_params(state.ema, g_params if ema_params is None else ema_params)
     state.step = int(step)
+
+
+# ---------------------------------------------------------------- port -> JAX
+
+def _t(x) -> np.ndarray:
+    return np.asarray(x.detach().cpu().numpy() if hasattr(x, "detach") else x, np.float32)
+
+
+def _unlinear(sd: dict, name: str, bias: bool = True) -> dict:
+    out = {"kernel": _t(sd[f"{name}.weight"]).T.copy()}
+    if bias and f"{name}.bias" in sd:
+        out["bias"] = _t(sd[f"{name}.bias"]).copy()
+    return out
+
+
+def _unfilm(sd: dict, name: str) -> dict:
+    return {part: _unlinear(sd, f"{name}.{part}") for part in ("linear", "gain_fc", "bias_fc")}
+
+
+def _sub(sd: dict, prefix: str) -> dict:
+    n = len(prefix) + 1
+    return {k[n:]: v for k, v in sd.items() if k.startswith(prefix + ".")}
+
+
+def mapping_tree(sd: dict) -> dict:
+    """``base_net.{slot}`` keys → a mapping network's tree (Linear slots
+    are ``base_{i}``, a LayerNorm after Linear i is ``base_norm_{i}``, one
+    after the last Linear is ``norm_out``)."""
+    slots = sorted({int(k.split(".")[1]) for k in sd if k.startswith("base_net.")})
+    linear = [s_ for s_ in slots if _t(sd[f"base_net.{s_}.weight"]).ndim == 2]
+    out, i = {}, -1
+    for slot in slots:
+        name = f"base_net.{slot}"
+        if slot in linear:
+            i += 1
+            out[f"base_{i}"] = _unlinear(sd, name)
+        else:
+            key = "norm_out" if slot > linear[-1] else f"base_norm_{i}"
+            out[key] = {"scale": _t(sd[f"{name}.weight"]).copy(),
+                        "bias": _t(sd[f"{name}.bias"]).copy()}
+    return out
+
+
+def siren_tree(sd: dict) -> dict:
+    out = {}
+    films = sorted({int(k.split(".")[1]) for k in sd if k.startswith("network.")})
+    for i in films:
+        out[f"film_{i}"] = _unfilm(sd, f"network.{i}")
+    out["sigma"] = _unlinear(sd, "final_layer")
+    out["color_film"] = _unfilm(sd, "color_layer_sine")
+    out["color_linear"] = _unlinear(sd, "color_layer_linear.0")
+    return out
+
+
+def inr_tree(sd: dict) -> dict:
+    """A `CIPSNet` state dict → its JAX tree: the ToRGB heads from block
+    FIRST_RGB on (the others are placeholders), no LayerNorms."""
+    from cips3d_tpu_torch.models.cips_net import CIPS_RESOLUTIONS, FIRST_RGB
+
+    out = {}
+    for res in sorted({k.split(".")[1] for k in sd if k.startswith("network.")}, key=int):
+        out[f"block_{res}"] = {
+            m: {"weight": _t(sd[f"network.{res}.{m}.weight"])[0].copy(),
+                "modulation": _unlinear(sd, f"network.{res}.{m}.modulation")}
+            for m in ("mod1", "mod2")}
+    for res in CIPS_RESOLUTIONS[FIRST_RGB:]:
+        if f"to_rgbs.{res}.linear.weight" in sd:
+            out[f"to_rgb_{res}"] = {"linear": _unlinear(sd, f"to_rgbs.{res}.linear")}
+    if "tanh.0.weight" in sd:
+        out["out_linear"] = _unlinear(sd, "tanh.0")
+    return out
+
+
+def jax_tree_from_state_dict(sd: dict) -> dict:
+    """The port's `GeneratorNerfINR` state dict → the JAX generator's
+    params ``{"params": {...}}`` (numpy f32)."""
+    return {"params": {
+        "siren": siren_tree(_sub(sd, "siren")),
+        "mapping_network_nerf": mapping_tree(_sub(sd, "mapping_network_nerf")),
+        "mapping_network_inr": mapping_tree(_sub(sd, "mapping_network_inr")),
+        "inr_net": inr_tree(_sub(sd, "inr_net")),
+        "aux_to_rgb": _unlinear(sd, "aux_to_rbg.0"),
+    }}
+
+
+def jax_d_tree_from_state_dict(sd: dict) -> dict:
+    """The port's discriminator state dict → the JAX discriminator's params."""
+    out: dict = {}
+    for key, v in sd.items():
+        parts = key.split(".")
+        path, i = [], 0
+        while i < len(parts):
+            if parts[i] == "conv_in":
+                path.append(f"conv_in_{parts[i + 1]}")
+                i += 2
+            elif parts[i] == "blocks":
+                path.append(f"res_{parts[i + 1]}")
+                i += 2
+            else:
+                path.append(parts[i])
+                i += 1
+        a = _t(v)
+        if path[-1] == "weight" and a.ndim == 2:   # equalized-lr linear: kernel (in, out)
+            path[-1], a = "kernel", a.T
+        cur = out
+        for k in path[:-1]:
+            cur = cur.setdefault(k, {})
+        cur[path[-1]] = a.copy()
+    return {"params": out}
+
+
+def optax_adam_state(opt, module, tree_fn) -> dict:
+    """`torch.optim.Adam` over ``module``'s parameters → optax's Adam state
+    as a nested dict ``{"0": {"count", "mu", "nu"}}`` (the key paths of
+    ``(ScaleByAdamState(count, mu, nu), EmptyState())``); ``tree_fn`` maps
+    a state dict to the JAX tree (`jax_tree_from_state_dict` for G)."""
+    names = dict((id(p), n) for n, p in module.named_parameters())
+    mu, nu, count = {}, {}, 0
+    for group in opt.param_groups:
+        for p in group["params"]:
+            st = opt.state.get(p, {})
+            name = names[id(p)]
+            mu[name] = st["exp_avg"] if "exp_avg" in st else np.zeros(p.shape, np.float32)
+            nu[name] = st["exp_avg_sq"] if "exp_avg_sq" in st else np.zeros(p.shape, np.float32)
+            if "step" in st:
+                count = max(count, int(st["step"]))
+    return {"0": {"count": np.asarray(count, np.int32), "mu": tree_fn(mu), "nu": tree_fn(nu)}}
+
+
+def load_optax_adam_state(opt, module, state: dict, sd_fn) -> None:
+    """optax's Adam state (as `optax_adam_state` returns it, or as read
+    from a snapshot's ``g_opt.npz``/``d_opt.npz``) → ``opt``'s per-parameter
+    state; ``sd_fn`` maps a JAX tree to a state dict (`state_dict_from_jax`
+    for G).  Parameters the JAX model lacks restart at zero moments."""
+    import torch
+
+    st = state["0"]
+    count = int(np.asarray(st["count"]))
+    mu, nu = sd_fn(st["mu"]), sd_fn(st["nu"])
+    opt.state.clear()
+    if count == 0:
+        return
+    for name, p in module.named_parameters():
+        opt.state[p] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": torch.from_numpy(np.asarray(mu[name], np.float32)).to(p.device).clone()
+            if name in mu else torch.zeros_like(p),
+            "exp_avg_sq": torch.from_numpy(np.asarray(nu[name], np.float32)).to(p.device).clone()
+            if name in nu else torch.zeros_like(p),
+        }

@@ -168,5 +168,17 @@ def test_upfirdn2d_rejects_non_separable_kernel():
 
 
 def test_diffaug_is_not_ported():
-    with pytest.raises(NotImplementedError, match="diffaug"):
-        disc.DiscriminatorMultiScaleAux(max_size=16, diffaug=True, channels_override=TINY)
+    """DiffAug is ported (this test held the raise before): a D built with
+    it augments only when a call brings draws, and then differs from the
+    plain D on the same parameters; a D without it ignores draws."""
+    g = torch.Generator().manual_seed(0)
+    d_aug = disc.DiscriminatorMultiScaleAux(max_size=16, diffaug=True, channels_override=TINY,
+                                            generator=g)
+    d_plain = disc.DiscriminatorMultiScaleAux(max_size=16, channels_override=TINY)
+    d_plain.load_state_dict(d_aug.state_dict())
+    x = torch.rand((4, 3, 16, 16), generator=g) * 2 - 1
+    draws = disc.draw_disc_diffaug(4, 16, True, g)
+    with torch.no_grad():
+        plain = d_plain(x, use_aux_disc=True, diffaug=draws)
+        torch.testing.assert_close(d_aug(x, use_aux_disc=True), plain)
+        assert not torch.allclose(d_aug(x, use_aux_disc=True, diffaug=draws), plain)

@@ -131,12 +131,18 @@ def test_to_uint8_matches_jax():
 
 
 def test_points_forward_needs_the_fused_ray_path():
-    port = GeneratorNerfINR(GeneratorConfig(**TINY))
-    with pytest.raises(NotImplementedError, match="ray-tile kernel"):
-        render_chunked(port, port.mapping(torch.zeros(1, 16), torch.zeros(1, 32)),
-                       RenderOptions(img_size=4, num_steps=3, hierarchical_sample=False))
-    with pytest.raises(ValueError, match="ray-tile kernel"):
-        GeneratorConfig(**TINY, nerf_hidden_layers=0)
+    """Without fused_ray (or without hierarchical sampling) the chunked
+    render takes the unfused NeRF stage (it raised before that stage was
+    ported); depth 0 is refused only with fused_ray, and the INR-tile
+    envelope still holds."""
+    port = GeneratorNerfINR(GeneratorConfig(**TINY), generator=torch.Generator().manual_seed(0))
+    img = render_chunked(port, port.mapping(torch.zeros(1, 16), torch.zeros(1, 32)),
+                         RenderOptions(img_size=4, num_steps=3, hierarchical_sample=False),
+                         torch.Generator().manual_seed(1), forward_points=8)
+    assert img.shape == (1, 3, 4, 4) and torch.isfinite(img).all()
+    GeneratorConfig(**TINY, nerf_hidden_layers=0)
+    with pytest.raises(ValueError, match="nerf_hidden_layers"):
+        GeneratorConfig(**TINY, nerf_hidden_layers=0, fused_ray=True)
     with pytest.raises(ValueError, match="INR-tile kernel"):
         GeneratorConfig(**TINY, fused_inr=True, inr_pre_rgb_dim=4)
 
