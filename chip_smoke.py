@@ -59,7 +59,20 @@ Phases, each printing one line (plus detail lines):
   9. the training CLI in subprocesses at full width on a synthetic blob zip:
      `train_r32 --debug`, then `train_r64 --debug` finetuning from it (step
      and FID lines, text logs, JAX-layout snapshots), and r64's G_ema
-     served through `RenderService` on the card.
+     served through `RenderService` on the card;
+ 10. the variant pipelines at full width (configs/diffcam.yaml: G, D with
+     max_size 1024 and the learnable camera, r64, b = 4, aux on;
+     configs/pigan.yaml: the 256-wide FiLM-SIREN and the encoder D, r64,
+     b = 7): 10 steps each (losses finite, G, D, EMA and the camera move,
+     no port kernel launched; median step time, images/s, peak memory)
+     and a profiled step each (as phase 8's);
+     one r32, b = 2 step of each on the card against the CPU, without
+     density noise and with 1.0 (phase 7's tolerances and witness rule);
+     their CLI in subprocesses on phase 9's zip (diffcam `train_r32
+     --debug`, then `train_r64 --debug` finetuning from it, `cam_param` and
+     `cam_opt` in the trees; pi-GAN `train_r32 --debug`); and the first two
+     `FFHQ_STAGES` through `run_progressive` under debug (stage 2 loads stage
+     1's best_fid).
 Phase 4 also fetches /render and /render?depth=1 and checks the JPEGs.
 The second-to-last line is a JSON summary of the kernels (with each one's
 bound on the card: the larger of its multiply-adds over the 67 TFLOP/s f32
@@ -409,7 +422,7 @@ def step_snapshot(state):
             for m in (state.generator, state.discriminator, state.ema)]
 
 
-def profile_step(fn, state, real, rng, log, label, smi):
+def profile_step(fn, state, real, rng, log, label, smi, phase=8):
     """One more step under `torch.profiler`: the device time by operation,
     and the device's busy share of the step's host time."""
     import torch
@@ -433,7 +446,7 @@ def profile_step(fn, state, real, rng, log, label, smi):
     ranges = [e for e in events if is_annotation(e)]
     kernels = [e for e in events if not is_annotation(e)]
     busy = sum(dev_us(e) for e in kernels) / 1e3
-    log(f"phase 8 profile: train step {label}: {wall:.1f} ms on the host clock (profiled), "
+    log(f"phase {phase} profile: train step {label}: {wall:.1f} ms on the host clock (profiled), "
         f"device busy {busy:.1f} ms = {100 * busy / wall:.1f} %, idle "
         f"{100 - 100 * busy / wall:.1f} %, {sum(e.count for e in kernels)} device events "
         f"[{smi}]; device time by kernel:")
@@ -441,6 +454,30 @@ def profile_step(fn, state, real, rng, log, label, smi):
         log(f"    {dev_us(e) / 1e3:8.2f} ms {e.count:5d} x {e.key[:90]}")
     log("  record_function ranges on the device timeline (spans, not summed): " + (", ".join(
         f"{e.key[:60]} {dev_us(e) / 1e3:.2f} ms over {e.count}" for e in ranges) or "none"))
+
+
+# each kernel's launch counter: (wrapper, attribute, the name the checks use)
+KERNEL_COUNTERS = (("ray_tile_cuda", "launches", "ray_tile"),
+                   ("ray_tile_cuda", "residual_launches", "ray_tile_residuals"),
+                   ("ray_tile_bwd_cuda", "launches", "ray_tile_bwd_recompute"),
+                   ("ray_tile_bwd_cuda", "residual_launches", "ray_tile_bwd_residual"),
+                   ("inr_tile_cuda", "launches", "inr_tile"))
+
+
+def _wrapper(name):
+    from cips3d_tpu_torch.ops import inr_tile, ray_tile
+
+    return getattr(inr_tile if name.startswith("inr") else ray_tile, name)
+
+
+def kernel_counts():
+    """Every kernel's launch count since the counters were last zeroed."""
+    return {name: getattr(_wrapper(w), a) for w, a, name in KERNEL_COUNTERS}
+
+
+def zero_kernel_counts():
+    for w, a, _ in KERNEL_COUNTERS:
+        setattr(_wrapper(w), a, 0)
 
 
 def train_run(dev, cfg_g, steps, log, label="", smi="", tcfg=None, disc_kwargs=None,
@@ -452,7 +489,6 @@ def train_run(dev, cfg_g, steps, log, label="", smi="", tcfg=None, disc_kwargs=N
 
     from cips3d_tpu_torch.models.discriminator import DiscriminatorMultiScaleAux
     from cips3d_tpu_torch.models.generator import GeneratorNerfINR, RenderOptions
-    from cips3d_tpu_torch.ops import inr_tile, ray_tile
     from cips3d_tpu_torch.train.state import TrainConfig
     from cips3d_tpu_torch.train.step import init_train_state, make_train_step
 
@@ -468,13 +504,7 @@ def train_run(dev, cfg_g, steps, log, label="", smi="", tcfg=None, disc_kwargs=N
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     before = step_snapshot(state)
-    counters = ((ray_tile.ray_tile_cuda, "launches", "ray_tile"),
-                (ray_tile.ray_tile_cuda, "residual_launches", "ray_tile_residuals"),
-                (ray_tile.ray_tile_bwd_cuda, "launches", "ray_tile_bwd_recompute"),
-                (ray_tile.ray_tile_bwd_cuda, "residual_launches", "ray_tile_bwd_residual"),
-                (inr_tile.inr_tile_cuda, "launches", "inr_tile"))
-    for obj, attr, _ in counters:
-        setattr(obj, attr, 0)
+    zero_kernel_counts()
     times, metrics = [], []
     for i in range(steps):
         torch.cuda.synchronize()
@@ -483,7 +513,7 @@ def train_run(dev, cfg_g, steps, log, label="", smi="", tcfg=None, disc_kwargs=N
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         metrics.append(m)
-    counts = {name: getattr(obj, attr) for obj, attr, name in counters}
+    counts = kernel_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     for i, m in enumerate(metrics):
         if not all(math.isfinite(v) for v in m.values()) or m["d_finite"] != 1 or m["g_finite"] != 1:
@@ -527,6 +557,21 @@ def inr_check(tag, inr_net, style, fea):
     if ek > F64_RATIO * ep:
         raise AssertionError(f"{tag}: the kernel is further from float64 than the plain version")
     return e
+
+
+def to_device(x, d):
+    """Tensors of nested dicts, lists and tuples (NamedTuples too) moved to
+    ``d``; anything else passes through."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.to(d)
+    if isinstance(x, dict):
+        return {k: to_device(v, d) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        items = [to_device(v, d) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else type(x)(items)
+    return x
 
 
 def step_vs_cpu(dev, log, noise, cfg=None, label="exact sine, residual backward",
@@ -584,18 +629,8 @@ def step_vs_cpu(dev, log, noise, cfg=None, label="exact sine, residual backward"
 
     draws = StepDraws([phase_draws(True)], [phase_draws(False)])
 
-    def to(x, d):
-        if isinstance(x, torch.Tensor):
-            return x.to(d)
-        if isinstance(x, dict):
-            return {k: to(v, d) for k, v in x.items()}
-        if isinstance(x, (tuple, list)):   # NamedTuples too; None passes through
-            items = [to(v, d) for v in x]
-            return type(x)(*items) if hasattr(x, "_fields") else type(x)(items)
-        return x
-
     if noise:   # the D phase's features, as its generator forward computes them
-        g_card, pd = copy.deepcopy(gen).to(dev), to(draws.d[0], dev)
+        g_card, pd = copy.deepcopy(gen).to(dev), to_device(draws.d[0], dev)
         opts = RenderOptions(img_size=img, nerf_noise=noise)
         with torch.no_grad():
             style = g_card.mapping(pd.zs["z_nerf"], pd.zs["z_inr"])
@@ -643,7 +678,7 @@ def step_vs_cpu(dev, log, noise, cfg=None, label="exact sine, residual backward"
         try:
             fn = make_train_step(g_m, d_m, tcfg, ropts, aux_reg=aux)
             t0 = time.perf_counter()
-            state, m = fn(state, real.to(d), draws=to(draws, d))
+            state, m = fn(state, real.to(d), draws=to_device(draws, d))
             secs = time.perf_counter() - t0
         finally:
             step_mod.clip_and_guard = clip
@@ -829,15 +864,13 @@ def training_phases(dev, smi, log):
     ]
 
 
-def cli_phase(log):
+def cli_phase(log, tmp, data):
     """Phase 9: the training CLI as a user runs it, in subprocesses at the
-    full width of configs/ffhq.yaml on a blob zip from the port's
-    `data.synthetic`: `train_r32 --debug`, then `train_r64 --debug`
-    finetuning from the r32 tree; then r64's G_ema, read by the port's
-    snapshot reader, serves one frame on the card."""
+    full width of configs/ffhq.yaml on the blob zip ``data`` (the port's
+    `data.synthetic`), writing under ``tmp``: `train_r32 --debug`, then
+    `train_r64 --debug` finetuning from the r32 tree; then r64's G_ema, read
+    by the port's snapshot reader, serves one frame on the card."""
     import os
-    import shutil
-    import tempfile
 
     import numpy as np
 
@@ -846,59 +879,376 @@ def cli_phase(log):
     from cips3d_tpu_torch.ops import inr_tile, ray_tile
 
     root = os.path.dirname(os.path.abspath(__file__))
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
-    try:
-        data = os.path.join(tmp, "blobs_64.zip")
-        subprocess.run([sys.executable, "-m", "cips3d_tpu_torch.data.synthetic", data, "--num",
-                        "64", "--size", "64", "--seed", "1"], cwd=root, check=True, timeout=300,
-                       capture_output=True)
-        for command, extra in (("train_r32", []),
-                               ("train_r64", ["finetune_dir",
-                                              f"{tmp}/train_r32/ckptdir/best_fid"])):
-            t1 = time.perf_counter()
-            p = subprocess.run(
-                [sys.executable, "-m", "cips3d_tpu_torch.train.cli", "--config",
-                 "configs/ffhq.yaml", "--command", command, "--debug", "--opts", "data_path",
-                 data, "outdir", tmp, "num_workers", "2", *extra],
-                cwd=root, capture_output=True, text=True, timeout=600)
-            lines = [ln for ln in p.stdout.splitlines()
-                     if ln.startswith(("step ", "loading finetune", "monitor"))]
-            log(f"phase 9 cli: {command} --debug exit {p.returncode} in "
-                f"{time.perf_counter() - t1:.1f} s: " + " | ".join(lines))
-            if p.returncode != 0:
-                log(p.stderr[-4000:])
-                raise AssertionError(f"{command}: the training CLI failed")
-            run = os.path.join(tmp, command)
-            logs = os.listdir(os.path.join(run, "textdir"))
-            best = os.path.join(run, "ckptdir", "best_fid")
-            snap = sorted(os.listdir(best)) if os.path.isdir(best) else []
-            want = [f"step {i}: d_loss=" for i in (1, 2)] + ["FID_surrogate="] + (
-                [f"loading finetune weights from {tmp}/train_r32/ckptdir/best_fid"]
-                if command == "train_r64" else [])
-            missing = [w for w in want if w not in p.stdout]
-            missing += [f for f in ("train.d_loss.d_loss.log", "eval.FID_surrogate."
-                                    "FID_surrogate.log") if f not in logs]
-            missing += [f for f in ("generator.npz", "G_ema.npz", "discriminator.npz")
-                        if f not in snap]
-            keys = np.load(os.path.join(best, "G_ema.npz")).files if "G_ema.npz" in snap else []
-            if "['params']['siren']['film_0']['linear']['kernel']" not in keys:
+    for command, extra in (("train_r32", []),
+                           ("train_r64", ["finetune_dir",
+                                          f"{tmp}/train_r32/ckptdir/best_fid"])):
+        t1 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "cips3d_tpu_torch.train.cli", "--config",
+             "configs/ffhq.yaml", "--command", command, "--debug", "--opts", "data_path",
+             data, "outdir", tmp, "num_workers", "2", *extra],
+            cwd=root, capture_output=True, text=True, timeout=600)
+        lines = [ln for ln in p.stdout.splitlines()
+                 if ln.startswith(("step ", "loading finetune", "monitor"))]
+        log(f"phase 9 cli: {command} --debug exit {p.returncode} in "
+            f"{time.perf_counter() - t1:.1f} s: " + " | ".join(lines))
+        if p.returncode != 0:
+            log(p.stderr[-4000:])
+            raise AssertionError(f"{command}: the training CLI failed")
+        run = os.path.join(tmp, command)
+        logs = os.listdir(os.path.join(run, "textdir"))
+        best = os.path.join(run, "ckptdir", "best_fid")
+        snap = sorted(os.listdir(best)) if os.path.isdir(best) else []
+        want = [f"step {i}: d_loss=" for i in (1, 2)] + ["FID_surrogate="] + (
+            [f"loading finetune weights from {tmp}/train_r32/ckptdir/best_fid"]
+            if command == "train_r64" else [])
+        missing = [w for w in want if w not in p.stdout]
+        missing += [f for f in ("train.d_loss.d_loss.log", "eval.FID_surrogate."
+                                "FID_surrogate.log") if f not in logs]
+        missing += [f for f in ("generator.npz", "G_ema.npz", "discriminator.npz")
+                    if f not in snap]
+        keys = np.load(os.path.join(best, "G_ema.npz")).files if "G_ema.npz" in snap else []
+        if "['params']['siren']['film_0']['linear']['kernel']" not in keys:
+            missing.append("JAX key paths in G_ema.npz")
+        log(f"  {command}: textdir {len(logs)} logs, ckptdir/best_fid {snap}")
+        if missing:
+            raise AssertionError(f"{command}: missing {missing}")
+    gen = load_generator(os.path.join(tmp, "train_r64", "ckptdir", "best_fid"),
+                         serving_config(), "G_ema", device="cuda")
+    ray_tile.ray_tile_cuda.launches = 0
+    inr_tile.inr_tile_cuda.launches = 0
+    frame = RenderService(gen, img_size=64, num_steps=12).frame(seed=0)
+    counts = (ray_tile.ray_tile_cuda.launches, inr_tile.inr_tile_cuda.launches)
+    log(f"  r64 G_ema served: frame {frame.shape} {frame.dtype}, std {frame.std():.2f}; "
+        f"launches ray_tile {counts[0]}, inr_tile {counts[1]}")
+    if frame.shape != (64, 64, 3) or frame.dtype != np.uint8 or frame.std() == 0 \
+            or min(counts) <= 0:
+        raise AssertionError("the CLI's snapshot did not serve a frame through the kernels")
+
+
+def variant_pipeline(name, command, opts=()):
+    """configs/<name>.yaml's ``command`` node (with dotted ``opts``) as the
+    port's pipeline, as the CLI builds it."""
+    import os
+
+    from cips3d_tpu_torch.config.config import resolve_command
+    from cips3d_tpu_torch.train import variant_loop
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = resolve_command(os.path.join(root, "configs", f"{name}.yaml"), command, list(opts))
+    build = (variant_loop.build_diffcam_pipeline if name == "diffcam"
+             else variant_loop.build_pigan_pipeline)
+    return build(cfg)
+
+
+def variant_modules(state):
+    """The modules a variant step updates: G, D, EMA (and the camera)."""
+    return [m for m in (state.generator, state.discriminator, state.ema,
+                        getattr(state, "camera", None)) if m is not None]
+
+
+def variant_train(dev, name, steps, log, smi):
+    """Phase 10: ``steps`` steps of configs/<name>.yaml's train_r64 at full
+    width (EMA from step 0): losses finite, every module moves, no kernel
+    launched.  Returns (median step ms of steps 2 on, batch, peak bytes)."""
+    import torch
+
+    from cips3d_tpu_torch.train.loop import LoopConfig
+
+    pipe = variant_pipeline(name, "train_r64", ["ema_start_itr", "0"])
+    cfg = pipe.train_cfg
+    state = pipe.init_state(LoopConfig(device=str(dev), seed=50, fixed_z_bs=4))
+    fn = pipe.make_step(state, cfg.train_aux_img, True)
+    rng = torch.Generator(dev).manual_seed(51)
+    b, img = cfg.batch_size, cfg.img_size
+    real = torch.rand((steps, b, 3, img, img), generator=rng, device=dev) * 2 - 1
+    before = [[p.detach().clone() for p in m.parameters()] for m in variant_modules(state)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_kernel_counts()
+    times, metrics = [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = fn(state, real[i], rng=rng)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+    peak = torch.cuda.max_memory_allocated(dev)
+    counts = kernel_counts()
+    for i, m in enumerate(metrics):
+        if not all(map(math.isfinite, m.values())) or m["d_finite"] != 1 or m["g_finite"] != 1:
+            raise AssertionError(f"{name} step {i}: non-finite metrics {m}")
+    moved = [any(not torch.equal(a, p) for a, p in zip(x, mod.parameters()))
+             for x, mod in zip(before, variant_modules(state))]
+    if not all(moved):
+        raise AssertionError(f"{name}: modules did not move (G, D, EMA, camera): {moved}")
+    if any(counts.values()):
+        raise AssertionError(f"{name}: a port kernel was launched on a variant path: {counts}")
+    first, last = metrics[0], metrics[-1]
+    extra = (f", camera fx_raw {before[3][0].item():.4f} -> {state.camera.fx_raw.item():.4f}, "
+             f"norm {last['cam_total_norm']:.3e}" if name == "diffcam" else
+             f", identity penalty {first['identity_penalty']:.4f} -> "
+             f"{last['identity_penalty']:.4f}")
+    log(f"  {name}: losses step 0 -> {steps - 1}: d {first['d_loss']:.4f} -> "
+        f"{last['d_loss']:.4f}, g {first['g_loss']:.4f} -> {last['g_loss']:.4f}{extra}; "
+        f"{' '.join(('G', 'D', 'EMA', 'camera')[:len(moved)])} moved; kernel launches {counts}")
+    profile_step(fn, state, real[-1], rng, log, f"r{img} b={b} {name}", smi, phase=10)
+    return statistics.median(times[2:]), b, peak, times
+
+
+def variant_step_vs_cpu(dev, log, name, noise):
+    """Phase 10b: one r32, b = 2 step of configs/<name>.yaml at full width
+    on the card and on the CPU, the same weights (built from one seed) and
+    the same draws, density noise ``noise`` at step 0; with noise also the
+    witness (the CPU step with its D-phase fakes moved by noise as large as
+    the card's fakes differ from the CPU's).  Returns the gaps (losses rel
+    err; clipped grads D, G (, camera); shares of G, D, EMA (, camera)
+    parameters beyond STEP_TOL["param"] lr) of the card step and of the
+    witness, against the CPU step."""
+    import torch
+
+    import cips3d_tpu_torch.train.diffcam_step as diffcam_step
+    import cips3d_tpu_torch.train.pigan_step as pigan_step
+    from cips3d_tpu_torch.core.rays import draw_camera
+    from cips3d_tpu_torch.models.generator import sample_zs
+    from cips3d_tpu_torch.models.generator_diffcam import draw_diffcam
+    from cips3d_tpu_torch.models.pigan import draw_pigan
+    from cips3d_tpu_torch.train.loop import LoopConfig
+
+    b, img = 2, 32
+    opts = ["img_size", str(img), "batch_size", str(b), "ema_start_itr", "0",
+            "nerf_noise_disable", "true" if noise == 0 else "false"]
+    gc = torch.Generator().manual_seed(60)
+    pipe = variant_pipeline(name, "train_r32", opts)
+    cfg = pipe.train_cfg
+    if name == "diffcam":
+        step_mod, lrs = diffcam_step, (cfg.disc_lr, cfg.gen_lr, cfg.cam_lr)
+        nk = pipe.nerf_kwargs
+
+        def phase():
+            return diffcam_step.DiffcamPhaseDraws(
+                sample_zs(b, pipe.gen_cfg, gc), draw_camera(b, "gaussian", gc),
+                draw_diffcam(b, img * img, nk, gc))
+
+        draws = diffcam_step.DiffcamStepDraws(phase(), phase())
+        losses = ("d_loss", "g_loss", "grad_penalty")
+    else:
+        step_mod, lrs = pigan_step, (cfg.disc_lr, cfg.gen_lr)
+        ropts = pipe.opts
+
+        def phase():
+            return pigan_step.PiGANPhaseDraws(torch.randn((b, pipe.gen_kwargs["z_dim"]),
+                                                          generator=gc),
+                                              draw_pigan(b, ropts, gc))
+
+        draws = pigan_step.PiGANStepDraws(phase(), phase())
+        losses = ("d_loss", "g_loss", "grad_penalty", "identity_penalty")
+    real = torch.rand((b, 3, img, img), generator=gc) * 2 - 1
+    clip = step_mod.clip_and_guard
+    results, fakes = {}, {}
+    cpu = torch.device("cpu")
+    for run, d in (("cpu", cpu), ("card", dev), ("witness", cpu)):
+        move = None
+        if run == "witness":
+            if not noise:
+                break
+            rms = (fakes["card"] - fakes["cpu"]).pow(2).mean().sqrt().item()
+            move = rms * torch.randn(fakes["cpu"].shape,
+                                     generator=torch.Generator().manual_seed(61))
+        state = pipe.init_state(LoopConfig(device=str(d), seed=62, fixed_z_bs=4))
+        gen = state.generator
+
+        def keep(imgs, move=move, run=run):
+            """The D phase's fakes (the generator's call without gradient),
+            kept and moved by ``move``."""
+            if torch.is_grad_enabled():
+                return imgs
+            fakes[run] = imgs.detach().cpu()
+            return imgs if move is None else imgs + move.to(imgs.device)
+
+        if name == "diffcam":
+            forward_rays = gen.forward_rays
+
+            def hooked(*a, **k):
+                imgs, ret = forward_rays(*a, **k)
+                return keep(imgs), ret
+
+            gen.forward_rays = hooked
+        else:
+            gen.register_forward_hook(lambda mod, inp, out: (keep(out[0]), out[1]))
+        seen = []
+
+        def recording(grads, max_norm):
+            out = clip(grads, max_norm)
+            seen.append([x.detach().cpu() for x in out[0]])
+            return out
+
+        step_mod.clip_and_guard = recording
+        try:
+            fn = pipe.make_step(state, cfg.train_aux_img, True)
+            t0 = time.perf_counter()
+            state, m = fn(state, real.to(d), draws=to_device(draws, d))
+            secs = time.perf_counter() - t0
+        finally:
+            step_mod.clip_and_guard = clip
+        results[run] = (m, seen, [[p.detach().cpu() for p in mod.parameters()]
+                                  for mod in variant_modules(state)], secs)
+    fake_err = (fakes["card"] - fakes["cpu"]).abs().max().item()
+
+    def gap(run):
+        (mc, sc, pc, tc), (mg, sg, pg, _) = results["cpu"], results[run]
+        lerr = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-6) for k in losses)
+        gerr = [max(grad_err(a, b_) for a, b_ in zip(x, y)) for x, y in zip(sg, sc)]
+        shares = []
+        for lr, x, y in zip((lrs[1], lrs[0], lrs[1]) + lrs[2:], pg, pc):
+            far = sum(((a - b_).abs() > STEP_TOL["param"] * lr).sum().item() for a, b_ in zip(x, y))
+            shares.append(far / sum(a.numel() for a in x))
+        what = ("card" if run == "card" else
+                f"CPU, D-phase fakes moved by {rms:.1e} N(0, 1) (witness),")
+        log(f"  {name} step r{img} b={b} {what} vs CPU, noise {noise}: losses rel err "
+            f"{lerr:.2e} (tol {STEP_TOL['loss_rtol']}), clipped grads normalised err "
+            + " ".join(f"{n} {e:.2e}" for n, e in zip(("D", "G", "camera"), gerr))
+            + f" (tol {STEP_TOL['grad']}), parameters beyond {STEP_TOL['param']} lr: "
+            + " ".join(f"{n} {e:.2e}" for n, e in zip(("G", "D", "EMA", "camera"), shares))
+            + f" (bound {MAX_OUTSIDE}); D-phase fakes max abs diff card vs CPU {fake_err:.2e}; "
+            f"CPU step {tc:.1f} s")
+        return [lerr] + gerr + shares
+
+    return gap("card"), (gap("witness") if noise else None)
+
+
+def variant_cli(tmp, data, name):
+    """Phase 10c: a variant's training CLI in subprocesses at full width:
+    `train_r32 --debug`, and for diffcam then `train_r64 --debug`
+    finetuning from it.  Returns [(label, seconds, process, missing)]."""
+    import os
+
+    import numpy as np
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = []
+    runs = [("train_r32", [])] + ([("train_r64", ["finetune_dir",
+                                                  f"{tmp}/diffcam/train_r32/ckptdir/best_fid"])]
+                                  if name == "diffcam" else [])
+    for command, extra in runs:
+        t1 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "cips3d_tpu_torch.train.cli", "--config",
+             f"configs/{name}.yaml", "--command", command, "--debug", "--opts", "data_path",
+             data, "outdir", f"{tmp}/{name}", "num_workers", "2", *extra],
+            cwd=root, capture_output=True, text=True, timeout=600)
+        run = os.path.join(tmp, name, command, "ckptdir")
+        want = [f"step {i}: d_loss=" for i in (1, 2)] + ["FID_surrogate="] + (
+            [f"loading finetune weights from {tmp}/diffcam/train_r32/ckptdir/best_fid"]
+            if command == "train_r64" else [])
+        missing = [w for w in want if w not in p.stdout]
+        trees = {t: set(os.listdir(os.path.join(run, t))) if os.path.isdir(os.path.join(run, t))
+                 else set() for t in ("best_fid", "resume")}
+        need = {"best_fid": {"generator.npz", "G_ema.npz", "discriminator.npz"},
+                "resume": {"g_opt.npz", "d_opt.npz"}}
+        if name == "diffcam":
+            need = {"best_fid": need["best_fid"] | {"cam_param.npz"},
+                    "resume": need["resume"] | {"cam_param.npz", "cam_opt.npz"}}
+        missing += [f"{t}/{f}" for t in need for f in sorted(need[t] - trees[t])]
+        if "G_ema.npz" in trees["best_fid"]:
+            key = ("['params']['siren']['film_0']['layer']['kernel']" if name == "pigan" else
+                   "['params']['siren']['film_0']['linear']['kernel']")
+            if key not in np.load(os.path.join(run, "best_fid", "G_ema.npz")).files:
                 missing.append("JAX key paths in G_ema.npz")
-            log(f"  {command}: textdir {len(logs)} logs, ckptdir/best_fid {snap}")
-            if missing:
-                raise AssertionError(f"{command}: missing {missing}")
-        gen = load_generator(os.path.join(tmp, "train_r64", "ckptdir", "best_fid"),
-                             serving_config(), "G_ema", device="cuda")
-        ray_tile.ray_tile_cuda.launches = 0
-        inr_tile.inr_tile_cuda.launches = 0
-        frame = RenderService(gen, img_size=64, num_steps=12).frame(seed=0)
-        counts = (ray_tile.ray_tile_cuda.launches, inr_tile.inr_tile_cuda.launches)
-        log(f"  r64 G_ema served: frame {frame.shape} {frame.dtype}, std {frame.std():.2f}; "
-            f"launches ray_tile {counts[0]}, inr_tile {counts[1]}")
-        if frame.shape != (64, 64, 3) or frame.dtype != np.uint8 or frame.std() == 0 \
-                or min(counts) <= 0:
-            raise AssertionError("the CLI's snapshot did not serve a frame through the kernels")
+        out.append((f"{name} {command}", time.perf_counter() - t1, p, missing))
+    return out
+
+
+def progressive_run(dev, tmp, data):
+    """Phase 10d: `run_progressive` over the first two FFHQ_STAGES (r32,
+    r64) under debug at configs/ffhq.yaml's full width, in process.
+    Returns (state, captured stdout, seconds)."""
+    import contextlib
+    import io
+    import os
+
+    from cips3d_tpu_torch.config.config import resolve_command
+    from cips3d_tpu_torch.train.cli import config_to_dataclasses
+    from cips3d_tpu_torch.train.curriculum import FFHQ_STAGES, run_progressive
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = resolve_command(os.path.join(root, "configs", "ffhq.yaml"), "train_r32",
+                          ["data_path", data, "num_workers", "2"])
+    gen_cfg, train_cfg, opts, loop_cfg = config_to_dataclasses(cfg)
+    loop_cfg.debug, loop_cfg.device, loop_cfg.outdir = True, str(dev), f"{tmp}/progressive"
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        state = run_progressive(gen_cfg, train_cfg, opts, loop_cfg, stages=FFHQ_STAGES[:2],
+                                disc_kwargs=cfg.discriminator.to_dict())
+    return state, buf.getvalue(), time.perf_counter() - t0
+
+
+def variant_phase(dev, smi, log, tmp, data):
+    """Phase 10: the diffcam and pi-GAN pipelines at full width (10 steps
+    each at r64 with step time, images/s and peak memory), their r32 step
+    on the card against the CPU, their CLI in subprocesses, and the
+    flagship's two-stage `run_progressive`."""
+    import os
+    import threading
+
+    steps = {}
+    for name in ("diffcam", "pigan"):
+        log(f"phase 10 train: {name} (configs/{name}.yaml train_r64), full width, 10 steps")
+        ms, b, peak, times = variant_train(dev, name, 10, log, smi)
+        steps[name] = ms
+        q = statistics.quantiles(times[2:], n=4)
+        log(f"phase 10 time: train step r64 b={b} {name}: median {ms:.1f} ms (quartiles "
+            f"{q[0]:.1f}..{q[2]:.1f}, steps 2-9; first {times[0]:.1f} ms) = {b * 1e3 / ms:.2f} "
+            f"images/s, max_memory_allocated {peak / 2 ** 30:.2f} GiB [{smi}]")
+
+    # the CLI runs in subprocesses, one thread a variant, beside the in-process checks below
+    cli = {name: [] for name in ("diffcam", "pigan")}
+    workers = [threading.Thread(target=lambda n=name: cli[n].extend(variant_cli(tmp, data, n)))
+               for name in cli]
+    for w in workers:
+        w.start()
+    try:
+        tols = [STEP_TOL["loss_rtol"]] + [STEP_TOL["grad"]] * 3 + [MAX_OUTSIDE] * 4
+        zero_kernel_counts()
+        for name in ("diffcam", "pigan"):
+            for noise in (0.0, 1.0):
+                t1 = time.perf_counter()
+                card, witness = variant_step_vs_cpu(dev, log, name, noise)
+                log(f"  ({time.perf_counter() - t1:.1f} s)")
+                # with noise a miss past the losses and D grads counts only where the
+                # witness stays inside (PERF.md, section 7)
+                for i, (x, tol) in enumerate(zip(card, tols if name == "diffcam"
+                                                 else tols[:3] + tols[4:7])):
+                    if x > tol and (witness is None or i < 2 or witness[i] <= tol):
+                        raise AssertionError(f"{name}: the card's step disagrees with the CPU "
+                                             f"step (noise {noise}): {card}")
+        counts = kernel_counts()
+        if any(counts.values()):
+            raise AssertionError(f"a port kernel was launched on a variant path: {counts}")
+        state, out, secs = progressive_run(dev, tmp, data)
+        lines = [ln for ln in out.splitlines() if ln.startswith(("step 2:", "loading finetune"))]
+        log(f"phase 10 progressive: FFHQ_STAGES r32 -> r64 under debug, full width, "
+            f"{secs:.1f} s: " + " | ".join(lines))
+        best = f"{tmp}/progressive/r32/ckptdir/best_fid"
+        if state.step != 2 or f"loading finetune weights from {best}" not in out or not all(
+                os.path.isdir(f"{tmp}/progressive/{s}/ckptdir/best_fid") for s in ("r32", "r64")):
+            raise AssertionError("run_progressive: stage 2 did not finetune from stage 1")
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        for w in workers:
+            w.join()
+    for label, secs, p, missing in cli["diffcam"] + cli["pigan"]:
+        lines = [ln for ln in p.stdout.splitlines()
+                 if ln.startswith(("step ", "loading finetune", "monitor"))]
+        log(f"phase 10 cli: {label} --debug exit {p.returncode} in {secs:.1f} s: "
+            + " | ".join(lines))
+        if p.returncode != 0 or missing:
+            log(p.stderr[-4000:])
+            raise AssertionError(f"{label}: the training CLI failed or missed {missing}")
+    if len(cli["diffcam"]) != 2 or len(cli["pigan"]) != 1:
+        raise AssertionError("the variants' CLI runs did not finish")
+    return steps
 
 
 def main():
@@ -1167,9 +1517,24 @@ def main():
 
     train = training_phases(dev, smi, log)
 
-    t_phase = time.perf_counter()
-    cli_phase(log)
-    log(f"phase 9 done in {time.perf_counter() - t_phase:.1f} s")
+    import os
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        t_phase = time.perf_counter()
+        data = os.path.join(tmp, "blobs_64.zip")
+        subprocess.run([sys.executable, "-m", "cips3d_tpu_torch.data.synthetic", data, "--num",
+                        "64", "--size", "64", "--seed", "1"], check=True, timeout=300,
+                       capture_output=True, cwd=os.path.dirname(os.path.abspath(__file__)))
+        cli_phase(log, tmp, data)
+        log(f"phase 9 done in {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        variant_phase(dev, smi, log, tmp, data)
+        log(f"phase 10 done in {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     kernels = [
         {"name": "ray_tile", "route": "cuda", "source": "cips3d_tpu_torch/csrc/ray_tile.cu",

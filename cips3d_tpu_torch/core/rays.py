@@ -15,7 +15,9 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-CAMERA_MODES = ("normal", "gaussian", "mean")
+#: Camera-distribution modes of `sample_camera_positions`.
+CAMERA_MODES = ("uniform", "normal", "gaussian", "hybrid", "truncated_gaussian",
+                "spherical_uniform", "mean")
 
 
 def normalize_vecs(v: torch.Tensor) -> torch.Tensor:
@@ -47,25 +49,77 @@ def perturb_points(points, z_vals, ray_directions, uniform: torch.Tensor):
     return points + offset * ray_directions[:, :, None, :], z_vals + offset
 
 
+def truncated_normal(shape, generator: Optional[torch.Generator] = None,
+                     device=None) -> torch.Tensor:
+    """Standard normal truncated to (-2, 2), by the inverse CDF of a
+    uniform draw between the bounds' CDF values."""
+    bound = math.erf(2.0 / math.sqrt(2.0))
+    u = torch.rand(shape, generator=generator, device=device)
+    x = math.sqrt(2.0) * torch.erfinv((2.0 * u - 1.0) * bound)
+    return torch.clamp(x, -2.0 + 4e-7, 2.0 - 4e-7)
+
+
+def draw_camera(bs: int, mode: str, generator: Optional[torch.Generator] = None, device=None):
+    """The draws `sample_camera_positions` takes for ``mode``, each (bs, 1):
+    (theta, phi) standard normals (normal, gaussian), uniforms in [0, 1)
+    (uniform, spherical_uniform) or normals truncated to (-2, 2)
+    (truncated_gaussian); for hybrid the uniform pair, the normal pair and
+    the coin (a bool scalar); () for mean."""
+    if mode not in CAMERA_MODES:
+        raise ValueError(f"unknown camera mode: {mode!r} (expected one of {CAMERA_MODES})")
+    shape = (bs, 1)
+
+    def pair(fn):
+        return fn(shape, generator=generator, device=device), \
+            fn(shape, generator=generator, device=device)
+
+    if mode in ("normal", "gaussian"):
+        return pair(torch.randn)
+    if mode in ("uniform", "spherical_uniform"):
+        return pair(torch.rand)
+    if mode == "truncated_gaussian":
+        return pair(truncated_normal)
+    if mode == "hybrid":
+        coin = torch.rand((), generator=generator, device=device) < 0.5
+        return pair(torch.rand) + pair(torch.randn) + (coin,)
+    return ()
+
+
 def sample_camera_positions(bs: int, r: float = 1.0, horizontal_stddev: float = 1.0,
                             vertical_stddev: float = 1.0,
                             horizontal_mean: float = math.pi * 0.5,
                             vertical_mean: float = math.pi * 0.5, mode: str = "normal",
                             generator: Optional[torch.Generator] = None, device=None,
-                            draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+                            draws: Optional[tuple] = None):
     """Camera positions on a sphere: (position (bs, 3), pitch (bs, 1), yaw
-    (bs, 1)).  ``draws`` = (theta, phi) standard normal draws (bs, 1)."""
-    if mode not in CAMERA_MODES:
-        raise ValueError(f"camera mode {mode!r} is not ported (ported: {CAMERA_MODES})")
-    if mode == "mean":
-        theta = torch.full((bs, 1), horizontal_mean, device=device)
-        phi = torch.full((bs, 1), vertical_mean, device=device)
+    (bs, 1)).  ``draws`` as `draw_camera` makes them for ``mode``; without
+    them they are drawn from ``generator``."""
+    if draws is None:
+        draws = draw_camera(bs, mode, generator, device)
+    h_sd, v_sd, h_mean, v_mean = horizontal_stddev, vertical_stddev, horizontal_mean, vertical_mean
+
+    def uniform(ut, up, scale=1.0):
+        return ((ut - 0.5) * 2 * h_sd * scale + h_mean, (up - 0.5) * 2 * v_sd * scale + v_mean)
+
+    if mode in ("normal", "gaussian", "truncated_gaussian"):
+        theta, phi = draws[0] * h_sd + h_mean, draws[1] * v_sd + v_mean
+    elif mode == "uniform":
+        theta, phi = uniform(draws[0], draws[1])
+    elif mode == "hybrid":
+        # one coin for the batch: the doubled uniform or the normal pose
+        theta_u, phi_u = uniform(draws[0], draws[1], 2.0)
+        coin = torch.as_tensor(draws[4], device=theta_u.device)
+        theta = torch.where(coin, theta_u, draws[2] * h_sd + h_mean)
+        phi = torch.where(coin, phi_u, draws[3] * v_sd + v_mean)
+    elif mode == "spherical_uniform":
+        theta = (draws[0] - 0.5) * 2 * h_sd + h_mean
+        v = (draws[1] - 0.5) * 2 * (v_sd / math.pi) + v_mean / math.pi
+        phi = torch.arccos(1 - 2 * torch.clamp(v, 1e-5, 1 - 1e-5))
+    elif mode == "mean":
+        theta = torch.full((bs, 1), h_mean, device=device)
+        phi = torch.full((bs, 1), v_mean, device=device)
     else:
-        if draws is None:
-            draws = (torch.randn((bs, 1), generator=generator, device=device),
-                     torch.randn((bs, 1), generator=generator, device=device))
-        theta = draws[0] * horizontal_stddev + horizontal_mean
-        phi = draws[1] * vertical_stddev + vertical_mean
+        raise ValueError(f"unknown camera mode: {mode!r} (expected one of {CAMERA_MODES})")
     phi = torch.clamp(phi, 1e-5, math.pi - 1e-5)
     pos = torch.cat([r * torch.sin(phi) * torch.cos(theta), r * torch.cos(phi),
                      r * torch.sin(phi) * torch.sin(theta)], -1)

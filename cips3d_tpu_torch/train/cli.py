@@ -4,11 +4,12 @@
         --command train_r32 [--opts key value ...] [--debug] [--device cuda|cpu]
 
 Resolves a YAML command node (``base:`` inheritance, dotted ``--opts``)
-and runs the flagship loop (`train/loop.py`) on the card, or on the CPU
-when ``--device cpu`` asks for it.  Stage outputs go to
-``<outdir>/<command>``; ``finetune_dir`` takes effect only with
+and runs the host loop (`train/loop.py`) on the card, or on the CPU when
+``--device cpu`` asks for it: the flagship, or the variant pipeline a node's
+``pipeline: diffcam|pigan`` names (`train/variant_loop.py`; without
+``load_nerf_ema``, which only the flagship's chain uses).  Stage outputs go
+to ``<outdir>/<command>``; ``finetune_dir`` takes effect only with
 ``load_finetune``.  ``--debug`` shrinks the run to a 2-step smoke test.
-The variant pipelines (``pipeline: diffcam|pigan``) are not ported.
 """
 
 from __future__ import annotations
@@ -17,8 +18,9 @@ import sys
 
 from cips3d_tpu_torch.config.config import dump_config, parse_args, resolve_command
 from cips3d_tpu_torch.models.generator import GeneratorConfig, RenderOptions
-from cips3d_tpu_torch.train.loop import LoopConfig, train
+from cips3d_tpu_torch.train.loop import LoopConfig, run_pipeline, train
 from cips3d_tpu_torch.train.state import TrainConfig
+from cips3d_tpu_torch.train.variant_loop import build_diffcam_pipeline, build_pigan_pipeline
 
 
 def config_to_dataclasses(cfg):
@@ -50,19 +52,23 @@ def main(argv=None):
     args = parse_args(argv)
     cfg = resolve_command(args.config, args.command, args.opts)
     pipeline = cfg.get("pipeline", "cips3d")
-    if pipeline in ("diffcam", "pigan"):
-        raise NotImplementedError(f"pipeline {pipeline!r} is not ported yet (the variants, "
-                                  "ROADMAP Queue 1 item 11)")
-    if pipeline != "cips3d":
+    if pipeline not in ("cips3d", "diffcam", "pigan"):
         raise SystemExit(f"unknown pipeline {pipeline!r}")
-    gen_cfg, train_cfg, opts, loop_cfg = config_to_dataclasses(cfg)
+    loop_cfg = LoopConfig(**{k: v for k, v in cfg.to_dict().items()
+                             if k in LoopConfig.__dataclass_fields__})
     if args.debug:
         loop_cfg.debug = True
     loop_cfg.device = args.device
     loop_cfg.outdir = cfg.get("outdir", args.outdir) + f"/{args.command}"
     print(f"resolved config:\n{dump_config(cfg)}", flush=True)
-    train(gen_cfg, train_cfg, opts, loop_cfg, disc_kwargs=cfg.discriminator.to_dict(),
-          **train_kwargs_from_config(cfg))
+    kw = train_kwargs_from_config(cfg)
+    if pipeline != "cips3d":
+        build = build_diffcam_pipeline if pipeline == "diffcam" else build_pigan_pipeline
+        kw.pop("load_nerf_ema")
+        run_pipeline(build(cfg), loop_cfg, **kw)
+        return 0
+    gen_cfg, train_cfg, opts, _ = config_to_dataclasses(cfg)
+    train(gen_cfg, train_cfg, opts, loop_cfg, disc_kwargs=cfg.discriminator.to_dict(), **kw)
     return 0
 
 

@@ -335,3 +335,100 @@ def load_optax_adam_state(opt, module, state: dict, sd_fn) -> None:
             "exp_avg_sq": torch.from_numpy(np.asarray(nu[name], np.float32)).to(p.device).clone()
             if name in nu else torch.zeros_like(p),
         }
+
+
+# ---------------------------------------------------------------- the variants
+
+def cam_tree_from_state_dict(sd: dict) -> dict:
+    """The camera's state dict → its JAX tree ``{"params": {...}}``."""
+    return {"params": {k: _t(v).copy() for k, v in sd.items()}}
+
+
+def cam_state_dict(tree: dict) -> Dict[str, np.ndarray]:
+    """A camera's JAX tree → its state dict."""
+    return {k: _np(v).copy() for k, v in tree.get("params", tree).items()}
+
+
+_PIGAN_MAPPING = {"fc0": "0", "fc1": "2", "fc2": "4", "fc_out": "6"}
+
+
+def pigan_state_dict(params: dict) -> Dict[str, np.ndarray]:
+    """JAX `ImplicitGenerator3d` params → the port's state dict."""
+    siren = params.get("params", params)["siren"]
+    sd: Dict[str, np.ndarray] = {}
+    for k, v in siren.items():
+        if k.startswith("film_"):
+            _linear(sd, v["layer"], f"siren.network.{k[len('film_'):]}.layer")
+        elif k == "mapping_network":
+            for name, slot in _PIGAN_MAPPING.items():
+                _linear(sd, v[name], f"siren.mapping_network.network.{slot}")
+    _linear(sd, siren["sigma"], "siren.final_layer")
+    _linear(sd, siren["color_film"]["layer"], "siren.color_layer_sine.layer")
+    _linear(sd, siren["color_linear"], "siren.color_layer_linear.0")
+    return sd
+
+
+def pigan_tree_from_state_dict(sd: dict) -> dict:
+    """The port's `ImplicitGenerator3d` state dict → the JAX params."""
+    films = sorted({int(k.split(".")[2]) for k in sd if k.startswith("siren.network.")})
+    siren = {f"film_{i}": {"layer": _unlinear(sd, f"siren.network.{i}.layer")} for i in films}
+    siren["mapping_network"] = {name: _unlinear(sd, f"siren.mapping_network.network.{slot}")
+                                for name, slot in _PIGAN_MAPPING.items()}
+    siren["sigma"] = _unlinear(sd, "siren.final_layer")
+    siren["color_film"] = {"layer": _unlinear(sd, "siren.color_layer_sine.layer")}
+    siren["color_linear"] = _unlinear(sd, "siren.color_layer_linear.0")
+    return {"params": {"siren": siren}}
+
+
+def pigan_d_state_dict(params: dict) -> Dict[str, np.ndarray]:
+    """JAX `ProgressiveDiscriminator` params (the blocks it has) → the
+    matching part of the port's state dict."""
+    sd: Dict[str, np.ndarray] = {}
+    for k, v in params.get("params", params).items():
+        if k.startswith("block_"):
+            i = k[len("block_"):]
+            for j, conv in (("0", "conv1"), ("2", "conv2")):
+                sd[f"layers.{i}.network.{j}.conv.weight"] = _np(v[conv]["weight"]).copy()
+                sd[f"layers.{i}.network.{j}.conv.bias"] = _np(v[conv]["bias"]).copy()
+            if "proj_weight" in v:
+                sd[f"layers.{i}.proj.weight"] = _np(v["proj_weight"]).copy()
+                sd[f"layers.{i}.proj.bias"] = _np(v["proj_bias"]).copy()
+        else:
+            name = "final_layer" if k == "final" else f"fromRGB.{k[len('from_rgb_'):]}.model.0"
+            sd[f"{name}.weight"] = _np(v["kernel"]).transpose(3, 2, 0, 1).copy()   # HWIO → OIHW
+            sd[f"{name}.bias"] = _np(v["bias"]).copy()
+    return sd
+
+
+def pigan_d_tree_from_state_dict(sd: dict) -> dict:
+    """The port's `ProgressiveDiscriminator` state dict → the JAX params,
+    every block and input conv."""
+    out: dict = {}
+    for key, v in sd.items():
+        parts, a = key.split("."), _t(v).copy()
+        if parts[0] == "layers":
+            blk = out.setdefault(f"block_{parts[1]}", {})
+            if parts[2] == "proj":
+                blk[f"proj_{parts[3]}"] = a
+            else:
+                blk.setdefault("conv1" if parts[3] == "0" else "conv2", {})[parts[-1]] = a
+        else:
+            name = "final" if parts[0] == "final_layer" else f"from_rgb_{parts[1]}"
+            out.setdefault(name, {})["kernel" if parts[-1] == "weight" else "bias"] = (
+                a.transpose(2, 3, 1, 0).copy() if parts[-1] == "weight" else a)   # OIHW → HWIO
+    return {"params": out}
+
+
+def load_partial(module, sd: Dict[str, np.ndarray]) -> None:
+    """Load a state dict that may cover only part of ``module`` (a JAX
+    pi-GAN D holds only the blocks of its size); every key must exist and
+    match in shape."""
+    import torch
+
+    own = module.state_dict()
+    extra = [k for k in sd if k not in own or tuple(own[k].shape) != sd[k].shape]
+    if extra:
+        raise KeyError(f"keys absent from the module or of another shape: {extra[:5]}")
+    with torch.no_grad():
+        for k, v in sd.items():
+            own[k].copy_(torch.from_numpy(np.asarray(v, np.float32)))

@@ -484,7 +484,8 @@ def test_eval_fid_over_directories_matches_jax(tmp_path):
 def test_cli_trains_r32_then_finetunes_r64_on_the_cpu(tmp_path, capsys, monkeypatch):
     """`train_r32 --debug` then `train_r64 --debug` from configs/ffhq.yaml on
     the CPU at tiny widths: step and FID lines, the text logs, the
-    snapshots (which the JAX package's reader loads), and the finetune."""
+    snapshots (which the JAX package's reader loads), and the finetune;
+    then configs/diffcam.yaml's `train_r32 --debug`."""
     from cips3d_tpu.utils.checkpoint import load_pytree as jax_load_pytree
     from cips3d_tpu_torch.data.synthetic import make_blob_dataset
     from cips3d_tpu_torch.train import cli
@@ -511,9 +512,18 @@ def test_cli_trains_r32_then_finetunes_r64_on_the_cpu(tmp_path, capsys, monkeypa
     with pytest.raises(NotImplementedError, match="ray_shards"):
         cli.main(["--config", os.path.join(ROOT, "configs", "ffhq.yaml"), "--command",
                   "train_r512", "--device", "cpu", "--opts", "data_path", "d.zip"])
-    with pytest.raises(NotImplementedError, match="diffcam"):
-        cli.main(["--config", os.path.join(ROOT, "configs", "diffcam.yaml"), "--command",
-                  "train_r32", "--device", "cpu"])
+    # the diffcam pipeline trains too (it was refused before the variants were ported):
+    # its camera in every snapshot tree, its Adam in resume
+    assert cli.main(["--config", os.path.join(ROOT, "configs", "diffcam.yaml"), "--command",
+                     "train_r32", "--debug", "--device", "cpu", "--opts", *TINY_OPTS,
+                     "nerf_kwargs.n_samples", "3", "nerf_kwargs.n_importance", "3",
+                     "img_size", "8", "data_path", "d.zip"]) == 0
+    out = capsys.readouterr().out
+    assert "step 2: d_loss=" in out and "FID_surrogate=" in out
+    ckpt = tmp_path / "results" / "diffcam" / "train_r32" / "ckptdir"
+    for tree in ("best_fid", "resume", "ckpt_00000000"):
+        assert "['params']['fx_raw']" in np.load(ckpt / tree / "cam_param.npz").files
+    assert "[0].mu['params']['fx_raw']" in np.load(ckpt / "resume" / "cam_opt.npz").files
 
 
 def test_loop_resume_nerf_ema_guard_and_sealed_outdir(tmp_path):
