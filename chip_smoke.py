@@ -72,7 +72,22 @@ Phases, each printing one line (plus detail lines):
      --debug`, then `train_r64 --debug` finetuning from it, `cam_param` and
      `cam_opt` in the trees; pi-GAN `train_r32 --debug`); and the first two
      `FFHQ_STAGES` through `run_progressive` under debug (stage 2 loads stage
-     1's best_fid).
+     1's best_fid);
+ 11. the eval CLI and the apps at full width: a translate_rotate trajectory
+     frame (explicit camera, rolled up vector) at r64 x 12 on the card vs
+     the CPU (phase 4's rule); trajectory-frame times at r128 x 24 and r256
+     x 12; inversion on the exact-sine config (#2r forward, #3 residual
+     backward into the styles, the discriminator's perceptual term), 5 Adam
+     steps, step 0 vs the CPU within rtol 1e-4, the loss falling, #2r and #3
+     once a step, the median step time; the sigma volume at n = 64 on the
+     card vs the CPU (normalised error 1e-4), its MRC read back, n = 128
+     timed; then every mode of `python -m cips3d_tpu_torch.eval.cli` in
+     subprocesses started together, from phase 9's r64 snapshot with
+     configs/ffhq.yaml train_r64 and --serving: trajectory (8 frames r128 x
+     24 with depth, two AVIs of JPEGs), viewer (2 x 3 x 9 JPEGs), multiview,
+     gen, sample, fid with the surrogate on phase 9's zip, and fid without
+     --allow-surrogate, which must refuse while the InceptionV3 checkpoint
+     is absent.
 Phase 4 also fetches /render and /render?depth=1 and checks the JPEGs.
 The second-to-last line is a JSON summary of the kernels (with each one's
 bound on the card: the larger of its multiply-adds over the 67 TFLOP/s f32
@@ -83,6 +98,7 @@ error before printing any result.
 """
 
 import copy
+import itertools
 import json
 import math
 import re
@@ -423,8 +439,9 @@ def step_snapshot(state):
 
 
 def profile_step(fn, state, real, rng, log, label, smi, phase=8):
-    """One more step under `torch.profiler`: the device time by operation,
-    and the device's busy share of the step's host time."""
+    """One more call ``fn(state, real, rng=rng)`` (a step) under
+    `torch.profiler`: the device time by operation, and the device's busy
+    share of the call's host time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -446,7 +463,7 @@ def profile_step(fn, state, real, rng, log, label, smi, phase=8):
     ranges = [e for e in events if is_annotation(e)]
     kernels = [e for e in events if not is_annotation(e)]
     busy = sum(dev_us(e) for e in kernels) / 1e3
-    log(f"phase {phase} profile: train step {label}: {wall:.1f} ms on the host clock (profiled), "
+    log(f"phase {phase} profile: {label}: {wall:.1f} ms on the host clock (profiled), "
         f"device busy {busy:.1f} ms = {100 * busy / wall:.1f} %, idle "
         f"{100 - 100 * busy / wall:.1f} %, {sum(e.count for e in kernels)} device events "
         f"[{smi}]; device time by kernel:")
@@ -528,7 +545,7 @@ def train_run(dev, cfg_g, steps, log, label="", smi="", tcfg=None, disc_kwargs=N
         f"{last['grad_penalty']:.4f}, norms d {last['d_total_norm']:.3f} g "
         f"{last['g_total_norm']:.3f}; G, D and EMA moved; launches {counts}")
     if profile:
-        profile_step(fn, state, real[-1], rng, log, label, smi)
+        profile_step(fn, state, real[-1], rng, log, f"train step {label}", smi)
     return times, counts, peak
 
 
@@ -993,7 +1010,7 @@ def variant_train(dev, name, steps, log, smi):
     log(f"  {name}: losses step 0 -> {steps - 1}: d {first['d_loss']:.4f} -> "
         f"{last['d_loss']:.4f}, g {first['g_loss']:.4f} -> {last['g_loss']:.4f}{extra}; "
         f"{' '.join(('G', 'D', 'EMA', 'camera')[:len(moved)])} moved; kernel launches {counts}")
-    profile_step(fn, state, real[-1], rng, log, f"r{img} b={b} {name}", smi, phase=10)
+    profile_step(fn, state, real[-1], rng, log, f"train step r{img} b={b} {name}", smi, phase=10)
     return statistics.median(times[2:]), b, peak, times
 
 
@@ -1249,6 +1266,290 @@ def variant_phase(dev, smi, log, tmp, data):
     if len(cli["diffcam"]) != 2 or len(cli["pigan"]) != 1:
         raise AssertionError("the variants' CLI runs did not finish")
     return steps
+
+
+def timed(fn, reps):
+    """Host-clock ms of each of ``reps`` calls of ``fn``, each ending in a
+    synchronise."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def median_line(times):
+    q = statistics.quantiles(times, n=4)
+    return (f"median {statistics.median(times):.2f} ms over {len(times)} (quartiles "
+            f"{q[0]:.2f}..{q[2]:.2f}, min {min(times):.2f}, max {max(times):.2f})")
+
+
+def eval_cli_runs(tmp, data):
+    """Phase 11's CLI runs: every mode of `python -m cips3d_tpu_torch.eval.cli`
+    on phase 9's r64 snapshot with configs/ffhq.yaml train_r64's generator
+    and the serving flags, started together.  Returns {label: (seconds,
+    CompletedProcess, out dir)}."""
+    import os
+    import threading
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    common = ["--ckpt", f"{tmp}/train_r64/ckptdir/best_fid", "--config", "configs/ffhq.yaml",
+              "--command", "train_r64", "--serving"]
+    runs = {
+        "trajectory": ["trajectory", "--trajectory-mode", "translate_rotate", "--num-frames", "8",
+                       "--img-size", "128", "--num-steps", "24", "--depth"],
+        "viewer": ["viewer", "--seeds", "0", "1"],
+        "multiview": ["multiview", "--seeds", "0", "--img-size", "64"],
+        "gen": ["gen", "--num-images", "8", "--img-size", "64"],
+        "sample": ["sample", "--num-images", "4", "--img-size", "64"],
+        "fid --allow-surrogate": ["fid", "--data", data, "--allow-surrogate", "--num-images", "8",
+                                  "--img-size", "64"],
+        "fid": ["fid", "--data", data, "--num-images", "8", "--img-size", "64"],
+    }
+    out = {}
+
+    def one(label, args):
+        out_dir = os.path.join(tmp, "eval", label.replace(" ", "_").replace("-", ""))
+        if args[0] == "multiview":
+            out_dir += ".png"
+        if args[0] == "viewer":
+            out_dir += ".html"
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "cips3d_tpu_torch.eval.cli", *args, *common,
+                            "--out", out_dir], cwd=root, capture_output=True, text=True,
+                           timeout=600)
+        out[label] = (time.perf_counter() - t0, p, out_dir)
+
+    workers = [threading.Thread(target=one, args=item) for item in runs.items()]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    if sorted(out) != sorted(runs):
+        raise AssertionError(f"eval CLI runs missing: {sorted(set(runs) - set(out))}")
+    return out
+
+
+def check_eval_cli(out, log, smi):
+    """The files each phase-11 CLI run must leave (JAX-layout snapshot in,
+    PNG/AVI/HTML out); ``fid`` without --allow-surrogate must refuse unless
+    the InceptionV3 checkpoint is found."""
+    import base64
+    import os
+
+    import numpy as np
+
+    from cips3d_tpu_torch.eval.inception import find_weights
+    from cips3d_tpu_torch.utils import image_io, video
+
+    def jpeg_ok(b):
+        return b[:2] == b"\xff\xd8" and b[-2:] == b"\xff\xd9"
+
+    failed = []
+    for label, (secs, p, out_dir) in out.items():
+        refuse = label == "fid" and find_weights() is None
+        note = ""
+        if refuse:
+            ok = p.returncode != 0 and "InceptionV3 weights are unavailable" in p.stderr
+            note = p.stderr.strip().splitlines()[-1] if p.stderr.strip() else "no message"
+        elif p.returncode != 0:
+            ok = False
+        elif label == "trajectory":
+            names = set(os.listdir(out_dir))
+            avis = [video.read_mjpeg_avi(os.path.join(out_dir, f"{v}.avi"))
+                    for v in ("video", "depth")]
+            shapes = {image_io.read_png(os.path.join(out_dir, f"frame_{i:04d}.png")).shape
+                      for i in range(8)}
+            ok = (all(f"{k}_{i:04d}.png" in names for k in ("frame", "depth") for i in range(8))
+                  and shapes == {(128, 128, 3)}
+                  and all(len(a) == 8 and all(jpeg_ok(j) for j in a) for a in avis))
+            note = (f"{len(names)} files, {sum(len(a) for a in avis)} JPEGs in video.avi + "
+                    f"depth.avi")
+        elif label == "viewer":
+            html = open(out_dir).read()
+            grid = json.loads(re.search(r"const F = (.*?);", html).group(1))
+            flat = [base64.b64decode(s) for s in np.ravel(grid)]
+            ok = np.array(grid).shape == (2, 3, 9) and all(jpeg_ok(j) for j in flat)
+            note = f"frames {np.array(grid).shape}, {len(html) / 1e6:.2f} MB"
+        elif label == "multiview":
+            shape = image_io.read_png(out_dir).shape
+            ok, note = shape == (64, 320, 3), f"grid {shape}"
+        elif label in ("gen", "sample"):
+            files = sorted(os.listdir(out_dir))
+            n = 8 if label == "gen" else 4
+            ok = len(files) == n and image_io.read_png(os.path.join(out_dir, files[0])).shape \
+                == (64, 64, 3)
+            note = f"{len(files)} PNGs"
+        else:
+            ok = "FID" in p.stdout
+            note = p.stdout.strip().splitlines()[0] if p.stdout.strip() else ""
+        took = [ln for ln in p.stdout.splitlines() if "after loading" in ln]
+        log(f"phase 11 cli: {label} exit {p.returncode} in {secs:.1f} s (wall, the 7 runs "
+            f"together) {took[0] if took else ''}: {note} [{smi}]")
+        if not ok:
+            log(p.stdout[-2000:] + p.stderr[-4000:])
+            failed.append(label)
+    if failed:
+        raise AssertionError(f"eval CLI runs failed their checks: {failed}")
+
+
+def apps_phase(dev, smi, log, tmp, data, gen, cpu_gen):
+    """Phase 11: the eval CLI and the apps on the card at full width: a
+    translate_rotate trajectory frame (explicit camera with an up vector) on
+    the card vs the CPU; inversion on the exact-sine config (#2r forward,
+    #3 residual backward into the styles) on the card vs the CPU; the sigma
+    volume on the card vs the CPU; times; then every eval CLI mode in
+    subprocesses.  Returns the launch counts of its in-process checks."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from cips3d_tpu_torch.apps import inversion, render, shapes
+    from cips3d_tpu_torch.models.discriminator import DiscriminatorMultiScaleAux
+    from cips3d_tpu_torch.models.generator import (GeneratorConfig, GeneratorNerfINR,
+                                                   RenderOptions, sample_zs)
+    from cips3d_tpu_torch.ops import ray_tile
+
+    counts = {name: 0 for _, _, name in KERNEL_COUNTERS}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] += v
+
+    # ---- a translate_rotate frame with a rolled up vector, card vs CPU, r64 x 12
+    xyz, lookup, up = render.build_trajectory("translate_rotate", 30)
+    i = 8 + 8 + 7                               # the 8th frame of the roll segment
+    gc = torch.Generator().manual_seed(11)
+    zs = sample_zs(1, gen.cfg, gc)
+    opts = RenderOptions(img_size=64, num_steps=12, h_stddev=0.0, v_stddev=0.0)
+    uniform = torch.rand((1, 4096, 12, 1), generator=gc)
+    draws = ray_tile.draw_ray_randoms(1, 4096, 12, False, gc, "cpu")
+    cam = [torch.as_tensor(v[i:i + 1]) for v in (xyz, lookup, up)]
+    with torch.no_grad():
+        st_c = cpu_gen.mapping(zs["z_nerf"], zs["z_inr"])
+        st_g = {k: v.to(dev) for k, v in st_c.items()}
+        ref_img, ref_dep = render.render_chunked(cpu_gen, st_c, opts, None, 4096, *cam,
+                                                 return_depth=True, perturb_uniform=uniform,
+                                                 chunk_draws=[draws])
+        zero_kernel_counts()
+        got_img, got_dep = render.render_chunked(
+            gen, st_g, opts, None, 4096, *(c.to(dev) for c in cam), return_depth=True,
+            perturb_uniform=uniform.to(dev),
+            chunk_draws=[ray_tile.RayDraws(*(t.to(dev) for t in draws))])
+        torch.cuda.synchronize()
+    c = kernel_counts()
+    add(c)
+    e_img = (got_img.cpu() - ref_img).abs()
+    e_dep = (got_dep.cpu() - ref_dep).abs()
+    share = (e_img > FRAME_ATOL).any(1).float().mean().item()
+    log(f"phase 11 frame: translate_rotate frame {i} (up {up[i].round(3).tolist()}), r64 x12, "
+        f"card vs CPU: max_abs_err {e_img.max().item():.3e} depth {e_dep.max().item():.3e}; "
+        f"pixels outside atol {FRAME_ATOL}: {share:.2e}; launches {c}")
+    if share > MAX_OUTSIDE or e_dep.max().item() > FRAME_ATOL or \
+            c["ray_tile"] <= 0 or c["inr_tile"] <= 0:
+        raise AssertionError("the explicit-camera frame disagrees with the CPU or missed a kernel")
+
+    # ---- trajectory-frame times, r128 x 24 and r256 x 12 (serving flags, full width)
+    frame_ms = {}
+    for size, steps in ((128, SERVING_STEPS), (256, 12)):
+        o = RenderOptions(img_size=size, num_steps=steps, h_stddev=0.0, v_stddev=0.0)
+        js = itertools.count()
+
+        def frame():
+            j = next(js) % len(xyz)
+            img, dep = render.render_frame(gen, st_g, o, j, render.Draws(dev), 256 ** 2,
+                                           xyz[j:j + 1], lookup[j:j + 1], up[j:j + 1],
+                                           return_depth=True)
+            return render.depth_to_uint8(dep[0, 0].float().cpu().numpy(), o), img.cpu()
+
+        timed(frame, 2)
+        zero_kernel_counts()
+        times = timed(frame, 20)
+        add(kernel_counts())
+        frame_ms[size] = statistics.median(times)
+        log(f"phase 11 time: trajectory frame r{size} x{steps} (translate_rotate, host clock, "
+            f"image and depth on the host): {median_line(times)} [{smi}]")
+
+    # ---- inversion on the exact-sine config, r64 x 12, 5 steps, card vs CPU
+    exact = GeneratorConfig(fast_sin=False, fused_ray=True, fused_ray_vjp="pallas_residual")
+    inv_cpu = GeneratorNerfINR(exact, generator=torch.Generator().manual_seed(30))
+    disc_cpu = DiscriminatorMultiScaleAux(max_size=1024, generator=torch.Generator().manual_seed(31))
+    inv_dev, disc_dev = copy.deepcopy(inv_cpu).to(dev), copy.deepcopy(disc_cpu).to(dev)
+    yy, xx = np.mgrid[0:64, 0:64] / 63.0
+    target = np.stack([np.sin(3 * xx), np.cos(2 * yy), xx * yy * 2 - 1]).astype(np.float32) * 0.8
+    d_cpu = inversion.draw_inversion(inv_cpu, 5, 64, 12, avg_samples=2000, seed=0)
+    d_dev = inversion.InversionDraws(
+        {k: v.to(dev) for k, v in d_cpu.avg_zs.items()},
+        {k: v.to(dev) for k, v in d_cpu.noise.items()},
+        [ray_tile.RayDraws(*(t.to(dev) for t in r)) for r in d_cpu.rays])
+    kw = dict(img_size=64, num_steps=12, log_every=1)
+    t1 = time.perf_counter()
+    _, _, hist_cpu = inversion.project_image(
+        inv_cpu, target, num_steps_opt=1, draws=d_cpu._replace(rays=d_cpu.rays[:1]),
+        percept_fn=inversion.make_disc_percept_fn(disc_cpu), **kw)
+    cpu_secs = time.perf_counter() - t1
+    starts = []
+    forward = inv_dev.points_forward
+
+    def stamped(*a, **k):   # one points_forward a step: its start closes the previous step
+        torch.cuda.synchronize()
+        starts.append(time.perf_counter())
+        return forward(*a, **k)
+
+    inv_dev.points_forward = stamped
+    zero_kernel_counts()
+    _, img, hist = inversion.project_image(inv_dev, target, num_steps_opt=5, draws=d_dev,
+                                           percept_fn=inversion.make_disc_percept_fn(disc_dev),
+                                           **kw)
+    torch.cuda.synchronize()
+    starts.append(time.perf_counter())
+    c = kernel_counts()
+    add(c)
+    steps_ms = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
+    rel = abs(hist[0] - hist_cpu[0]) / abs(hist_cpu[0])
+    log(f"phase 11 inversion: exact sine (#2r + #3 residual), full width, r64 x12, D percept, "
+        f"5 Adam steps on the card: loss {' -> '.join(f'{v:.6f}' for v in hist)}; step 0 "
+        f"CPU {hist_cpu[0]:.6f} (rel diff {rel:.2e}, CPU step {cpu_secs:.1f} s); launches {c}")
+    log(f"phase 11 time: inversion step r64 x12 (host clock, steps 0-4, step 0 includes "
+        f"warm-up): {median_line(steps_ms)} [{smi}]")
+    if rel > STEP_TOL["loss_rtol"] or not hist[-1] < hist[0] or not np.isfinite(img).all() \
+            or c["ray_tile_residuals"] != 5 or c["ray_tile_bwd_residual"] != 5 \
+            or c["ray_tile"] or c["inr_tile"]:
+        raise AssertionError("inversion: the card's loss disagrees with the CPU's, did not "
+                             "fall, or the step did not run #2r and #3 once each")
+    inv_dev.points_forward = forward
+    profile_step(lambda *a, **k: inversion.project_image(
+        inv_dev, target, num_steps_opt=3, draws=d_dev._replace(rays=d_dev.rays[:3]),
+        percept_fn=inversion.make_disc_percept_fn(disc_dev), **kw), None, None, None, log,
+        "inversion, 3 steps with the set-up (mean style of 2000 draws)", smi, phase=11)
+
+    # ---- the sigma volume: n = 64 card vs CPU, the MRC, n = 128 timed
+    with torch.no_grad():
+        vol_c = shapes.sample_sigma_volume(cpu_gen, n=64, styles=st_c)
+        vol_g = shapes.sample_sigma_volume(gen, n=64, styles=st_g)
+    err = np.abs(vol_g - vol_c).max() / (np.abs(vol_c).max() + 1)
+    path = os.path.join(tmp, "sigma_64.mrc")
+    shapes.write_mrc(path, vol_g)
+    back = shapes.read_mrc(path)
+    log(f"phase 11 shapes: sigma n=64 card vs CPU max|a-b|/(max|b|+1) {err:.2e} (sigma "
+        f"{vol_c.min():.3f}..{vol_c.max():.3f}); MRC {os.path.getsize(path)} bytes read back "
+        f"{'equal' if np.array_equal(back, vol_g) else 'DIFFERENT'}")
+    if err > 1e-4 or not np.array_equal(back, vol_g):
+        raise AssertionError("sigma volume: card vs CPU or the MRC round trip failed")
+    times = timed(lambda: shapes.sample_sigma_volume(gen, n=128, styles=st_g), 3)
+    log(f"phase 11 time: sigma volume n=128 (2.1 M points in 64 k chunks, to the host): "
+        f"{median_line(times)} [{smi}]")
+    profile_step(lambda *a, **k: shapes.sample_sigma_volume(gen, n=128, styles=st_g), None, None,
+                 None, log, "sigma volume n=128", smi, phase=11)
+
+    # ---- every eval CLI mode, from phase 9's r64 snapshot
+    check_eval_cli(eval_cli_runs(tmp, data), log, smi)
+    return counts
 
 
 def main():
@@ -1533,9 +1834,17 @@ def main():
         t_phase = time.perf_counter()
         variant_phase(dev, smi, log, tmp, data)
         log(f"phase 10 done in {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        apps = apps_phase(dev, smi, log, tmp, data, gen, cpu_gen)
+        log(f"phase 11 done in {time.perf_counter() - t_phase:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # launches on the main paths: serving (phase 4), training (phase 7), apps (phase 11)
+    for k in ("ray_tile", "inr_tile"):
+        launches[k] += apps[k]
+    for e in train:
+        e["launches"] += apps[e["name"]]
     kernels = [
         {"name": "ray_tile", "route": "cuda", "source": "cips3d_tpu_torch/csrc/ray_tile.cu",
          "replaces": "cips3d_tpu/ops/pallas/ray_tile.py:137", "launches": launches["ray_tile"],

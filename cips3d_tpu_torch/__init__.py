@@ -1,5 +1,7 @@
-"""PyTorch + CUDA port of the CIPS-3D system: the serving render and the
-flagship's training (step, host loop, data, eval, checkpoints, CLI).
+"""PyTorch + CUDA port of the CIPS-3D system: the serving render, the
+training of the flagship and its variants (step, host loop, data, eval,
+checkpoints, CLI), and the evaluation CLI with its apps (videos, the HTML
+viewer, interpolation, shapes, inversion, FID).
 
 Counterpart of the JAX package `cips3d_tpu`: the same modules, parameter
 layouts and numerics, written with `torch` and numpy only.  The Pallas

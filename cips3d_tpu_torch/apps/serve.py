@@ -16,6 +16,8 @@ Usage:
   python -m cips3d_tpu_torch.apps.serve --ckpt results/.../ckptdir/best_fid \
       --img-size 128 --port 8000
   python -m cips3d_tpu_torch.apps.serve --ckpt ffhq=.../best_fid --ckpt afhq=.../best_fid
+  python -m cips3d_tpu_torch.apps.serve --ckpt .../best_fid --config configs/ffhq.yaml \
+      --command train_r64
 
 ``--ckpt`` reads snapshots in the JAX package's layout (``G_ema.npz``),
 written by either package.  Frames are encoded by the port's own baseline
@@ -36,7 +38,7 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 import torch
 
-from cips3d_tpu_torch.apps.render import compute_styles, render_chunked
+from cips3d_tpu_torch.apps.render import compute_styles, depth_to_uint8, render_chunked
 from cips3d_tpu_torch.eval.images import to_uint8
 from cips3d_tpu_torch.models.generator import GeneratorNerfINR, RenderOptions, sample_zs
 from cips3d_tpu_torch.utils.video import encode_jpeg
@@ -163,10 +165,7 @@ class RenderService:
         """Render one (H, W, 3) uint8 frame."""
         img, dmap = self.render(seed, yaw, pitch, psi, model)
         if depth:
-            d = (dmap[0, 0].float().cpu().numpy() - self.opts.ray_start) / (
-                self.opts.ray_end - self.opts.ray_start)
-            d8 = (np.clip(d, 0.0, 1.0) * 255).astype(np.uint8)
-            return np.stack([d8] * 3, axis=-1)
+            return depth_to_uint8(dmap[0, 0].float().cpu().numpy(), self.opts)
         return to_uint8(img[0].float().cpu().numpy())
 
 
@@ -235,13 +234,17 @@ def serve(service: RenderService, host: str = "127.0.0.1", port: int = 8000):
 
 
 def main(argv=None):
-    from cips3d_tpu_torch.eval.cli import load_generator, serving_config
+    from cips3d_tpu_torch.eval.cli import generator_config, load_generator, serving_config
 
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--ckpt", required=True, action="append",
-                   help="snapshot dir, or NAME=DIR; repeat to serve several models")
+                   help="snapshot dir, or NAME=DIR; repeat to serve several models "
+                   "(same architecture)")
     p.add_argument("--module", default="G_ema")
+    p.add_argument("--config", default=None, help="YAML with a `generator:` node "
+                   "(to serve checkpoints of non-default architecture)")
+    p.add_argument("--command", default=None, help="command node in --config")
     p.add_argument("--img-size", type=int, default=128)
     p.add_argument("--num-steps", type=int, default=24)
     p.add_argument("--host", default="127.0.0.1")
@@ -250,7 +253,7 @@ def main(argv=None):
                    help="exact sinf inside the same kernels (default: polynomial sine)")
     args = p.parse_args(argv)
 
-    gen_cfg = serving_config(fast_sin=not args.exact)
+    gen_cfg = serving_config(generator_config(args.config, args.command), fast_sin=not args.exact)
     models = {}
     for i, spec in enumerate(args.ckpt):
         name, _, path = spec.rpartition("=")

@@ -1,13 +1,14 @@
 """FID evaluation: feature statistics, the Fréchet distance and KID:
 counterpart of `cips3d_tpu/eval/fid.py`.
 
-The metric arithmetic is numpy, as in the JAX package.  The feature
-extractor is the JAX package's surrogate written in torch: the same
-numpy-seeded random filters and projection over 64 x 64 images (resized
-as `jax.image.resize(..., "bilinear")` resizes, antialiased when it
-shrinks), so both packages score the same images alike; its metric is
-labelled ``FID_surrogate``, never FID.  The InceptionV3 extractor is not
-ported (its weights are absent), so a reference-comparable FID is refused.
+The metric arithmetic is numpy, as in the JAX package.  The features come
+from `default_extractor`: torch-fidelity's InceptionV3 (`eval/inception.py`)
+when `find_weights()` finds its checkpoint, else the JAX package's
+surrogate written in torch: the same numpy-seeded random filters and
+projection over 64 x 64 images (resized as `jax.image.resize(...,
+"bilinear")` resizes, antialiased when it shrinks), so both packages score
+the same images alike; its metric is labelled ``FID_surrogate``, never FID,
+and a reference-comparable FID is refused without the checkpoint.
 """
 
 from __future__ import annotations
@@ -86,21 +87,40 @@ def extract_dir_features(path: str, extractor: Callable, batch_size: int = 64) -
 
 
 def eval_fid(real_dir: str, fake_dir: str, extractor: Optional[Callable] = None,
-             kid: bool = False, batch_size: int = 64, require_reference: bool = False) -> dict:
+             kid: bool = False, batch_size: int = 64, require_reference: bool = False,
+             device="cuda") -> dict:
     """FID (and optionally KID) between two directories of PNGs, named
-    after the extractor (``FID_surrogate`` for the default)."""
+    after the extractor (``FID`` for InceptionV3, ``FID_surrogate`` for the
+    surrogate); without ``extractor``, `default_extractor` on ``device``."""
     if extractor is None:
-        extractor = surrogate_extractor()
+        extractor = default_extractor(device=device)
     name = getattr(extractor, "metric_name", "FID")
     if require_reference and name != "FID":
-        raise RuntimeError("reference-comparable FID requested, but the port has no "
-                           "InceptionV3 extractor; refusing to report a surrogate metric as FID")
+        raise RuntimeError(NO_REFERENCE)
     real = extract_dir_features(real_dir, extractor, batch_size)
     fake = extract_dir_features(fake_dir, extractor, batch_size)
     out = {name: frechet_distance(*activation_statistics(real), *activation_statistics(fake))}
     if kid:
         out[name.replace("FID", "KID")] = kid_mmd(real, fake)
     return out
+
+
+NO_REFERENCE = ("reference-comparable FID requested but InceptionV3 weights are unavailable "
+                "(set $CIPS3D_INCEPTION_WEIGHTS); refusing to report a surrogate metric as FID")
+
+
+def default_extractor(require_reference: bool = False, device="cuda") -> Callable:
+    """InceptionV3 pool3 features on ``device`` when `inception.find_weights()`
+    finds the checkpoint; otherwise the surrogate (relative tracking only),
+    or with ``require_reference`` a RuntimeError."""
+    from cips3d_tpu_torch.eval import inception
+
+    weights = inception.find_weights()
+    if weights is not None:
+        return inception.InceptionV3Features(weights, device=device)
+    if require_reference:
+        raise RuntimeError(NO_REFERENCE)
+    return surrogate_extractor()
 
 
 def _same_pad(n: int, k: int = 3, stride: int = 2) -> Tuple[int, int]:

@@ -10,7 +10,9 @@ counterpart of `cips3d_tpu/models/discriminator.py`, NCHW only.
     alpha blending with the half-resolution head (``fade_in``), optional
     minibatch stddev, space_linear + out_linear head;
   * `DiscriminatorMultiScaleAux`: main + aux D; with ``use_aux_disc`` the
-    batch is split half/half between them.
+    batch is split half/half between them;
+  * ``features``: the per-scale ResBlock activations, for the inversion's
+    perceptual term.
 
 Every per-resolution input head and block exists from construction, as the
 JAX package's ``init_all`` materializes them, so one set of parameters
@@ -222,6 +224,18 @@ class DiscriminatorMultiScale(nn.Module):
         out = self.final_conv(out)
         return self.out_linear(self.space_linear(out.reshape(out.shape[0], -1)))
 
+    def features(self, x: torch.Tensor):
+        """Per-scale ResBlock activations, from the input's size down to 4 x 4:
+        a list of (b, c_i, h_i, w_i), for the discriminator-feature
+        perceptual loss (`apps/inversion.py::make_disc_percept_fn`)."""
+        size = x.shape[-1]
+        out = self.conv_in[str(size)](x)
+        feats = []
+        for i in range(int(math.log2(size)), 2, -1):
+            out = self.blocks[str(2 ** i)](out)
+            feats.append(out)
+        return feats
+
 
 class DiscriminatorMultiScaleAux(nn.Module):
     """Main + auxiliary discriminator."""
@@ -250,6 +264,10 @@ class DiscriminatorMultiScaleAux(nn.Module):
             return torch.cat([self.main_disc(x[:b], alpha, fade_in, d1),
                               self.aux_disc(x[b:], alpha, fade_in, d2)], 0)
         return self.main_disc(x, alpha, fade_in, d1)
+
+    def features(self, x: torch.Tensor):
+        """The main D's per-scale activations (`DiscriminatorMultiScale.features`)."""
+        return self.main_disc.features(x)
 
 
 def draw_disc_diffaug(n: int, size: int, use_aux_disc: bool,

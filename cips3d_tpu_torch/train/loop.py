@@ -397,7 +397,7 @@ def _run_eval_and_checkpoint(pipeline, state, loop_cfg, dataset, ckpt_mgr, textl
                      real_dir, n_eval, img_size, del_existing=loop_cfg.del_fid_real_images)
     loop_cfg.del_fid_real_images = False
     pipeline.gen_eval_images(state, fake_dir, n_gen, loop_cfg)
-    metric_dict = eval_fid(real_dir, fake_dir)
+    metric_dict = eval_fid(real_dir, fake_dir, device=loop_cfg.device)
     fid_name = next(k for k in metric_dict if k.startswith("FID"))
     fid_val = metric_dict[fid_name]
     step = host_state["step"]

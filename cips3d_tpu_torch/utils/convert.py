@@ -29,6 +29,10 @@ have (the unused LayerNorms and ToRGB placeholders); `optax_adam_state`
 and `load_optax_adam_state` move Adam's moments and count between
 `torch.optim.Adam` and optax's ``(ScaleByAdamState(count, mu, nu),
 EmptyState())``.  So snapshots move both ways between the packages.
+
+`inception_state_dict` maps the JAX package's InceptionV3 tree
+(``{Conv2d_*: {w, bn_*}, Mixed_*: {branch: {w, bn_*}}}``) onto
+torch-fidelity's names, which `eval/inception.py::InceptionV3` carries.
 """
 
 from __future__ import annotations
@@ -432,3 +436,29 @@ def load_partial(module, sd: Dict[str, np.ndarray]) -> None:
     with torch.no_grad():
         for k, v in sd.items():
             own[k].copy_(torch.from_numpy(np.asarray(v, np.float32)))
+
+
+# ---------------------------------------------------------------- InceptionV3
+
+_BN = (("w", "conv.weight"), ("bn_g", "bn.weight"), ("bn_b", "bn.bias"),
+       ("bn_m", "bn.running_mean"), ("bn_v", "bn.running_var"))
+
+
+def inception_state_dict(params: dict) -> Dict[str, np.ndarray]:
+    """A JAX package InceptionV3 tree (`random_params`,
+    `convert_inception_state_dict`: ``{Conv2d_*: conv, Mixed_*: {branch:
+    conv}}``, each conv ``{w, bn_g, bn_b, bn_m, bn_v}``) → the port's
+    `eval/inception.py::InceptionV3` state dict (torch-fidelity's names)."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def conv(prefix, p):
+        for src, dst in _BN:
+            sd[f"{prefix}.{dst}"] = _np(p[src]).copy()
+
+    for mod, tree in params.items():
+        if "w" in tree:
+            conv(mod, tree)
+        else:
+            for branch, p in tree.items():
+                conv(f"{mod}.{branch}", p)
+    return sd

@@ -1,20 +1,32 @@
-"""Baseline JPEG encoding with numpy only: counterpart of
-`cips3d_tpu/utils/video.py::encode_jpeg`, which asks PIL for a baseline
-JPEG with 4:4:4 sampling.
+"""Video without codec libraries: baseline JPEG encoding with numpy only
+and Motion-JPEG inside an AVI container.  Counterpart of
+`cips3d_tpu/utils/video.py` (`encode_jpeg`, `write_mjpeg_avi`,
+`read_mjpeg_avi`, `write_video`), which asks PIL for the JPEGs.
 
-JFIF, 8-bit YCbCr (the JFIF colour transform), one scan with the three
-components interleaved and no subsampling, the IJG quantization tables
-scaled by quality as libjpeg (and so PIL) scales them, a float DCT with
-round-to-nearest quantization, and the standard Huffman tables of ITU T.81
-Annex K.  Images whose sides are not multiples of 8 are padded by repeating
-the edge pixels, as libjpeg pads them.
+The encoder: JFIF, 8-bit YCbCr (the JFIF colour transform), one scan with
+the three components interleaved and no subsampling, the IJG quantization
+tables scaled by quality as libjpeg (and so PIL) scales them, a float DCT
+with round-to-nearest quantization, and the standard Huffman tables of
+ITU T.81 Annex K.  Images whose sides are not multiples of 8 are padded by
+repeating the edge pixels, as libjpeg pads them.
+
+The container is the JAX package's minimal AVI 1.0: RIFF('AVI ') with an
+'hdrl' list (avih + one 'vids'/'MJPG' stream), a 'movi' list of '00dc'
+frame chunks and an 'idx1' keyframe index; it plays in VLC, mpv, ffplay
+and QuickTime.  The port has no mp4 encoder, so `write_video` always
+writes this container (an ``.mp4`` path becomes ``.avi``), and it has no
+JPEG decoder, so `read_mjpeg_avi` returns each frame's JPEG bytes.
 """
 
 from __future__ import annotations
 
 import struct
+from typing import Iterable, List
 
 import numpy as np
+
+AVIF_HASINDEX = 0x00000010
+AVIIF_KEYFRAME = 0x00000010
 
 _LUMA_Q = np.array([
     16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
@@ -166,3 +178,108 @@ def encode_jpeg(frame: np.ndarray, quality: int = 92) -> bytes:
         header += _segment(0xC4, bytes([(cls << 4) | tid]) + bytes(bits) + bytes(vals))
     header += _segment(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0]))
     return header + bytes(out) + b"\xff\xd9"
+
+
+# ---------------------------------------------------------------- MJPEG-AVI
+
+def _chunk(fourcc: bytes, payload: bytes) -> bytes:
+    pad = b"\x00" if len(payload) % 2 else b""
+    return fourcc + struct.pack("<I", len(payload)) + payload + pad
+
+
+def _list(list_type: bytes, payload: bytes) -> bytes:
+    return _chunk(b"LIST", list_type + payload)
+
+
+def write_mjpeg_avi(frames: Iterable[np.ndarray], out_path: str, fps: int = 25,
+                    quality: int = 92) -> str:
+    """Write HWC uint8 RGB frames as an MJPEG AVI.  Returns ``out_path``."""
+    frames = [np.asarray(f, dtype=np.uint8) for f in frames]
+    if not frames:
+        raise ValueError("no frames")
+    jpegs: List[bytes] = [encode_jpeg(f, quality) for f in frames]
+    h, w = frames[0].shape[:2]
+    max_bytes = max(len(j) for j in jpegs)
+    n = len(jpegs)
+    avih = struct.pack(
+        "<IIIIIIIIIIIIII",
+        int(1_000_000 / fps),  # dwMicroSecPerFrame
+        max_bytes * fps,       # dwMaxBytesPerSec
+        0,                     # dwPaddingGranularity
+        AVIF_HASINDEX,         # dwFlags
+        n,                     # dwTotalFrames
+        0,                     # dwInitialFrames
+        1,                     # dwStreams
+        max_bytes,             # dwSuggestedBufferSize
+        w, h,
+        0, 0, 0, 0,            # dwReserved
+    )
+    strh = struct.pack(
+        "<4s4sIHHIIIIIIiI4H",
+        b"vids", b"MJPG",
+        0,                     # dwFlags
+        0, 0,                  # wPriority, wLanguage
+        0,                     # dwInitialFrames
+        1,                     # dwScale
+        fps,                   # dwRate
+        0,                     # dwStart
+        n,                     # dwLength (frames)
+        max_bytes,             # dwSuggestedBufferSize
+        -1,                    # dwQuality
+        0,                     # dwSampleSize
+        0, 0, w, h,            # rcFrame
+    )
+    strf = struct.pack(
+        "<IiiHH4sIiiII",
+        40,                    # biSize
+        w, h,
+        1,                     # biPlanes
+        24,                    # biBitCount
+        b"MJPG",               # biCompression
+        w * h * 3,             # biSizeImage
+        0, 0, 0, 0,
+    )
+    strl = _list(b"strl", _chunk(b"strh", strh) + _chunk(b"strf", strf))
+    hdrl = _list(b"hdrl", _chunk(b"avih", avih) + strl)
+    movi_payload, index_entries = b"", []
+    offset = 4  # convention: offsets relative to the 'movi' fourcc
+    for j in jpegs:
+        ch = _chunk(b"00dc", j)
+        index_entries.append((offset, len(j)))
+        movi_payload += ch
+        offset += len(ch)
+    idx1 = b"".join(b"00dc" + struct.pack("<III", AVIIF_KEYFRAME, off, size)
+                    for off, size in index_entries)
+    riff_payload = b"AVI " + hdrl + _list(b"movi", movi_payload) + _chunk(b"idx1", idx1)
+    with open(out_path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", len(riff_payload)) + riff_payload)
+    return out_path
+
+
+def read_mjpeg_avi(path: str) -> List[bytes]:
+    """The JPEG bytes of every '00dc' chunk, in order (the port has no JPEG
+    decoder; the JAX package's reader decodes them with PIL)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:4] != b"RIFF" or data[8:12] != b"AVI ":
+        raise ValueError(f"{path}: not an AVI")
+    jpegs = []
+    i = data.index(b"movi") + 4
+    while i + 8 <= len(data):
+        fourcc = data[i:i + 4]
+        (size,) = struct.unpack("<I", data[i + 4:i + 8])
+        if fourcc == b"00dc":
+            jpegs.append(data[i + 8:i + 8 + size])
+        elif fourcc in (b"idx1", b"LIST"):
+            break
+        i += 8 + size + (size % 2)
+    return jpegs
+
+
+def write_video(frames, out_path: str, fps: int = 25) -> str:
+    """Write frames as MJPEG-AVI; an ``.mp4`` path becomes ``.avi`` (the
+    port has no mp4 encoder) and says so.  Returns the path written."""
+    if out_path.endswith(".mp4"):
+        out_path = out_path[: -len(".mp4")] + ".avi"
+        print(f"no mp4 encoder: writing MJPEG-AVI {out_path}", flush=True)
+    return write_mjpeg_avi(frames, out_path, fps=fps)
