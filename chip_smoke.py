@@ -88,6 +88,17 @@ Phases, each printing one line (plus detail lines):
      gen, sample, fid with the surrogate on phase 9's zip, and fid without
      --allow-surrogate, which must refuse while the InceptionV3 checkpoint
      is absent.
+ 12. the data path at real sizes on the card's host: the native library's
+     JPEG decode of PIL-made fixtures (4:2:0, 4:2:2, 4:4:4, grey, a restart
+     interval) against PIL's pixels, exact; 256 seeded r256 images (224 PNG
+     by `encode_png`, 32 JPEG by `encode_jpeg`) through `python -m
+     cips3d_tpu_torch.data.dataset_tool` in a subprocess, every member
+     decoded identically by the native and the plain readers; the
+     DataLoader's images/s (4 threads, b = 4) at r256 plain and native and at
+     r256 -> r64 native, which must be at least twice phase 8's shipped r64
+     step rate; 10 shipped r64 steps fed from that zip (median beside phase
+     8's); a CelebA list of 178 x 218 JPEGs through `get_dataset` and the
+     loader, one item against the plain resize functions.
 Phase 4 also fetches /render and /render?depth=1 and checks the JPEGs.
 The second-to-last line is a JSON summary of the kernels (with each one's
 bound on the card: the larger of its multiply-adds over the 67 TFLOP/s f32
@@ -498,10 +509,13 @@ def zero_kernel_counts():
 
 
 def train_run(dev, cfg_g, steps, log, label="", smi="", tcfg=None, disc_kwargs=None,
-              aux_reg=True, profile=True):
+              aux_reg=True, profile=True, loader=None):
     """Phase 7: `steps` training steps (by default r64, b = 4, aux on);
     returns (host times per step in ms, launch counts, peak device memory
-    in bytes); then, with ``profile``, profiles one more step."""
+    in bytes); then, with ``profile``, profiles one more step.  With
+    ``loader`` each step takes its reals from it (uint8 batches to the card,
+    inside the timed step, as the training loop feeds them); else from
+    seeded noise on the card."""
     import torch
 
     from cips3d_tpu_torch.models.discriminator import DiscriminatorMultiScaleAux
@@ -526,7 +540,8 @@ def train_run(dev, cfg_g, steps, log, label="", smi="", tcfg=None, disc_kwargs=N
     for i in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, m = fn(state, real[i], rng=rng)   # the metrics' floats wait for the step
+        batch = real[i] if loader is None else torch.from_numpy(next(loader)[0]).to(dev)
+        state, m = fn(state, batch, rng=rng)   # the metrics' floats wait for the step
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         metrics.append(m)
@@ -737,7 +752,8 @@ def step_vs_cpu(dev, log, noise, cfg=None, label="exact sine, residual backward"
 
 
 def training_phases(dev, smi, log):
-    """Phases 6-8; returns the summary entries of the training kernels."""
+    """Phases 6-8; returns the summary entries of the training kernels and
+    the median step ms of each r64 config."""
     import torch
 
     from cips3d_tpu_torch.models.generator import GeneratorConfig, GeneratorNerfINR, RenderOptions
@@ -868,7 +884,7 @@ def training_phases(dev, smi, log):
                 "launches": count, "max_abs_err": err, "ms": t[1], "plain_ms": t[0],
                 "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
 
-    return [
+    return step_ms, [
         entry("ray_tile_residuals", "cips3d_tpu_torch/csrc/ray_tile.cu",
               "cips3d_tpu/ops/pallas/ray_tile.py:207", launches["ray_tile_residuals"],
               errs["ray_tile_residuals"], t_res, b2r),
@@ -1366,9 +1382,10 @@ def check_eval_cli(out, log, smi):
                       for i in range(8)}
             ok = (all(f"{k}_{i:04d}.png" in names for k in ("frame", "depth") for i in range(8))
                   and shapes == {(128, 128, 3)}
-                  and all(len(a) == 8 and all(jpeg_ok(j) for j in a) for a in avis))
-            note = (f"{len(names)} files, {sum(len(a) for a in avis)} JPEGs in video.avi + "
-                    f"depth.avi")
+                  and all(len(a) == 8 and all(f.shape == (128, 128, 3) for f in a)
+                          for a in avis))
+            note = (f"{len(names)} files, {sum(len(a) for a in avis)} frames decoded from "
+                    f"video.avi + depth.avi")
         elif label == "viewer":
             html = open(out_dir).read()
             grid = json.loads(re.search(r"const F = (.*?);", html).group(1))
@@ -1552,6 +1569,206 @@ def apps_phase(dev, smi, log, tmp, data, gen, cpu_gen):
     return counts
 
 
+# ---- phase 12: the data path ------------------------------------------------
+
+def photo(seed, h, w):
+    """A seeded stand-in for a photograph: smooth waves and noise (PIL's
+    PNG encoder picks a mix of row filters for it, Paeth the most)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:h, :w]
+    f = rng.uniform(3, 12, 3)
+    ph = rng.uniform(0, 6, 3)
+    base = np.stack([128 + 100 * np.sin(xx / f[0] + yy / 11 + ph[0]),
+                     128 + 90 * np.cos(yy / f[1] + ph[1]),
+                     128 + 80 * np.sin((xx - yy) / f[2] + ph[2])], -1)
+    return np.clip(base + rng.normal(0, 10, base.shape), 0, 255).astype(np.uint8)
+
+
+def plain_vs_native(path, idxs):
+    """Decode members ``idxs`` of the zip through the plain reader (numpy's
+    PNG decoder) and the native one; returns [(index, max abs diff)] of
+    those that differ, and how many rows use each PNG filter.  Runs in a
+    worker process: the plain decoder holds the GIL."""
+    import zipfile
+    import zlib
+
+    import numpy as np
+
+    from cips3d_tpu_torch.data.zip_dataset import ZipImageDataset
+
+    nat, plain = ZipImageDataset(path), ZipImageDataset(path, use_native=False)
+    bad, filters = [], np.zeros(5, np.int64)
+    with zipfile.ZipFile(path) as zf:
+        for i in idxs:
+            a, b = nat[i][0], plain[i][0]
+            if a.shape != b.shape or not np.array_equal(a, b):
+                bad.append((i, int(np.abs(a.astype(int) - b).max()) if a.shape == b.shape else -1))
+            data, pos, idat = zf.read(nat._names[i]), 8, b""
+            while pos < len(data):   # the filter byte that starts each row
+                n = int.from_bytes(data[pos:pos + 4], "big")
+                if data[pos + 4:pos + 8] == b"IDAT":
+                    idat += data[pos + 8:pos + 8 + n]
+                pos += 12 + n
+            rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(a.shape[1], -1)
+            filters += np.bincount(rows[:, 0], minlength=5)[:5]
+    return bad, filters
+
+
+def loader_rate(dataset, batches, b=4, workers=4):
+    """Images/s of the port's DataLoader over ``dataset``: from its start to
+    the ``batches``-th batch (no batch waits in a queue before the clock)."""
+    from cips3d_tpu_torch.data.zip_dataset import DataLoader
+
+    t0 = time.perf_counter()
+    loader = DataLoader(dataset, batch_size=b, seed=0, num_workers=workers)
+    try:
+        shapes = {next(loader)[0].shape for _ in range(batches)}
+    finally:
+        loader.close()
+    return batches * b / (time.perf_counter() - t0), shapes
+
+
+def data_phase(dev, smi, log, tmp, shipped_step_ms):
+    """Phase 12: the data path at real sizes on the card's host: JPEG
+    fixtures, the dataset tool on 256 r256 images, the loader's rates, 10
+    shipped training steps fed from the zip, a CelebA list.  Returns the
+    kernel launches of those steps."""
+    import os
+    from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+    from multiprocessing import get_context
+
+    import numpy as np
+
+    from cips3d_tpu_torch import native
+    from cips3d_tpu_torch.data import named_datasets
+    from cips3d_tpu_torch.data.zip_dataset import DataLoader, ZipImageDataset
+    from cips3d_tpu_torch.models.generator import GeneratorConfig
+    from cips3d_tpu_torch.utils import image_io, video
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    # the JPEG fixtures PIL wrote and decoded: held exact (the CPU tests' bound)
+    fx = os.path.join(root, "cips3d_tpu_torch", "native", "fixtures")
+    names = sorted(f[:-4] for f in os.listdir(fx) if f.endswith(".jpg"))
+    errs = []
+    for name in names:
+        got = native.read_image(os.path.join(fx, name + ".jpg")).astype(int)
+        want = np.load(os.path.join(fx, name + ".npy"))
+        d = np.abs(got - want) if got.shape == want.shape else np.full(1, 255)
+        errs.append(f"{name} {d.max()}/{(d > 0).mean():.1%}")
+        if d.max() > 0:
+            raise AssertionError(f"JPEG fixture {name}: the native decode is not PIL's ({errs[-1]})")
+    log(f"phase 12 fixtures: {len(names)} JPEGs vs PIL's pixels, max abs diff / share off: "
+        f"{', '.join(errs)} (bound: exact)")
+
+    # 256 seeded r256 images: 224 PNG (encode_png) and 32 JPEG (encode_jpeg)
+    src = os.path.join(tmp, "faces")
+    os.makedirs(src)
+
+    def write(i):
+        img = photo(1000 + i, 256, 256)
+        data, ext = (image_io.encode_png(img), "png") if i < 224 else (
+            video.encode_jpeg(img, 90), "jpg")
+        with open(os.path.join(src, f"face{i:04d}.{ext}"), "wb") as f:
+            f.write(data)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, range(256)))
+    t_write = time.perf_counter() - t0
+    data = os.path.join(tmp, "faces256.zip")
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "cips3d_tpu_torch.data.dataset_tool", "--source",
+                        src, "--dest", data], capture_output=True, text=True, timeout=300,
+                       cwd=root)
+    t_tool = time.perf_counter() - t0
+    if p.returncode != 0 or f"wrote 256 images to {data}" not in p.stdout:
+        raise AssertionError(f"dataset_tool exit {p.returncode}: {p.stdout}{p.stderr[-3000:]}")
+    nat = ZipImageDataset(data)
+    if len(nat) != 256 or nat._names != [f"img{i:08d}.png" for i in range(256)]:
+        raise AssertionError(f"the tool's zip holds {len(nat)} images: {nat._names[:3]}...")
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(8, mp_context=get_context("spawn")) as pool:
+        parts = list(pool.map(plain_vs_native, [data] * 8, [range(k, 256, 8) for k in range(8)]))
+    t_check = time.perf_counter() - t0
+    bad = sum((b for b, _ in parts), [])
+    filters = sum(f for _, f in parts)
+    if bad:
+        raise AssertionError(f"native and plain readers differ on members {bad[:10]}")
+    if nat[0][0].shape != (3, 256, 256):
+        raise AssertionError(f"member 0 decodes to {nat[0][0].shape}")
+    log(f"phase 12 dataset_tool: 224 PNG + 32 JPEG r256 sources written in {t_write:.1f} s; "
+        f"`python -m cips3d_tpu_torch.data.dataset_tool` -> 256 members "
+        f"({os.path.getsize(data) / 2 ** 20:.1f} MiB) in {t_tool:.1f} s (subprocess wall); every "
+        f"member decodes identically through the native and plain readers (checked in "
+        f"{t_check:.1f} s, 8 processes); rows by PNG filter none/sub/up/average/paeth "
+        f"{'/'.join(str(int(v)) for v in filters)}")
+
+    # the loader's rate, 4 threads, b = 4
+    rates = {}
+    for label, ds, batches in (
+            ("r256 plain", ZipImageDataset(data, use_native=False), 8),
+            ("r256 native", ZipImageDataset(data), 64),
+            ("r256->r64 native", ZipImageDataset(data, resize_resolution=64), 64)):
+        rates[label], shapes = loader_rate(ds, batches)
+        size = 64 if "r64" in label else 256
+        if shapes != {(4, 3, size, size)}:
+            raise AssertionError(f"loader {label}: batch shapes {shapes}")
+    shipped = 4e3 / shipped_step_ms
+    for label, rate in rates.items():
+        log(f"phase 12 time: DataLoader (4 threads, b=4) {label}: {rate:.1f} images/s [{smi}]")
+    log(f"phase 12 loader vs step: r256->r64 native {rates['r256->r64 native']:.1f} images/s, "
+        f"phase 8's shipped r64 step {shipped:.2f} images/s: ratio "
+        f"{rates['r256->r64 native'] / shipped:.1f} (at least 2)")
+    if rates["r256->r64 native"] < 2 * shipped:
+        raise AssertionError("the native loader at r256->r64 is not twice the shipped step's rate")
+
+    # 10 steps of phase 8's shipped cell, fed from the tool's zip
+    loader = DataLoader(ZipImageDataset(data, resize_resolution=64, xflip=True), batch_size=4,
+                        seed=1, num_workers=4)
+    try:
+        times, counts, _ = train_run(dev, GeneratorConfig(fast_sin=True, fused_ray=False), 10,
+                                     log, SHIPPED, smi, profile=False, loader=loader)
+    finally:
+        loader.close()
+    if counts["ray_tile"] <= 0 or counts["inr_tile"] <= 0:
+        raise AssertionError(f"training from the zip: kernels not launched: {counts}")
+    med = statistics.median(times[2:])
+    log(f"phase 12 time: train step r64 b=4 {SHIPPED}, reals from the zip (r256->r64, xflip): "
+        f"median {med:.1f} ms (steps 2-9; {4e3 / med:.2f} images/s) beside phase 8's "
+        f"{shipped_step_ms:.1f} ms on seeded noise [{smi}]")
+
+    # a CelebA list of 178 x 218 JPEGs through get_dataset and the loader
+    celeba = os.path.join(tmp, "celeba")
+    os.makedirs(celeba)
+
+    def write_celeba(i):
+        with open(os.path.join(celeba, f"{i:06d}.jpg"), "wb") as f:
+            f.write(video.encode_jpeg(photo(2000 + i, 218, 178), 90))
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write_celeba, range(64)))
+    lst = os.path.join(tmp, "celeba.txt")
+    with open(lst, "w") as f:
+        f.write("\n".join(f"celeba/{i:06d}.jpg" for i in range(64)))
+    ds = named_datasets.get_dataset("CelebA", 64, image_list_file=lst)
+    img = native.read_image(os.path.join(celeba, "000003.jpg"))
+    tall = round(218 * 320 / 178)   # the shorter side (178) to 320, then the centre 256
+    top = (tall - 256) // 2
+    plain = image_io.resize_bilinear(img, 320, tall)[top:top + 256, 32:288]
+    plain = image_io.resize_nearest(plain, 64, 64)
+    if len(ds) != 128 or not np.array_equal(ds[3][0], plain.transpose(2, 0, 1)) or \
+            not np.array_equal(ds[64 + 3][0], plain[:, ::-1].transpose(2, 0, 1)):
+        raise AssertionError("CelebA item 3 (and its flip) is not the plain versions' pipeline")
+    rate, shapes = loader_rate(ds, 32)
+    if shapes != {(4, 3, 64, 64)}:
+        raise AssertionError(f"CelebA loader: batch shapes {shapes}")
+    log(f"phase 12 time: CelebA list, 64 JPEGs 178x218 -> r64 (get_dataset, 4 threads, b=4): "
+        f"{rate:.1f} images/s; item 3 and its flip equal the plain versions' pipeline [{smi}]")
+    return counts
+
+
 def main():
     import torch
 
@@ -1582,6 +1799,12 @@ def main():
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
+    from cips3d_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native.library()
+    log(f"phase 2 build: native image library {native.build().name} (g++, zipreader.cpp) "
+        f"loaded in {time.perf_counter() - t0:.1f} s")
 
     # ---- the flagship generator at full width ----------------------------
     cfg = serving_config(fast_sin=True)
@@ -1816,7 +2039,7 @@ def main():
                              4 * n5 * (32 + 3) + 4 * (32 * 512 + 17 * 512 * 512)),
     }
 
-    train = training_phases(dev, smi, log)
+    step_ms, train = training_phases(dev, smi, log)
 
     import os
     import shutil
@@ -1837,12 +2060,16 @@ def main():
         t_phase = time.perf_counter()
         apps = apps_phase(dev, smi, log, tmp, data, gen, cpu_gen)
         log(f"phase 11 done in {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        data_counts = data_phase(dev, smi, log, tmp, step_ms[SHIPPED])
+        log(f"phase 12 done in {time.perf_counter() - t_phase:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # launches on the main paths: serving (phase 4), training (phase 7), apps (phase 11)
+    # launches on the main paths: serving (phase 4), training (phase 7), apps (phase 11),
+    # training from the dataset tool's zip (phase 12)
     for k in ("ray_tile", "inr_tile"):
-        launches[k] += apps[k]
+        launches[k] += apps[k] + data_counts[k]
     for e in train:
         e["launches"] += apps[e["name"]]
     kernels = [

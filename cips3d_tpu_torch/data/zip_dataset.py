@@ -1,12 +1,15 @@
 """StyleGAN-zip image dataset and a threaded loader: counterpart of
 `cips3d_tpu/data/zip_dataset.py`.
 
-A zip of PNG images (plus an optional ``dataset.json`` of labels);
-``xflip`` doubles the dataset with mirrored copies, ``resize_resolution``
-resizes with the Lanczos filter as PIL does, ``cache_decoded`` keeps the
-decoded and resized pixels in a uint8 memmap beside the zip.  Images decode
-with the port's PNG reader (`utils/image_io.py`): JPEG members are refused
-with an error, and the JAX package's native C++ reader is not ported.
+A zip of PNG or JPEG images (plus an optional ``dataset.json`` of
+labels); ``xflip`` doubles the dataset with mirrored copies,
+``resize_resolution`` resizes with the Lanczos filter as PIL does,
+``cache_decoded`` keeps the decoded and resized pixels in a uint8 memmap
+beside the zip.  With ``use_native`` (the default) members are read,
+decoded and resized by the native library (`cips3d_tpu_torch/native/`),
+which releases the GIL, so the loader's threads decode in parallel; a
+member it cannot decode raises.  ``use_native=False`` is the plain path:
+numpy's PNG decoder and Lanczos (`utils/image_io.py`), PNG members only.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from cips3d_tpu_torch import native
 from cips3d_tpu_torch.utils import image_io
 
 IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
@@ -31,7 +35,7 @@ class ZipImageDataset:
 
     def __init__(self, path: str, resize_resolution: Optional[int] = None, xflip: bool = False,
                  max_size: Optional[int] = None, use_labels: bool = False,
-                 cache_decoded: bool = False):
+                 use_native: bool = True, cache_decoded: bool = False):
         self.path = path
         self.resize_resolution = resize_resolution
         self.xflip = xflip
@@ -40,6 +44,7 @@ class ZipImageDataset:
         self._cache: Optional[np.memmap] = None
         self._cache_done: Optional[np.memmap] = None
         self._local = threading.local()
+        self._native = native.NativeZipReader(path) if use_native else None
         with zipfile.ZipFile(path) as zf:
             names = sorted(n for n in zf.namelist() if n.lower().endswith(IMAGE_EXTS))
             self._labels = None
@@ -54,6 +59,9 @@ class ZipImageDataset:
         self._base_len = len(names)
         if self._base_len == 0:
             raise ValueError(f"no images found in {path}")
+        if self._native is not None:
+            index = {n: i for i, n in enumerate(self._native.names)}
+            self._native_idx = [index[n] for n in names]
 
     def __len__(self) -> int:
         return self._base_len * (2 if self.xflip else 1)
@@ -114,11 +122,16 @@ class ZipImageDataset:
 
     def _decode(self, base_idx: int) -> np.ndarray:
         """Decode one image and resize it: HWC uint8 RGB."""
+        r = self.resize_resolution
+        if self._native is not None:
+            arr = self._native.read_image(self._native_idx[base_idx])
+            if r and arr.shape[:2] != (r, r):
+                arr = native.resize(arr, r, r, "lanczos")
+            return arr
         name = self._names[base_idx]
         if not name.lower().endswith(".png"):
-            raise ValueError(f"{name}: the port decodes PNG members only")
+            raise ValueError(f"{name}: the plain path (use_native=False) decodes PNG members only")
         arr = image_io.to_rgb(image_io.decode_png(self._zf().read(name)))
-        r = self.resize_resolution
         if r and arr.shape[:2] != (r, r):
             arr = image_io.resize_lanczos(arr, r, r)
         return arr

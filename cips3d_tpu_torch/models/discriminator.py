@@ -39,6 +39,7 @@ from cips3d_tpu_torch.models.layers import (EqualConv2d, EqualConvTranspose2d, E
 from cips3d_tpu_torch.ops.diffaug import DiffAugDraws, diff_augment, draw_diffaug
 from cips3d_tpu_torch.ops.fused_act import fused_leaky_relu, scaled_leaky_relu
 from cips3d_tpu_torch.ops.upfirdn2d import blur_pad_down, blur_pad_up, make_kernel, upfirdn2d
+from cips3d_tpu_torch.utils import debug
 
 BLUR_KERNEL = (1, 3, 3, 1)
 
@@ -212,7 +213,9 @@ class DiscriminatorMultiScale(nn.Module):
             x = diff_augment(x, diffaug)
         size = x.shape[-1]
         log_size = int(math.log2(size))
+        debug.trace("disc.in", x)
         out = self.blocks[str(size)](self.conv_in[str(size)](x))
+        debug.trace(f"disc.block_{size}", out)
         if fade_in and size > 4:   # blend with the half-resolution input head
             half = size // 2
             down_out = self.conv_in[str(half)](resize_bilinear(x, half))
@@ -222,7 +225,9 @@ class DiscriminatorMultiScale(nn.Module):
         if self.stddev_group > 0:
             out = minibatch_stddev(out, self.stddev_group)
         out = self.final_conv(out)
-        return self.out_linear(self.space_linear(out.reshape(out.shape[0], -1)))
+        out = self.out_linear(self.space_linear(out.reshape(out.shape[0], -1)))
+        debug.trace("disc.logits", out)
+        return out
 
     def features(self, x: torch.Tensor):
         """Per-scale ResBlock activations, from the input's size down to 4 x 4:

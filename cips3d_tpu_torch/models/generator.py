@@ -33,6 +33,7 @@ from cips3d_tpu_torch.models.mapping import MultiHeadMappingNetwork
 from cips3d_tpu_torch.models.nerf_net import NeRFNetwork
 from cips3d_tpu_torch.ops.inr_tile import fused_inr_decode
 from cips3d_tpu_torch.ops.ray_tile import VJP_IMPLS, RayDraws, draw_ray_randoms, fused_ray_render
+from cips3d_tpu_torch.utils import debug
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,6 +153,7 @@ class GeneratorNerfINR(nn.Module):
             nerf_styles = {k: v.detach() for k, v in nerf_styles.items()}
         style_dict = dict(nerf_styles)
         style_dict.update(self.mapping_network_inr(z_inr))
+        debug.trace("mapping", **style_dict)
         return style_dict
 
     def points_forward(self, style_dict: Mapping[str, torch.Tensor],
@@ -211,7 +213,11 @@ class GeneratorNerfINR(nn.Module):
 
         # freeze_nerf: the whole stage without gradient, as the reference runs it
         with torch.no_grad() if c.freeze_nerf else contextlib.nullcontext():
+            if debug.enabled():   # the JAX trace shows the per-sample directions
+                debug.trace("points_forward.in", points=pts,
+                            dirs=dirs[..., None, :].expand_as(pts), z_vals=z_vals)
             coarse_rgb, coarse_sigma = siren(pts)
+            debug.trace("points_forward.coarse", coarse_rgb, coarse_sigma)
             if opts.hierarchical_sample:
                 fine_pts, fine_z = volume.get_fine_points_from_sigma(
                     draws.u.reshape(b * n, s), coarse_sigma, z_vals, opts.clamp_mode, noise_std,
@@ -233,10 +239,12 @@ class GeneratorNerfINR(nn.Module):
     def _decode_pixels(self, pixels_fea, pixels_depth, style_dict, return_depth, c):
         """INR decode (all nine blocks, as the reference's render path) and
         the aux head on composited ray features."""
+        debug.trace("points_forward.pixels_fea", pixels_fea)
         if c.fused_inr:
             inr_img = fused_inr_decode(self.inr_net, style_dict, pixels_fea, dtype=self.dtype)
         else:
             inr_img = self.inr_net(pixels_fea, style_dict)
+        debug.trace("points_forward.inr_img", inr_img)
         aux = self.aux_to_rbg(pixels_fea)
         if c.freeze_nerf:
             aux = aux.detach()

@@ -26,8 +26,9 @@ eval images and the monitors.  The flagship binds it here
     ``D_crupted`` or ``G_crupted`` snapshot;
   * ``profile_steps`` traces that many steps with `torch.profiler` into
     ``<outdir>/profile``.
-The 2-D (data x rays) mesh (``ray_shards > 1``) and ``debug_shapes`` are not
-ported and raise.
+``debug_shapes`` prints the shapes of the generator's and the
+discriminator's traced tensors (`utils/debug.py`).  The 2-D (data x rays)
+mesh (``ray_shards > 1``) is not ported and raises.
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ from cips3d_tpu_torch.models.generator import (GeneratorConfig, GeneratorNerfINR
                                                sample_zs)
 from cips3d_tpu_torch.train.state import TrainConfig, TrainState
 from cips3d_tpu_torch.train.step import init_train_state, make_train_step
-from cips3d_tpu_torch.utils import convert
+from cips3d_tpu_torch.utils import convert, debug
 from cips3d_tpu_torch.utils.checkpoint import CheckpointManager
 from cips3d_tpu_torch.utils.textlogger import TextLogger
 
@@ -279,7 +280,7 @@ def run_pipeline(pipeline: Pipeline, loop_cfg: LoopConfig, resume: bool = False,
     if int(loop_cfg.ray_shards) > 1:
         raise NotImplementedError("ray_shards > 1 (the 2-D data x rays mesh) is not ported")
     if loop_cfg.debug_shapes:
-        raise NotImplementedError("debug_shapes is not ported")
+        debug.enable(True)
     train_cfg = pipeline.train_cfg
     outdir = loop_cfg.outdir
     _refuse_sealed_outdir(outdir)

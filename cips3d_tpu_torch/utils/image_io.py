@@ -1,20 +1,31 @@
-"""Image files without PIL: PNG read and write, the Lanczos resize, and
+"""Image files without PIL: PNG read and write, PIL's resize filters, and
 image grids.
 
 The JAX package reads and writes images through PIL
 (`cips3d_tpu/data/zip_dataset.py:30`, `eval/images.py:29`,
 `eval/fid.py:27`).  The port does it with numpy, `struct` and `zlib`:
 
-  * `write_png`: 8-bit grey, grey+alpha, RGB or RGBA, filter type 0 on every row;
+  * `encode_png` / `write_png`: 8-bit grey, grey+alpha, RGB or RGBA, as
+    PIL writes them: each row's filter chosen as PIL's encoder chooses it
+    (None, Up, Sub, Paeth, tried in that order; the least sum of the bytes
+    read as signed wins, ties keep the earlier), the rows deflated at the
+    default level with ``Z_FILTERED`` and memory level 9; the IDAT payload
+    is PIL's byte for byte (PIL may split it into several chunks);
   * `read_png`: 8-bit grey, grey+alpha, RGB or RGBA, not interlaced, all
     five row filters (None, Sub, Up, Average, Paeth);
   * `to_rgb`: the three colour channels as PIL's ``convert("RGB")`` gives
     them (grey repeated, alpha dropped);
-  * `resize_lanczos`: PIL's ``Image.resize(size, Image.LANCZOS)`` on uint8
+  * `resize_lanczos`, `resize_bilinear`, `resize_nearest`: PIL's
+    ``Image.resize`` with ``LANCZOS``, ``BILINEAR`` and ``NEAREST`` on uint8
     images, bit for bit: the same support, the same 22-bit fixed-point
-    coefficients and rounding, the horizontal pass first;
+    coefficients and rounding, the horizontal pass first (nearest: PIL's
+    affine scale, its source positions summed in double).  These are the
+    plain versions of `native.resize`, which the data path calls;
   * `save_image_grid`: a (b, 3, h, w) batch in [-1, 1] tiled into one
     image, written as PNG or, for ``.jpg``, as JPEG (`utils/video.py`).
+
+The native library (`cips3d_tpu_torch/native/`) decodes PNG and JPEG in
+C++; `read_png` here is its plain version for PNG.
 """
 
 from __future__ import annotations
@@ -36,8 +47,36 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
 
+def _filter_rows(x: np.ndarray, bpp: int) -> np.ndarray:
+    """(h, stride) uint8 rows -> (h, 1 + stride): each row behind the PNG
+    filter PIL's encoder picks for it (`ZipEncode.c`: None, then Up, Sub
+    and Paeth, kept where the sum of |byte as signed| drops; Average is
+    tried only under ``optimize``)."""
+    h, stride = x.shape
+    cur = x.astype(np.int16)
+    up = np.zeros_like(cur)
+    up[1:] = cur[:-1]
+    left = np.zeros_like(cur)
+    left[:, bpp:] = cur[:, :-bpp]
+    upleft = np.zeros_like(cur)
+    upleft[:, bpp:] = up[:, :-bpp]
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    types = (0, 2, 1, 4)
+    cands = np.stack([cur, cur - up, cur - left, cur - paeth]).astype(np.uint8)
+    signed = cands.astype(np.int32)
+    cost = np.minimum(signed, 256 - signed).sum(-1)          # (4, h)
+    best = np.zeros(h, np.int64)
+    for i in range(1, 4):   # strictly less replaces: ties keep the earlier filter
+        best = np.where(cost[i] < cost[best, np.arange(h)], i, best)
+    rows = cands[best, np.arange(h)]
+    return np.concatenate([np.array(types, np.uint8)[best][:, None], rows], 1)
+
+
 def encode_png(img: np.ndarray) -> bytes:
-    """HW, HW1, HW3 or HW4 uint8 -> PNG bytes."""
+    """HW, HW1, HW3 or HW4 uint8 -> PNG bytes, filtered and deflated as PIL
+    writes them."""
     img = np.asarray(img)
     if img.dtype != np.uint8:
         raise ValueError(f"encode_png needs uint8, got {img.dtype}")
@@ -46,10 +85,11 @@ def encode_png(img: np.ndarray) -> bytes:
     h, w, c = img.shape
     if c not in _COLOR_TYPE:
         raise ValueError(f"encode_png: {c} channels")
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * c)], 1)
+    raw = _filter_rows(img.reshape(h, w * c), c)
+    z = zlib.compressobj(zlib.Z_DEFAULT_COMPRESSION, zlib.DEFLATED, 15, 9, zlib.Z_FILTERED)
     ihdr = struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPE[c], 0, 0, 0)
     return (PNG_SIGNATURE + _chunk(b"IHDR", ihdr)
-            + _chunk(b"IDAT", zlib.compress(raw.tobytes())) + _chunk(b"IEND", b""))
+            + _chunk(b"IDAT", z.compress(raw.tobytes()) + z.flush()) + _chunk(b"IEND", b""))
 
 
 def write_png(path: str, img: np.ndarray) -> None:
@@ -145,18 +185,28 @@ def _lanczos(x: np.ndarray) -> np.ndarray:
     return np.where((x >= -3.0) & (x < 3.0), out, 0.0)
 
 
-def _coefficients(in_size: int, out_size: int) -> np.ndarray:
-    """(out, in) int64 fixed-point weights of PIL's Lanczos resample."""
+def _bilinear(x: np.ndarray) -> np.ndarray:
+    return np.maximum(1.0 - np.abs(x), 0.0)
+
+
+_FILTERS = {"lanczos": (_lanczos, 3.0), "bilinear": (_bilinear, 1.0)}
+
+
+def _coefficients(in_size: int, out_size: int, method: str = "lanczos") -> np.ndarray:
+    """(out, in) int64 fixed-point weights of PIL's resample
+    (`Resample.c` precompute_coeffs, normalize_coeffs_8bpc)."""
+    fn, fsupport = _FILTERS[method]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 3.0 * filterscale
+    support = fsupport * filterscale
+    ss = 1.0 / filterscale
     k = np.zeros((out_size, in_size), np.int64)
     for xx in range(out_size):
         center = (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)
         xmax = min(int(center + support + 0.5), in_size)
-        w = _lanczos((np.arange(xmin, xmax) - center + 0.5) / filterscale)
-        ww = w.sum()
+        w = fn((np.arange(xmin, xmax) - center + 0.5) * ss)
+        ww = np.add.accumulate(w)[-1] if len(w) else 0.0   # summed in order, as PIL sums
         if ww != 0.0:
             w = w / ww
         k[xx, xmin:xmax] = np.where(w < 0, np.trunc(-0.5 + w * (1 << _PRECISION_BITS)),
@@ -171,14 +221,45 @@ def _resample(img: np.ndarray, k: np.ndarray, axis: int) -> np.ndarray:
     return np.moveaxis(out, -1, axis)
 
 
-def resize_lanczos(img: np.ndarray, width: int, height: int) -> np.ndarray:
-    """HWC uint8 -> (height, width, C) uint8, as PIL's Lanczos resize."""
+def _resize_filtered(img: np.ndarray, width: int, height: int, method: str) -> np.ndarray:
     h, w = img.shape[:2]
     out = img
     if width != w:
-        out = _resample(out, _coefficients(w, width), 1)
+        out = _resample(out, _coefficients(w, width, method), 1)
     if height != h:
-        out = _resample(out, _coefficients(h, height), 0)
+        out = _resample(out, _coefficients(h, height, method), 0)
+    return np.ascontiguousarray(out)
+
+
+def resize_lanczos(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """HWC uint8 -> (height, width, C) uint8, as PIL's Lanczos resize."""
+    return _resize_filtered(img, width, height, "lanczos")
+
+
+def resize_bilinear(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """HWC uint8 -> (height, width, C) uint8, as PIL's bilinear resize."""
+    return _resize_filtered(img, width, height, "bilinear")
+
+
+def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    """PIL's source index per output position (`Geometry.c`
+    ImagingScaleAffine): the position starts at half a step and adds the
+    step in double, one output at a time; -1 lies outside."""
+    step = in_size / out_size
+    pos = np.add.accumulate(np.concatenate([[step * 0.5], np.full(out_size - 1, step)]))
+    idx = pos.astype(np.int64)
+    return np.where(idx < in_size, idx, -1)
+
+
+def resize_nearest(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """HWC uint8 -> (height, width, C) uint8, as PIL's nearest resize."""
+    h, w = img.shape[:2]
+    if (width, height) == (w, h):
+        return np.ascontiguousarray(img)
+    ys, xs = _nearest_index(h, height), _nearest_index(w, width)
+    out = img[np.maximum(ys, 0)][:, np.maximum(xs, 0)]
+    out[ys < 0] = 0
+    out[:, xs < 0] = 0
     return np.ascontiguousarray(out)
 
 

@@ -14,8 +14,9 @@ The container is the JAX package's minimal AVI 1.0: RIFF('AVI ') with an
 'hdrl' list (avih + one 'vids'/'MJPG' stream), a 'movi' list of '00dc'
 frame chunks and an 'idx1' keyframe index; it plays in VLC, mpv, ffplay
 and QuickTime.  The port has no mp4 encoder, so `write_video` always
-writes this container (an ``.mp4`` path becomes ``.avi``), and it has no
-JPEG decoder, so `read_mjpeg_avi` returns each frame's JPEG bytes.
+writes this container (an ``.mp4`` path becomes ``.avi``).  `read_mjpeg_avi`
+decodes the frames with the native JPEG decoder (`cips3d_tpu_torch/native/`),
+as the JAX package's reader decodes them with PIL.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import struct
 from typing import Iterable, List
 
 import numpy as np
+
+from cips3d_tpu_torch import native
 
 AVIF_HASINDEX = 0x00000010
 AVIIF_KEYFRAME = 0x00000010
@@ -256,24 +259,24 @@ def write_mjpeg_avi(frames: Iterable[np.ndarray], out_path: str, fps: int = 25,
     return out_path
 
 
-def read_mjpeg_avi(path: str) -> List[bytes]:
-    """The JPEG bytes of every '00dc' chunk, in order (the port has no JPEG
-    decoder; the JAX package's reader decodes them with PIL)."""
+def read_mjpeg_avi(path: str) -> List[np.ndarray]:
+    """The frame of every '00dc' chunk, in order, decoded to HWC uint8 RGB."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:4] != b"RIFF" or data[8:12] != b"AVI ":
         raise ValueError(f"{path}: not an AVI")
-    jpegs = []
+    frames = []
     i = data.index(b"movi") + 4
     while i + 8 <= len(data):
         fourcc = data[i:i + 4]
         (size,) = struct.unpack("<I", data[i + 4:i + 8])
         if fourcc == b"00dc":
-            jpegs.append(data[i + 8:i + 8 + size])
+            frames.append(native.decode_image(data[i + 8:i + 8 + size],
+                                              f"{path} frame {len(frames)}"))
         elif fourcc in (b"idx1", b"LIST"):
             break
         i += 8 + size + (size % 2)
-    return jpegs
+    return frames
 
 
 def write_video(frames, out_path: str, fps: int = 25) -> str:
