@@ -98,7 +98,21 @@ Phases, each printing one line (plus detail lines):
      r256 -> r64 native, which must be at least twice phase 8's shipped r64
      step rate; 10 shipped r64 steps fed from that zip (median beside phase
      8's); a CelebA list of 178 x 218 JPEGs through `get_dataset` and the
-     loader, one item against the plain resize functions.
+     loader, one item against the plain resize functions;
+ 13. training on several processes (`cips3d_tpu_torch/parallel/mesh.py`):
+     (a) 10 shipped r64 b = 4 steps through a one-rank NCCL group (the flat
+     gradient all-reduces, 3 collectives a step, and a `host_barrier`)
+     against 10 steps without a group from the same weights and draws, bit
+     for bit, with deterministic algorithms on in all three runs (two
+     without a group, to show they agree); (b) two gloo ranks sharing the
+     card, started as the training CLI is (the CIPS3D_* env; ``python3
+     chip_smoke.py --phase13-rank DIR`` is one rank): the shipped r64 step
+     at b = 2 a rank against one process at b = 4, and train_r512's
+     settings at r256 with ray_shards 2 (each rank renders half of the
+     pixels of both rows, D sees one row) against one process at b = 2, at
+     phase 7's tolerances without density noise, both ranks' parameters
+     equal bit for bit, each rank's peak memory beside one process's, and
+     #1 and #2 launched in every rank.
 Phase 4 also fetches /render and /render?depth=1 and checks the JPEGs.
 The second-to-last line is a JSON summary of the kernels (with each one's
 bound on the card: the larger of its multiply-adds over the 67 TFLOP/s f32
@@ -112,6 +126,7 @@ import copy
 import itertools
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -1769,6 +1784,280 @@ def data_phase(dev, smi, log, tmp, shipped_step_ms):
     return counts
 
 
+# ---- phase 13: training on several processes ---------------------------------
+
+def dist_case(kind, dev):
+    """The weights (seeded), TrainConfig, aux flag, reals and global draws
+    (seeded on the CPU, the same in every process) of one phase-13 step:
+    ``r64`` the shipped config at r64, B = 4; ``r256`` train_r512's settings
+    (freeze_nerf, DiffAug, warm-up, aux off, no density noise) at r256, B = 2."""
+    import torch
+
+    from cips3d_tpu_torch.models.discriminator import DiscriminatorMultiScaleAux
+    from cips3d_tpu_torch.models.generator import GeneratorConfig, GeneratorNerfINR, RenderOptions
+    from cips3d_tpu_torch.train.state import TrainConfig
+    from cips3d_tpu_torch.train.step import draw_step
+
+    if kind == "r64":
+        cfg_g, disc_kw, aux, batch = GeneratorConfig(fast_sin=True, fused_ray=False), {}, True, 4
+        tcfg = TrainConfig(img_size=64, batch_size=batch, ema_start_itr=0,
+                           nerf_noise_disable=True)
+    else:
+        cfg_g, disc_kw, aux, batch = (GeneratorConfig(fast_sin=True, fused_ray=False,
+                                                      freeze_nerf=True), dict(diffaug=True),
+                                      False, 2)
+        tcfg = TrainConfig(img_size=256, batch_size=batch, ema_start_itr=0, diffaug=True,
+                           warmup_d=True, train_aux_img=False, nerf_noise_disable=True,
+                           gen_lr=1e-4, disc_lr=5e-4)
+    gen = GeneratorNerfINR(cfg_g, generator=torch.Generator().manual_seed(50)).to(dev)
+    disc = DiscriminatorMultiScaleAux(max_size=1024, **disc_kw,
+                                      generator=torch.Generator().manual_seed(51)).to(dev)
+    g = torch.Generator().manual_seed(52)
+    n = tcfg.img_size ** 2
+    gp = tcfg.grad_points ** 2 if tcfg.grad_points and tcfg.grad_points ** 2 < n else None
+    draws = draw_step(cfg_g, disc.main_disc.diffaug, tcfg,
+                      RenderOptions(img_size=tcfg.img_size, nerf_noise=0.0), aux, gp, batch, g,
+                      "cpu")
+    real = torch.rand((batch, 3, tcfg.img_size, tcfg.img_size), generator=g) * 2 - 1
+    return gen, disc, tcfg, aux, real.to(dev), to_device(draws, dev)
+
+
+def dist_step(kind, dev, mesh=None):
+    """One step of `dist_case` ``kind`` (the rank's rows with ``mesh``): its
+    metrics, clipped grads, G, D and EMA parameters after it, peak memory,
+    kernel launches and host time."""
+    import torch
+
+    import cips3d_tpu_torch.train.step as step_mod
+    from cips3d_tpu_torch.models.generator import RenderOptions
+
+    gen, disc, tcfg, aux, real, draws = dist_case(kind, dev)
+    state = step_mod.init_train_state(gen, disc, tcfg)
+    fn = step_mod.make_train_step(gen, disc, tcfg, RenderOptions(), aux_reg=aux, mesh=mesh)
+    if mesh is not None:
+        n = real.shape[0] // mesh.world
+        real = real[mesh.rank * n:(mesh.rank + 1) * n]
+    clip, seen = step_mod.clip_and_guard, []
+
+    def recording(grads, max_norm):
+        out = clip(grads, max_norm)
+        seen.append([x.detach().cpu() for x in out[0]])
+        return out
+
+    step_mod.clip_and_guard = recording
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        state, m = fn(state, real, draws=draws)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        step_mod.clip_and_guard = clip
+    return dict(metrics=m, grads=seen, params=[[p.cpu() for p in x] for x in step_snapshot(state)],
+                peak=torch.cuda.max_memory_allocated(dev), counts=kernel_counts(), secs=secs,
+                lrs=(tcfg.gen_lr, tcfg.disc_lr, tcfg.gen_lr))
+
+
+def dist_gap(got, ref):
+    """Phase 7's measures of a step against another: the losses' largest rel
+    err, the clipped D and G grads' normalised errors, the shares of G, D and
+    EMA elements beyond STEP_TOL["param"] * lr."""
+    lerr = max(abs(got["metrics"][k] - ref["metrics"][k]) / max(abs(ref["metrics"][k]), 1e-6)
+               for k in ("d_loss", "g_loss", "grad_penalty"))
+    gerr = [max(grad_err(a, b) for a, b in zip(x, y)) for x, y in zip(got["grads"], ref["grads"])]
+    shares = []
+    for lr, x, y in zip(ref["lrs"], got["params"], ref["params"]):
+        far = sum(((a - b).abs() > STEP_TOL["param"] * lr).sum().item() for a, b in zip(x, y))
+        shares.append(far / sum(a.numel() for a in x))
+    return [lerr] + gerr + shares
+
+
+def phase13_rank(out_dir):
+    """One rank of phase 13(b): joins the gloo group of the CIPS3D_* env on
+    cuda:0, runs the r64 step (1-D) and the r256 step (ray_shards 2) on its
+    rows, and saves what `dist_step` returns."""
+    import torch
+    import torch.distributed as dist
+
+    from cips3d_tpu_torch.parallel.mesh import (COLLECTIVES, initialize_multihost, local_device,
+                                                make_mesh)
+
+    if not initialize_multihost(device="cuda", backend="gloo"):
+        raise SystemExit("phase 13 rank: CIPS3D_COORDINATOR/NUM_PROCESSES/PROCESS_ID not set")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(local_device("cuda"))
+    torch.cuda.set_device(dev)
+    try:
+        res = {kind: dist_step(kind, dev, make_mesh(r)) for kind, r in (("r64", 1), ("r256", 2))}
+        res["collectives"] = dict(COLLECTIVES)
+        torch.save(res, os.path.join(out_dir, f"rank{dist.get_rank()}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dist_phase(dev, smi, log, tmp):
+    """Phase 13: (a) 10 shipped r64 b = 4 steps through a one-rank NCCL
+    group (flat all-reduces, barrier) against 10 steps without a process
+    group, from the same weights and draws: bit for bit, or within the
+    no-group run's own run-to-run gap; (b) two gloo ranks sharing the card,
+    started as the training CLI is (the CIPS3D_* env), each one step: the
+    shipped r64 step at b = 2 a rank against one process at b = 4, and
+    train_r512's settings at r256 with ray_shards 2 against one process at
+    r256 b = 2, at phase 7's tolerances.  Returns the launches of #1 and #2."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+
+    from cips3d_tpu_torch.models.generator import RenderOptions
+    from cips3d_tpu_torch.parallel.mesh import COLLECTIVES, host_barrier, make_mesh
+    from cips3d_tpu_torch.train.state import TrainConfig
+    from cips3d_tpu_torch.train.step import draw_step, init_train_state, make_train_step
+
+    launches = {"ray_tile": 0, "inr_tile": 0}
+    # ---- (a) one NCCL rank against no process group
+    gen0, disc0, tcfg, aux, _, _ = dist_case("r64", dev)
+    g = torch.Generator().manual_seed(53)
+    steps = 10
+    draws = [to_device(draw_step(gen0.cfg, False, tcfg, RenderOptions(img_size=64), aux, None, 4,
+                                 g, "cpu"), dev) for _ in range(steps)]
+    reals = [(torch.rand((4, 3, 64, 64), generator=g) * 2 - 1).to(dev) for _ in range(steps)]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+                            rank=0)
+    # deterministic convolutions and index reductions, so that two runs can agree bit for bit
+    # (by default cuDNN's backward and the atomic scatters make 10 steps of one run differ
+    # from the next by as much as 3e-2)
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    runs = {}
+    try:
+        for name, mesh in (("no group", None), ("no group again", None),
+                           ("NCCL rank", make_mesh(1))):
+            gen, disc = copy.deepcopy(gen0), copy.deepcopy(disc0)
+            state = init_train_state(gen, disc, tcfg)
+            fn = make_train_step(gen, disc, tcfg, RenderOptions(), aux_reg=aux, mesh=mesh)
+            zero_kernel_counts()
+            COLLECTIVES.clear()
+            times = []
+            for i in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = fn(state, reals[i], draws=draws[i])
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            runs[name] = (step_snapshot(state), times, kernel_counts(),
+                          sum(COLLECTIVES.values()), m)
+        barrier = host_barrier("chip_smoke_phase13")
+    finally:
+        dist.destroy_process_group()
+        torch.backends.cudnn.deterministic = cudnn_det
+        torch.use_deterministic_algorithms(False)
+
+    def maxdiff(a, b):
+        return max((x - y).abs().max().item() for xs, ys in zip(a, b) for x, y in zip(xs, ys))
+
+    rerun = maxdiff(runs["no group again"][0], runs["no group"][0])
+    got = maxdiff(runs["NCCL rank"][0], runs["no group"][0])
+    per_step = runs["NCCL rank"][3] / steps
+    med = {k: statistics.median(v[1][2:]) for k, v in runs.items()}
+    counts = runs["NCCL rank"][2]
+    log(f"phase 13 nccl: 10 shipped r64 b=4 steps, one NCCL rank (init_process_group('nccl'), "
+        f"world 1) vs no process group, same weights and draws, deterministic algorithms on "
+        f"(all three runs): G, D and EMA max abs diff "
+        f"{got:.3e} (no group vs itself: {rerun:.3e}); {per_step:g} collectives a step (D grads, "
+        f"G grads, metrics), barrier {barrier}; median step (steps 2-9, host clock) "
+        f"NCCL rank {med['NCCL rank']:.1f} ms, no group {med['no group']:.1f} / "
+        f"{med['no group again']:.1f} ms; launches {counts} [{smi}]")
+    # bit for bit; a nonzero gap between two runs without a group (a nondeterministic
+    # library kernel) bounds the NCCL run instead
+    if got > rerun or per_step != 3 or not barrier:
+        raise AssertionError("phase 13(a): the one-rank NCCL steps differ from the steps "
+                             "without a process group")
+    if counts["ray_tile"] <= 0 or counts["inr_tile"] <= 0:
+        raise AssertionError(f"phase 13(a): kernels not launched: {counts}")
+    for k in launches:
+        launches[k] += counts[k]
+
+    # ---- (b) two gloo ranks on the card against one process
+    refs = {kind: dist_step(kind, dev) for kind in ("r64", "r256")}
+    torch.cuda.empty_cache()
+    port = free_port()
+    out_dir = os.path.join(tmp, "phase13")
+    os.makedirs(out_dir)
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    for rank in range(2):
+        env = dict(os.environ, CIPS3D_COORDINATOR=f"127.0.0.1:{port}", CIPS3D_NUM_PROCESSES="2",
+                   CIPS3D_PROCESS_ID=str(rank))
+        # to a file, not a pipe: a full pipe would stall a rank inside a collective
+        logs.append(os.path.join(out_dir, f"rank{rank}.log"))
+        with open(logs[-1], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--phase13-rank", out_dir], env=env,
+                stdout=f, stderr=subprocess.STDOUT,
+                cwd=os.path.dirname(os.path.abspath(__file__))))
+    try:
+        for p in procs:
+            p.wait(timeout=300)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.perf_counter() - t0
+    for rank, (p, path) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            with open(path) as f:
+                out = f.read()
+            raise AssertionError(f"phase 13 rank {rank} exited {p.returncode}:\n{out[-3000:]}")
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    tols = [STEP_TOL["loss_rtol"], STEP_TOL["grad"], STEP_TOL["grad"]] + [MAX_OUTSIDE] * 3
+    labels = {"r64": f"{SHIPPED}, r64, 2 ranks x b=2 (1-D) vs one process b=4",
+              "r256": f"{R256}, r256, ray_shards 2, one ray group of 2 ranks (b=2, each half "
+                      f"the pixels, D on 1 row) vs one process b=2"}
+    for kind, label in labels.items():
+        ref = refs[kind]
+        for rank, res in enumerate(ranks):
+            gap = dist_gap(res[kind], ref)
+            log(f"phase 13 gloo: {label}: rank {rank}: losses rel err {gap[0]:.2e}, clipped grads "
+                f"D {gap[1]:.2e} G {gap[2]:.2e}, parameters beyond {STEP_TOL['param']} lr: G "
+                f"{gap[3]:.2e} D {gap[4]:.2e} EMA {gap[5]:.2e} (tolerances {tols}); peak memory "
+                f"{res[kind]['peak'] / 2 ** 30:.2f} GiB vs one process "
+                f"{ref['peak'] / 2 ** 30:.2f} GiB; step {res[kind]['secs'] * 1e3:.1f} ms vs "
+                f"{ref['secs'] * 1e3:.1f} ms (first steps, host clock); launches "
+                f"{res[kind]['counts']} [{smi}]")
+            if any(x > tol for x, tol in zip(gap, tols)):
+                raise AssertionError(f"phase 13(b): rank {rank} disagrees with one process "
+                                     f"({kind}): {gap} against {tols}")
+            if res[kind]["counts"]["ray_tile"] <= 0 or res[kind]["counts"]["inr_tile"] <= 0:
+                raise AssertionError(f"phase 13(b): rank {rank} ({kind}) launched no kernel")
+            for k in launches:
+                launches[k] += res[kind]["counts"][k]
+        same = all(torch.equal(a, b) for x, y in zip(ranks[0][kind]["params"],
+                                                      ranks[1][kind]["params"])
+                   for a, b in zip(x, y))
+        if not same:
+            raise AssertionError(f"phase 13(b): the two ranks' parameters differ ({kind})")
+    log(f"phase 13 gloo: both ranks hold the same parameters bit for bit; collectives a rank "
+        f"{ranks[0]['collectives']} on CUDA tensors (gloo, no staging); two ranks in "
+        f"{secs:.1f} s wall (start-up included)")
+    return launches
+
+
 def main():
     import torch
 
@@ -2063,13 +2352,16 @@ def main():
         t_phase = time.perf_counter()
         data_counts = data_phase(dev, smi, log, tmp, step_ms[SHIPPED])
         log(f"phase 12 done in {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        dist_counts = dist_phase(dev, smi, log, tmp)
+        log(f"phase 13 done in {time.perf_counter() - t_phase:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     # launches on the main paths: serving (phase 4), training (phase 7), apps (phase 11),
-    # training from the dataset tool's zip (phase 12)
+    # training from the dataset tool's zip (phase 12), training on several processes (13)
     for k in ("ray_tile", "inr_tile"):
-        launches[k] += apps[k] + data_counts[k]
+        launches[k] += apps[k] + data_counts[k] + dist_counts[k]
     for e in train:
         e["launches"] += apps[e["name"]]
     kernels = [
@@ -2091,4 +2383,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase13-rank"]:   # one rank of phase 13(b), started by main
+        sys.exit(phase13_rank(sys.argv[2]))
     sys.exit(main())

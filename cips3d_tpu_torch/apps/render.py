@@ -9,8 +9,8 @@ random draw of an app comes from a `Draws`: by default a `torch.Generator`
 seeded with the integer the JAX package gives `jax.random.PRNGKey` at the
 same place, so a seed picks the same kind of draw in both packages (the
 values differ).  Frames are PNGs from the port's own encoder; videos are
-MJPEG-AVI (`utils/video.py`).  The JAX package's multi-chip
-`render_sharded` is not ported.
+MJPEG-AVI (`utils/video.py`).  `render_sharded` renders one image with its
+pixels split over the ranks of a process group.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ from cips3d_tpu_torch.models.generator import (
     sample_zs,
     truncate_styles,
 )
-from cips3d_tpu_torch.ops.ray_tile import RayDraws
+from cips3d_tpu_torch.ops.ray_tile import RayDraws, draw_ray_randoms
 from cips3d_tpu_torch.utils import image_io
 from cips3d_tpu_torch.utils.video import write_video
 
@@ -138,6 +138,47 @@ def render_frame(model: GeneratorNerfINR, styles, opts: RenderOptions, key: int,
     return render_chunked(model, styles, opts, forward_points=forward_points,
                           camera_pos=cam[0], camera_lookup=cam[1], up_vector=cam[2],
                           return_depth=return_depth, **draws.render(key, b, opts, chunk))
+
+
+@torch.no_grad()
+def render_sharded(model: GeneratorNerfINR, styles, opts: RenderOptions, key: int, draws: Draws,
+                   mesh, camera_pos=None, camera_lookup=None, up_vector=None,
+                   return_depth: bool = False):
+    """Whole-image render with the pixel axis split over the ranks of
+    ``mesh`` (its ray groups, or every rank when ``ray_shards`` is 1): the
+    counterpart of the JAX package's ``render_sharded``.  Every rank draws
+    the draws of `render_frame`'s one-chunk render of ``key``, renders its
+    slice of the H x W pixels with them, and the slices are all-gathered.
+    Returns (b, 3, H, W) images (with ``return_depth`` also (b, 1, H, W)) on
+    every rank.  Raises when H x W does not divide by the shard count."""
+    from cips3d_tpu_torch.parallel.mesh import gather_pixels
+
+    h = w = opts.img_size
+    n = h * w
+    lo, hi = mesh.pixel_range(n)
+    b = next(iter(styles.values())).shape[0]
+    cam = [None if v is None else torch.as_tensor(np.asarray(v, np.float32), device=model.device)
+           for v in (camera_pos, camera_lookup, up_vector)]
+    kw = draws.render(key, b, opts, n)
+    gen = kw.get("generator")
+    world = model.sample_world(b, opts, gen, *cam, kw.get("perturb_uniform"))
+    if kw.get("chunk_draws") is not None:
+        rd = kw["chunk_draws"][0]
+    else:   # as `points_forward` draws them for one chunk of every pixel
+        rd = draw_ray_randoms(b, n, opts.num_steps, float(opts.nerf_noise) != 0, gen,
+                              model.device, hierarchical=opts.hierarchical_sample)
+    sl = slice(lo, hi)
+    sub = rays_lib.WorldRays(world.points[:, sl], world.dirs_expanded[:, sl],
+                             world.origins[:, sl], world.dirs[:, sl], world.z_vals[:, sl],
+                             world.pitch, world.yaw)
+    img, _, depth = model.points_forward(styles, sub, opts, gen,
+                                         draws=RayDraws(*(t[:, sl].contiguous() for t in rd)),
+                                         return_depth=True)
+    full = gather_pixels(torch.cat([img, depth.to(img.dtype)], -1), mesh)
+    img = full[..., :3].transpose(1, 2).reshape(b, 3, h, w)
+    if not return_depth:
+        return img
+    return img, full[..., 3:].transpose(1, 2).reshape(b, 1, h, w)
 
 
 def depth_to_uint8(dmap, opts: RenderOptions) -> np.ndarray:

@@ -31,15 +31,20 @@ __all__ = ["setup_evaluation", "gen_images", "sample_images", "save_image_grid",
 def setup_evaluation(dataset, real_dir: str, num_imgs: int, img_size: int,
                      del_existing: bool = False, shard_index: int = 0,
                      num_shards: int = 1) -> int:
-    """Dump real images for FID; does nothing when already populated."""
+    """Dump real images for FID; does nothing when already populated (with
+    several shards: when this shard's images are there).  Shard k of n writes
+    indices k, k + n, ..."""
     if del_existing and os.path.isdir(real_dir) and shard_index == 0:
         shutil.rmtree(real_dir)
     os.makedirs(real_dir, exist_ok=True)
-    existing = len(os.listdir(real_dir))
-    if existing >= num_imgs // max(1, num_shards):
-        return existing
+    mine = range(shard_index, min(num_imgs, len(dataset)), num_shards)
+    if num_shards > 1:   # the other shards write into the directory meanwhile: count ours
+        if all(os.path.exists(os.path.join(real_dir, f"real_{i:06d}.png")) for i in mine):
+            return len(mine)
+    elif len(os.listdir(real_dir)) >= num_imgs:
+        return len(os.listdir(real_dir))
     count = 0
-    for i in range(shard_index, min(num_imgs, len(dataset)), num_shards):
+    for i in mine:
         img = dataset[i][0].transpose(1, 2, 0)
         if img.shape[0] != img_size:
             img = image_io.resize_lanczos(img, img_size, img_size)

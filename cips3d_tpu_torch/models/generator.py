@@ -273,13 +273,15 @@ class GeneratorNerfINR(nn.Module):
                 avg_styles: Optional[Mapping[str, torch.Tensor]] = None,
                 camera_pos=None, camera_lookup=None, up_vector=None,
                 grad_points: Optional[int] = None, draws: Optional[ForwardDraws] = None,
-                cfg: Optional[GeneratorConfig] = None):
+                cfg: Optional[GeneratorConfig] = None, mesh=None):
         """Generate images: (imgs (B, 3, H, W), pitch_yaw (B, 2)); B doubles
         with ``return_aux_img``.  Truncation toward ``avg_styles`` by
         ``opts.psi``.  With ``grad_points`` below the pixel count, only a
         random subset of that many pixels carries gradient; the rest render
         without it and are scattered back.  ``draws`` supplies every random
-        draw, else they come from ``generator``."""
+        draw, else they come from ``generator``.  With a `parallel.mesh.Mesh`
+        of ``ray_shards`` R > 1 the rank renders its 1/R of each pixel subset
+        and the ray group's slices are gathered (`_points_sharded`)."""
         b = zs["z_nerf"].shape[0]
         style_dict = self.mapping(zs["z_nerf"], zs["z_inr"])
         if avg_styles is not None:
@@ -289,10 +291,23 @@ class GeneratorNerfINR(nn.Module):
                                   draws.camera if draws else None)
         rays = draws.rays if draws else None
         num_points = opts.img_size ** 2
-        if grad_points is not None and grad_points < num_points:
+        subset = grad_points is not None and grad_points < num_points
+        if subset:
             perm = (draws.perm if draws else
                     torch.randperm(num_points, generator=generator, device=self.device))
             idx_grad, idx_no_grad = perm[:grad_points], perm[grad_points:]
+        if mesh is not None and mesh.ray_shards > 1:
+            parts = ([(idx_grad, rays), (idx_no_grad, draws.rays_no_grad if draws else None)]
+                     if subset else [(None, rays)])
+            imgs = self._points_sharded(style_dict, world, opts, generator, parts, cfg, mesh)
+            if subset:
+                inr_img, aux_img = (points_lib.scatter_points(idx_grad, imgs[0][..., c],
+                                                              idx_no_grad, imgs[1][..., c],
+                                                              num_points)
+                                    for c in (slice(0, 3), slice(3, 6)))
+            else:
+                inr_img, aux_img = imgs[0][..., :3], imgs[0][..., 3:]
+        elif subset:
             inr_g, aux_g = self.points_forward(style_dict, world, opts, generator, rays,
                                                idx_grad=idx_grad, cfg=cfg)
             with torch.no_grad():
@@ -311,6 +326,36 @@ class GeneratorNerfINR(nn.Module):
             imgs = torch.cat([imgs, to_nchw(aux_img, h, w)], 0)
             pitch_yaw = torch.cat([pitch_yaw, pitch_yaw], 0)
         return imgs, pitch_yaw
+
+    def _points_sharded(self, style_dict, world: rays_lib.WorldRays, opts: RenderOptions,
+                        generator, parts, cfg, mesh):
+        """The 2-D layout's render (the counterpart of the JAX package's
+        ``constrain_pixels`` in ``points_forward``).  ``parts`` lists (pixel
+        indices, or None for all pixels; their ray draws, or None) subsets:
+        the rank renders its 1/R of each, the first with gradient and the
+        others without, and one `gather_pixels` of [inr | aux] rebuilds them.
+        Returns each subset's (b, n, 6) in its pixel order.  Draws not given
+        are drawn whole, in the unsharded order, so every rank of a group
+        holds the same."""
+        from cips3d_tpu_torch.parallel.mesh import gather_pixels
+
+        b, n_all, steps = world.points.shape[:3]
+        local, sizes = [], []
+        for i, (idx, rd) in enumerate(parts):
+            n = n_all if idx is None else idx.shape[0]
+            if rd is None:
+                rd = draw_ray_randoms(b, n, steps, float(opts.nerf_noise) != 0, generator,
+                                      self.device, hierarchical=opts.hierarchical_sample)
+            lo, hi = mesh.pixel_range(n)
+            idx_r = torch.arange(lo, hi, device=self.device) if idx is None else idx[lo:hi]
+            rd_r = RayDraws(*(t[:, lo:hi].contiguous() for t in rd))
+            with contextlib.nullcontext() if i == 0 else torch.no_grad():
+                inr, aux = self.points_forward(style_dict, world, opts, generator, rd_r,
+                                               idx_grad=idx_r, cfg=cfg)
+            local.append(torch.cat([inr, aux], -1))
+            sizes.append(hi - lo)
+        full = gather_pixels(torch.cat(local, 1), mesh).reshape(b, mesh.ray_shards, sum(sizes), -1)
+        return [p.reshape(b, -1, p.shape[-1]) for p in torch.split(full, sizes, 2)]
 
     def forward_with_rays(self, style_dict, world: rays_lib.WorldRays, opts: RenderOptions,
                           generator: Optional[torch.Generator] = None,

@@ -94,7 +94,11 @@ def build() -> Path:
     for obj, _ in jobs:
         obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    out.with_suffix(".log").write_text("".join(log))
+    # renamed into place as the library is: processes building at once each
+    # leave one whole report, never an interleaving of two
+    log_tmp = out.with_suffix(f".{os.getpid()}.log.tmp")
+    log_tmp.write_text("".join(log))
+    os.replace(log_tmp, out.with_suffix(".log"))
     if failed:
         raise RuntimeError(f"nvcc failed:\n{''.join(log)[-6000:]}")
     os.replace(tmp, out)

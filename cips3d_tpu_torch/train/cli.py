@@ -10,14 +10,22 @@ and runs the host loop (`train/loop.py`) on the card, or on the CPU when
 ``load_nerf_ema``, which only the flagship's chain uses).  Stage outputs go
 to ``<outdir>/<command>``; ``finetune_dir`` takes effect only with
 ``load_finetune``.  ``--debug`` shrinks the run to a 2-step smoke test.
+
+Several processes train together when ``CIPS3D_COORDINATOR`` (host:port),
+``CIPS3D_NUM_PROCESSES`` and ``CIPS3D_PROCESS_ID`` are set, one process a
+card (``cuda:{process_id % device_count}``, NCCL) or on the CPU (gloo):
+`parallel/mesh.py::initialize_multihost`, before anything else.
 """
 
 from __future__ import annotations
 
 import sys
 
+import torch
+
 from cips3d_tpu_torch.config.config import dump_config, parse_args, resolve_command
 from cips3d_tpu_torch.models.generator import GeneratorConfig, RenderOptions
+from cips3d_tpu_torch.parallel.mesh import initialize_multihost, local_device
 from cips3d_tpu_torch.train.loop import LoopConfig, run_pipeline, train
 from cips3d_tpu_torch.train.state import TrainConfig
 from cips3d_tpu_torch.train.variant_loop import build_diffcam_pipeline, build_pigan_pipeline
@@ -50,6 +58,16 @@ def train_kwargs_from_config(cfg) -> dict:
 
 def main(argv=None):
     args = parse_args(argv)
+    if not initialize_multihost(device=args.device):   # unless CIPS3D_COORDINATOR/... are set
+        return run(args)
+    try:
+        return run(args)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run(args):
+    """Train the stage ``args`` names (in this process's rank, if any)."""
     cfg = resolve_command(args.config, args.command, args.opts)
     pipeline = cfg.get("pipeline", "cips3d")
     if pipeline not in ("cips3d", "diffcam", "pigan"):
@@ -58,7 +76,7 @@ def main(argv=None):
                              if k in LoopConfig.__dataclass_fields__})
     if args.debug:
         loop_cfg.debug = True
-    loop_cfg.device = args.device
+    loop_cfg.device = local_device(args.device)
     loop_cfg.outdir = cfg.get("outdir", args.outdir) + f"/{args.command}"
     print(f"resolved config:\n{dump_config(cfg)}", flush=True)
     kw = train_kwargs_from_config(cfg)

@@ -8,7 +8,9 @@ over the globals, `next_upsample_step` and `last_upsample_step` find the
 resolution bumps.  `CELEBA`, `CARLA` and `CATS` are the pi-GAN curricula,
 kept as data.  `run_progressive` chains the flagship's resolution stages
 (`FFHQ_STAGES`) on `train/loop.py::train`, each finetuning from the previous
-stage's ``best_fid`` snapshot, on the device of ``LoopConfig.device``.
+stage's ``best_fid`` snapshot, on the device of ``LoopConfig.device``.  In a
+process group every rank runs every stage; the loop's closing barrier keeps
+each rank from reading a stage's snapshot before rank 0 has written it.
 """
 
 from __future__ import annotations

@@ -9,7 +9,10 @@ and the camera's gradients are clipped and guarded apart, then three Adams
 together.  The step regularises D every step (R1 scaled by
 ``d_reg_every``), as the JAX step does.  Every random number of a step can
 be passed in as one `DiffcamStepDraws`; without it the step draws from a
-`torch.Generator`.
+`torch.Generator`.  With a `parallel.mesh.Mesh` (1-D, as the JAX variant
+loop) the step is one rank's, as the flagship's (`train/step.py`): global
+draws, the rank's rows, and one all-reduce of D's gradients, one of G's and
+the camera's together, one of the metrics.
 """
 
 from __future__ import annotations
@@ -20,15 +23,18 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from cips3d_tpu_torch.core.ema import ema_copy, ema_update
+from cips3d_tpu_torch.core.rays import draw_camera
 from cips3d_tpu_torch.models.camera import CamParams
 from cips3d_tpu_torch.models.discriminator import draw_disc_diffaug
 from cips3d_tpu_torch.models.generator import sample_zs
-from cips3d_tpu_torch.models.generator_diffcam import DiffcamDraws, GeneratorDiffcam, NerfKwargs
+from cips3d_tpu_torch.models.generator_diffcam import (DiffcamDraws, GeneratorDiffcam,
+                                                       NerfKwargs, draw_diffcam)
+from cips3d_tpu_torch.parallel.mesh import Mesh, all_reduce_mean_flat, shard_batch
 from cips3d_tpu_torch.train import losses
 from cips3d_tpu_torch.train.schedules import alpha_schedule, nerf_noise_schedule
 from cips3d_tpu_torch.train.state import (TrainConfig, TrainState, apply_grads, clip_and_guard,
                                           make_optimizers)
-from cips3d_tpu_torch.train.step import _grads
+from cips3d_tpu_torch.train.step import _grads, check_mesh, reduce_metrics
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,12 +68,33 @@ class DiffcamStepDraws(NamedTuple):
     g: DiffcamPhaseDraws
 
 
+def draw_diffcam_step(gen_cfg, diffaug: bool, cfg: DiffcamTrainConfig, nk: NerfKwargs,
+                      aux_reg: bool, batch: int, rng: Optional[torch.Generator],
+                      device) -> DiffcamStepDraws:
+    """Every draw of one step at ``batch`` rows (D's DiffAug draws when
+    ``diffaug``)."""
+    def disc():
+        if not diffaug:
+            return None
+        return draw_disc_diffaug(batch * (2 if aux_reg else 1), cfg.img_size, aux_reg, rng, device)
+
+    def phase(real):
+        return DiffcamPhaseDraws(sample_zs(batch, gen_cfg, rng, cfg.z_dist, device),
+                                 draw_camera(batch, "gaussian", rng, device),
+                                 draw_diffcam(batch, cfg.img_size ** 2, nk, rng, device),
+                                 disc(), disc() if real else None)
+
+    return DiffcamStepDraws(phase(True), phase(False))
+
+
 def make_diffcam_train_step(generator: GeneratorDiffcam, discriminator, camera: CamParams,
                             cfg: DiffcamTrainConfig, nerf_kwargs: NerfKwargs,
-                            aux_reg: bool = False):
+                            aux_reg: bool = False, mesh: Optional[Mesh] = None):
     """``step(state, real_imgs, draws=None, rng=None) -> (state, metrics)``;
-    the state's modules and optimizers are updated in place."""
+    the state's modules and optimizers are updated in place.  With ``mesh``
+    the step is one rank's and ``draws`` those of the global batch."""
     H = W = cfg.img_size
+    check_mesh(mesh, discriminator)
 
     def gen_fake(zs, nk, pd, rng):
         b = zs["z_nerf"].shape[0]
@@ -96,6 +123,11 @@ def make_diffcam_train_step(generator: GeneratorDiffcam, discriminator, camera: 
                                  raw_noise_std=nerf_noise_schedule(step, cfg.nerf_noise_disable))
         b, dev = real_imgs.shape[0], real_imgs.device
         G, D = generator, discriminator
+        if mesh is not None:
+            if draws is None:
+                draws = draw_diffcam_step(G.cfg, D.main_disc.diffaug, cfg, nk, aux_reg,
+                                          b * mesh.world, rng, dev)
+            draws = shard_batch(draws, mesh.rank * b, (mesh.rank + 1) * b, b * mesh.world)
 
         # ---------------- D phase ----------------
         pd = draws.d if draws else None
@@ -114,7 +146,10 @@ def make_diffcam_train_step(generator: GeneratorDiffcam, discriminator, camera: 
         fake_logits = d_apply(fake.float(), alpha, da_fake)
         d_loss = (losses.d_logistic_loss(real_logits, fake_logits) + penalty).mean()
         d_params = list(D.parameters())
-        d_grads, d_norm, d_finite = clip_and_guard(_grads(d_loss, d_params), cfg.grad_clip)
+        d_grads = _grads(d_loss, d_params)
+        if mesh is not None:
+            d_grads = all_reduce_mean_flat(d_grads, mesh)
+        d_grads, d_norm, d_finite = clip_and_guard(d_grads, cfg.grad_clip)
         apply_grads(state.d_opt, d_params, d_grads)
 
         # ---------------- G phase: G and the camera ----------------
@@ -125,6 +160,8 @@ def make_diffcam_train_step(generator: GeneratorDiffcam, discriminator, camera: 
         g_loss = losses.g_nonsaturating_loss(d_apply(fake.float(), alpha, da)).mean()
         g_params, cam_params = list(G.parameters()), list(camera.parameters())
         grads = _grads(g_loss, g_params + cam_params)
+        if mesh is not None:
+            grads = all_reduce_mean_flat(grads, mesh)
         g_grads, g_norm, g_finite = clip_and_guard(grads[:len(g_params)], cfg.grad_clip)
         apply_grads(state.g_opt, g_params, g_grads)
         if cam_params:
@@ -137,10 +174,12 @@ def make_diffcam_train_step(generator: GeneratorDiffcam, discriminator, camera: 
         ema_update(state.ema, G, step, cfg.ema_decay, cfg.ema_start_itr)
         state.step = step + 1
         with torch.no_grad():
-            metrics = {"d_loss": d_loss, "grad_penalty": penalty.mean(), "g_loss": g_loss,
-                       "d_total_norm": d_norm, "g_total_norm": g_norm, "cam_total_norm": cam_norm,
-                       "d_finite": d_finite.float(),
-                       "g_finite": (g_finite & cam_finite.to(g_finite.device)).float()}
+            metrics = {"d_loss": d_loss, "grad_penalty": penalty.mean(), "g_loss": g_loss}
+            if mesh is not None:
+                metrics = reduce_metrics(metrics, mesh)
+            metrics.update({"d_total_norm": d_norm, "g_total_norm": g_norm,
+                            "cam_total_norm": cam_norm, "d_finite": d_finite.float(),
+                            "g_finite": (g_finite & cam_finite.to(g_finite.device)).float()})
         return state, {k: float(v.detach()) for k, v in metrics.items()}
 
     return step_fn

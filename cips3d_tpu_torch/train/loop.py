@@ -1,5 +1,5 @@
-"""Host training loop on one GPU: counterpart of
-`cips3d_tpu/train/loop.py::train` and `cips3d_tpu/train/variant_loop.py`.
+"""Host training loop: counterpart of `cips3d_tpu/train/loop.py::train`
+and `cips3d_tpu/train/variant_loop.py`.
 
 One loop (`run_pipeline`) serves every model stack through a small
 `Pipeline` interface: state init, the step for an ``(aux_reg,
@@ -27,8 +27,17 @@ eval images and the monitors.  The flagship binds it here
   * ``profile_steps`` traces that many steps with `torch.profiler` into
     ``<outdir>/profile``.
 ``debug_shapes`` prints the shapes of the generator's and the
-discriminator's traced tensors (`utils/debug.py`).  The 2-D (data x rays)
-mesh (``ray_shards > 1``) is not ported and raises.
+discriminator's traced tensors (`utils/debug.py`).
+
+In a process group (`parallel/mesh.py::initialize_multihost`, one process
+per card) every rank runs this loop: the data sharded by rank at B / world
+images a rank (B = ``batch_size`` x world / ``ray_shards``, the JAX
+package's global batch), rank 0's weights broadcast after init and load, a
+`host_barrier` before the first collective, the steps of `Pipeline.make_step`
+on the rank's `Mesh`, eval images written by every rank into one
+interleaved ``fid/fake``, and rank 0 alone logging, computing the FID and
+writing snapshots, monitors and ``*_crupted`` dumps, after a barrier.  The
+2-D (data x rays) layout (``ray_shards`` > 1) is the flagship's only.
 """
 
 from __future__ import annotations
@@ -48,6 +57,7 @@ from cips3d_tpu_torch.eval.images import gen_images, save_image_grid, setup_eval
 from cips3d_tpu_torch.models.discriminator import DiscriminatorMultiScaleAux
 from cips3d_tpu_torch.models.generator import (GeneratorConfig, GeneratorNerfINR, RenderOptions,
                                                sample_zs)
+from cips3d_tpu_torch.parallel.mesh import Mesh, broadcast_modules, host_barrier, make_mesh
 from cips3d_tpu_torch.train.state import TrainConfig, TrainState
 from cips3d_tpu_torch.train.step import init_train_state, make_train_step
 from cips3d_tpu_torch.utils import convert, debug
@@ -181,10 +191,16 @@ class Pipeline:
         derived from ``loop_cfg.seed``."""
         raise NotImplementedError
 
-    def make_step(self, state, aux_reg: bool, d_regularize: bool) -> Callable:
-        """The step of ``state``'s modules: ``step(state, real, rng=rng) ->
-        (state, metrics)``."""
+    def make_step(self, state, aux_reg: bool, d_regularize: bool,
+                  mesh: Optional[Mesh] = None) -> Callable:
+        """The step of ``state``'s modules (one rank's with ``mesh``):
+        ``step(state, real, rng=rng) -> (state, metrics)``."""
         raise NotImplementedError
+
+    def module_list(self, state) -> list:
+        """Every module whose weights a snapshot holds (rank 0's are
+        broadcast)."""
+        return [state.generator, state.ema, state.discriminator]
 
     def modules(self, state) -> Dict[str, dict]:
         """name → JAX-layout tree of every module a snapshot holds."""
@@ -203,8 +219,9 @@ class Pipeline:
     def after_load(self, state) -> None:
         """Called once the weights are in place (resumed, finetuned or fresh)."""
 
-    def gen_eval_images(self, state, fake_dir: str, num_imgs: int,
-                        loop_cfg: "LoopConfig") -> None:
+    def gen_eval_images(self, state, fake_dir: str, num_imgs: int, loop_cfg: "LoopConfig",
+                        shard_index: int = 0, num_shards: int = 1) -> None:
+        """Images k, k + n, ... of ``num_imgs`` for shard k of n."""
         raise NotImplementedError
 
     def save_monitors(self, state, out_dir: str) -> None:
@@ -231,9 +248,9 @@ class FlagshipPipeline(Pipeline):
                                   torch.Generator(dev).manual_seed(seed + 2), device=dev)
         return init_train_state(generator, discriminator, self.train_cfg)
 
-    def make_step(self, state, aux_reg, d_regularize):
+    def make_step(self, state, aux_reg, d_regularize, mesh=None):
         return make_train_step(state.generator, state.discriminator, self.train_cfg, self.opts,
-                               aux_reg=aux_reg, d_regularize=d_regularize)
+                               aux_reg=aux_reg, d_regularize=d_regularize, mesh=mesh)
 
     def modules(self, state):
         return _modules(state)
@@ -251,11 +268,11 @@ class FlagshipPipeline(Pipeline):
         if self.load_nerf_ema:
             _copy_nerf_from_ema(state)
 
-    def gen_eval_images(self, state, fake_dir, num_imgs, loop_cfg):
+    def gen_eval_images(self, state, fake_dir, num_imgs, loop_cfg, shard_index=0, num_shards=1):
         cfg = self.train_cfg
         gen_images(state.ema, fake_dir, num_imgs, cfg.img_size,
                    batch_size=loop_cfg.eval_batch_size, num_steps=self.opts.num_steps,
-                   opts=self.opts,
+                   opts=self.opts, shard_index=shard_index, num_shards=num_shards,
                    forward_points=cfg.forward_points ** 2 if cfg.forward_points else None)
 
     def save_monitors(self, state, out_dir):
@@ -276,17 +293,27 @@ def train(gen_cfg: GeneratorConfig, train_cfg: TrainConfig, opts: RenderOptions,
 
 def run_pipeline(pipeline: Pipeline, loop_cfg: LoopConfig, resume: bool = False,
                  finetune_dir: Optional[str] = None, reset_best_fid: bool = False):
-    """The host loop over ``pipeline``; returns the final state."""
-    if int(loop_cfg.ray_shards) > 1:
-        raise NotImplementedError("ray_shards > 1 (the 2-D data x rays mesh) is not ported")
+    """The host loop over ``pipeline``; returns the final state.  In a
+    process group every rank runs it (the module docstring)."""
     if loop_cfg.debug_shapes:
         debug.enable(True)
     train_cfg = pipeline.train_cfg
+    ray_shards = max(1, int(loop_cfg.ray_shards))
+    if ray_shards > 1 and not isinstance(pipeline, FlagshipPipeline):
+        raise ValueError(f"ray_shards={ray_shards}: the variant pipelines are data-parallel only")
+    mesh = make_mesh(ray_shards) if torch.distributed.is_initialized() or ray_shards > 1 else None
+    world, rank = (mesh.world, mesh.rank) if mesh else (1, 0)
+    # the JAX package's global batch: G renders batch_size a ray group, D sees 1/R of it
+    global_batch = train_cfg.batch_size * (world // ray_shards)
+    if global_batch % world:
+        raise ValueError(f"batch_size={train_cfg.batch_size} must be divisible by "
+                         f"ray_shards={ray_shards} (D shards the batch over all devices)")
+    lead = rank == 0
     outdir = loop_cfg.outdir
     _refuse_sealed_outdir(outdir)
     os.makedirs(outdir, exist_ok=True)
     dev = torch.device(loop_cfg.device)
-    textlogger = TextLogger(os.path.join(outdir, "textdir"))
+    textlogger = TextLogger(os.path.join(outdir, "textdir")) if lead else None
     ckpt_mgr = CheckpointManager(os.path.join(outdir, "ckptdir"), loop_cfg.max_to_keep)
 
     seed = int(loop_cfg.seed)
@@ -311,19 +338,23 @@ def run_pipeline(pipeline: Pipeline, loop_cfg: LoopConfig, resume: bool = False,
         start_state["best_fid"] = float("inf")
 
     start = int(start_state["step"])
+    if mesh is not None:
+        # every rank has built and loaded before the first collective
+        host_barrier(f"cips3d_pre_loop_{start}")
+        broadcast_modules(pipeline.module_list(state), mesh)
     # a resumed run draws afresh instead of replaying the draws of its first steps
     rng = torch.Generator(dev).manual_seed(seed + start)
     dataset = ZipImageDataset(loop_cfg.data_path, resize_resolution=train_cfg.img_size,
                               xflip=loop_cfg.xflip, cache_decoded=loop_cfg.cache_decoded)
-    loader = DataLoader(dataset, batch_size=train_cfg.batch_size, seed=seed + start,
-                        num_workers=loop_cfg.num_workers)
+    loader = DataLoader(dataset, batch_size=global_batch // world, seed=seed + start,
+                        shard_index=rank, num_shards=world, num_workers=loop_cfg.num_workers)
 
     step_fns = {}
 
     def get_step_fn(aux_reg: bool, d_regularize: bool):
         k = (aux_reg, d_regularize)
         if k not in step_fns:
-            step_fns[k] = pipeline.make_step(state, aux_reg, d_regularize)
+            step_fns[k] = pipeline.make_step(state, aux_reg, d_regularize, mesh=mesh)
         return step_fns[k]
 
     def dump_crupted(name):
@@ -338,7 +369,7 @@ def run_pipeline(pipeline: Pipeline, loop_cfg: LoopConfig, resume: bool = False,
     try:
         while step < total:
             real = torch.from_numpy(next(loader)[0]).to(dev)
-            if loop_cfg.profile_steps and step == profile_start:
+            if lead and loop_cfg.profile_steps and step == profile_start:
                 from torch.profiler import ProfilerActivity, profile
 
                 acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
@@ -357,13 +388,13 @@ def run_pipeline(pipeline: Pipeline, loop_cfg: LoopConfig, resume: bool = False,
             step += 1
             start_state["step"] = step
             now = time.time()
-            imgs_per_sec = train_cfg.batch_size / max(now - t_last, 1e-9)
+            imgs_per_sec = global_batch / max(now - t_last, 1e-9)
             t_last = now
-            if not m["d_finite"] > 0:
+            if lead and not m["d_finite"] > 0:
                 dump_crupted("D_crupted")
-            if not m["g_finite"] > 0:
+            if lead and not m["g_finite"] > 0:
                 dump_crupted("G_crupted")
-            if step % loop_cfg.log_every == 0 or loop_cfg.debug:
+            if lead and (step % loop_cfg.log_every == 0 or loop_cfg.debug):
                 summary = {name: {name: v} for name, v in m.items()}
                 summary["lr"] = {"G_lr": train_cfg.gen_lr, "D_lr": train_cfg.disc_lr}
                 summary["speed"] = {"imgs_per_sec": imgs_per_sec}
@@ -372,7 +403,7 @@ def run_pipeline(pipeline: Pipeline, loop_cfg: LoopConfig, resume: bool = False,
                       f"gp={m['grad_penalty']:.4f} {imgs_per_sec:.1f} img/s", flush=True)
             if step == 1 or step % loop_cfg.eval_every == 0 or loop_cfg.debug:
                 _run_eval_and_checkpoint(pipeline, state, loop_cfg, dataset, ckpt_mgr,
-                                         textlogger, start_state)
+                                         textlogger, start_state, mesh)
                 t_last = time.time()   # keep eval time out of the next speed sample
         if profiler is not None:
             profiler.__exit__(None, None, None)
@@ -380,28 +411,48 @@ def run_pipeline(pipeline: Pipeline, loop_cfg: LoopConfig, resume: bool = False,
         if total > start and total % loop_cfg.eval_every != 0 and not loop_cfg.debug:
             start_state["step"] = total
             _run_eval_and_checkpoint(pipeline, state, loop_cfg, dataset, ckpt_mgr, textlogger,
-                                     start_state)
+                                     start_state, mesh)
     finally:
         loader.close()
-        textlogger.close()
+        if textlogger is not None:
+            textlogger.close()
+    if mesh is not None:   # no rank goes on (to a next stage's finetune) before rank 0 wrote
+        host_barrier("cips3d_post_loop")
     return state
 
 
 def _run_eval_and_checkpoint(pipeline, state, loop_cfg, dataset, ckpt_mgr, textlogger,
-                             host_state):
+                             host_state, mesh: Optional[Mesh] = None):
+    """Every rank writes its shard of the real and the fake images; after a
+    barrier rank 0 alone computes the FID and writes the snapshots and
+    monitors."""
     img_size = pipeline.train_cfg.img_size
     n_eval = 16 if loop_cfg.debug else loop_cfg.num_images_real_eval
     n_gen = 16 if loop_cfg.debug else loop_cfg.num_images_gen_eval
     real_dir = os.path.join(loop_cfg.outdir, "fid/real")
     fake_dir = os.path.join(loop_cfg.outdir, "fid/fake")
+    rank, world = (mesh.rank, mesh.world) if mesh else (0, 1)
+    step = host_state["step"]
+    del_existing = loop_cfg.del_fid_real_images
+    if del_existing and mesh is not None:   # rank 0 clears before any rank writes
+        if rank == 0 and os.path.isdir(real_dir):
+            import shutil
+
+            shutil.rmtree(real_dir)
+        host_barrier("cips3d_fid_real_cleared")
+        del_existing = False
     setup_evaluation(ZipImageDataset(dataset.path, resize_resolution=None, xflip=False),
-                     real_dir, n_eval, img_size, del_existing=loop_cfg.del_fid_real_images)
+                     real_dir, n_eval, img_size, del_existing=del_existing, shard_index=rank,
+                     num_shards=world)
     loop_cfg.del_fid_real_images = False
-    pipeline.gen_eval_images(state, fake_dir, n_gen, loop_cfg)
+    pipeline.gen_eval_images(state, fake_dir, n_gen, loop_cfg, shard_index=rank, num_shards=world)
+    if mesh is not None:   # every shard is on disk before rank 0 reads them
+        host_barrier("cips3d_fid_images_written")
+    if rank != 0:
+        return
     metric_dict = eval_fid(real_dir, fake_dir, device=loop_cfg.device)
     fid_name = next(k for k in metric_dict if k.startswith("FID"))
     fid_val = metric_dict[fid_name]
-    step = host_state["step"]
     textlogger.log_dict({fid_name: {fid_name: fid_val}}, prefix="eval", step=step)
     host_state["cur_fid"] = fid_val
     print(f"step {step}: {fid_name}={fid_val:.3f}", flush=True)

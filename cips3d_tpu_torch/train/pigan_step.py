@@ -10,7 +10,10 @@
     joins both losses.
 R1 applies to D's logit alone.  Every random number of a step can be passed
 in as one `PiGANStepDraws`; without it the step draws from a
-`torch.Generator`.
+`torch.Generator`.  With a `parallel.mesh.Mesh` (1-D) the step is one
+rank's, as the flagship's (`train/step.py`); the top-k loss takes its k
+largest of every rank's logits (`gather_rows`), as the JAX step takes them
+of the global batch.
 """
 
 from __future__ import annotations
@@ -23,12 +26,13 @@ import torch.nn.functional as F
 
 from cips3d_tpu_torch.core.ema import ema_copy, ema_update
 from cips3d_tpu_torch.models.generator import RenderOptions
-from cips3d_tpu_torch.models.pigan import PiGANDraws
+from cips3d_tpu_torch.models.pigan import PiGANDraws, draw_pigan
+from cips3d_tpu_torch.parallel.mesh import Mesh, all_reduce_mean_flat, gather_rows, shard_batch
 from cips3d_tpu_torch.train import losses
 from cips3d_tpu_torch.train.schedules import alpha_schedule, nerf_noise_schedule
 from cips3d_tpu_torch.train.state import (TrainConfig, TrainState, apply_grads, clip_and_guard,
                                           make_optimizers)
-from cips3d_tpu_torch.train.step import _grads
+from cips3d_tpu_torch.train.step import _grads, check_mesh, reduce_metrics
 
 
 def topk_logit_loss(logits: torch.Tensor, step, topk_interval: int,
@@ -76,10 +80,25 @@ class PiGANStepDraws(NamedTuple):
     g: PiGANPhaseDraws
 
 
-def make_pigan_train_step(generator, discriminator, cfg: PiGANTrainConfig, opts: RenderOptions):
+def draw_pigan_step(z_dim: int, opts: RenderOptions, batch: int,
+                    rng: Optional[torch.Generator], device) -> PiGANStepDraws:
+    """Every draw of one step at ``batch`` rows (``opts`` at the step's
+    size and density noise)."""
+    def phase():
+        return PiGANPhaseDraws(torch.randn((batch, z_dim), generator=rng, device=device),
+                               draw_pigan(batch, opts, rng, device))
+
+    return PiGANStepDraws(phase(), phase())
+
+
+def make_pigan_train_step(generator, discriminator, cfg: PiGANTrainConfig, opts: RenderOptions,
+                          mesh: Optional[Mesh] = None):
     """One D + G + EMA step of `ImplicitGenerator3d` against
     `ProgressiveDiscriminator`: ``step(state, real_imgs, draws=None,
-    rng=None) -> (state, metrics)``, updating the state in place."""
+    rng=None) -> (state, metrics)``, updating the state in place.  With
+    ``mesh`` the step is one rank's and ``draws`` those of the global
+    batch."""
+    check_mesh(mesh, discriminator)
 
     def render_opts(step):
         return dataclasses.replace(opts, img_size=cfg.img_size,
@@ -99,6 +118,10 @@ def make_pigan_train_step(generator, discriminator, cfg: PiGANTrainConfig, opts:
         ropts = render_opts(step)
         b, dev = real_imgs.shape[0], real_imgs.device
         G, D = generator, discriminator
+        if mesh is not None:
+            if draws is None:
+                draws = draw_pigan_step(G.z_dim, ropts, b * mesh.world, rng, dev)
+            draws = shard_batch(draws, mesh.rank * b, (mesh.rank + 1) * b, b * mesh.world)
 
         # ---------------- D phase ----------------
         pd = draws.d if draws else None
@@ -117,7 +140,10 @@ def make_pigan_train_step(generator, discriminator, cfg: PiGANTrainConfig, opts:
         d_loss = (F.softplus(fake_logits).mean() + F.softplus(-real_logits).mean()
                   + penalty.mean() + d_id)
         d_params = list(D.parameters())
-        d_grads, d_norm, d_finite = clip_and_guard(_grads(d_loss, d_params), cfg.grad_clip)
+        d_grads = _grads(d_loss, d_params)
+        if mesh is not None:
+            d_grads = all_reduce_mean_flat(d_grads, mesh)
+        d_grads, d_norm, d_finite = clip_and_guard(d_grads, cfg.grad_clip)
         apply_grads(state.d_opt, d_params, d_grads)
 
         # ---------------- G phase ----------------
@@ -125,21 +151,29 @@ def make_pigan_train_step(generator, discriminator, cfg: PiGANTrainConfig, opts:
         z = latents(b, pg, rng, dev)
         fake, fake_pos = G(z, ropts, rng, draws=pg.forward if pg else None)
         fake_logits, pred_latent, pred_position = D(fake.float(), alpha)
-        gan = (topk_logit_loss(fake_logits, step, cfg.topk_interval, cfg.topk_v)
-               if cfg.topk_v > 0 else F.softplus(-fake_logits).mean())
+        if cfg.topk_v > 0:
+            all_logits = fake_logits if mesh is None else gather_rows(fake_logits, mesh)
+            gan = topk_logit_loss(all_logits, step, cfg.topk_interval, cfg.topk_v)
+        else:
+            gan = F.softplus(-fake_logits).mean()
         g_loss = gan + identity_penalty(pred_latent, pred_position, z, fake_pos, cfg.z_lambda,
                                         cfg.pos_lambda)
         g_params = list(G.parameters())
-        g_grads, g_norm, g_finite = clip_and_guard(_grads(g_loss, g_params), cfg.grad_clip)
+        g_grads = _grads(g_loss, g_params)
+        if mesh is not None:
+            g_grads = all_reduce_mean_flat(g_grads, mesh)
+        g_grads, g_norm, g_finite = clip_and_guard(g_grads, cfg.grad_clip)
         apply_grads(state.g_opt, g_params, g_grads)
 
         ema_update(state.ema, G, step, cfg.ema_decay, cfg.ema_start_itr)
         state.step = step + 1
         with torch.no_grad():
             metrics = {"d_loss": d_loss, "grad_penalty": penalty.mean(),
-                       "identity_penalty": torch.as_tensor(d_id), "g_loss": g_loss,
-                       "d_total_norm": d_norm, "g_total_norm": g_norm,
-                       "d_finite": d_finite.float(), "g_finite": g_finite.float()}
+                       "identity_penalty": torch.as_tensor(d_id, device=dev), "g_loss": g_loss}
+            if mesh is not None:
+                metrics = reduce_metrics(metrics, mesh)
+            metrics.update({"d_total_norm": d_norm, "g_total_norm": g_norm,
+                            "d_finite": d_finite.float(), "g_finite": g_finite.float()})
         return state, {k: float(v.detach()) for k, v in metrics.items()}
 
     return step_fn

@@ -9,8 +9,9 @@ tree) and `PiGANPipeline` (`ImplicitGenerator3d` against the encoder
 whole host protocol: the sealed-outdir guard, text logs, ``best_fid/``,
 backups and ``resume/``, the ``*_crupted`` dumps, the surrogate FID and the
 monitors.  Their steps regularise D every step, as the JAX steps do (the
-loop's lazy-R1 flag is not read); pi-GAN has no aux branch.  Not ported,
-as for the flagship: the data-parallel mesh and ``dispatch_chunk``.
+loop's lazy-R1 flag is not read); pi-GAN has no aux branch.  In a process
+group they are data-parallel only (1-D), as in the JAX package.  Not ported,
+as for the flagship: ``dispatch_chunk``.
 """
 
 from __future__ import annotations
@@ -36,17 +37,21 @@ from cips3d_tpu_torch.train.pigan_step import (PiGANTrainConfig, init_pigan_stat
 from cips3d_tpu_torch.utils import convert, image_io
 
 
-def _dump_fakes(render, fake_dir: str, num_imgs: int, batch_size: int, device) -> None:
+def _dump_fakes(render, fake_dir: str, num_imgs: int, batch_size: int, device,
+                shard_index: int = 0, num_shards: int = 1) -> None:
     """``render(b, rng)`` → images (b, 3, h, w) in [-1, 1], written as
-    ``fake_{i:06d}.png``; batch i draws from a generator seeded i."""
+    ``fake_{i:06d}.png``; shard k of n writes i = k, k + n, ..., its batch j
+    drawn from a generator seeded k * 100003 + j (as `eval.images.gen_images`)."""
     os.makedirs(fake_dir, exist_ok=True)
+    n_local = (num_imgs - shard_index + num_shards - 1) // num_shards
     written = 0
-    for step in range((num_imgs + batch_size - 1) // batch_size):
-        rng = torch.Generator(device).manual_seed(step)
+    for step in range((n_local + batch_size - 1) // batch_size):
+        rng = torch.Generator(device).manual_seed(shard_index * 100003 + step)
         with torch.no_grad():
             imgs = render(batch_size, rng).float().cpu().numpy()
-        for img in imgs[:num_imgs - written]:
-            image_io.write_png(os.path.join(fake_dir, f"fake_{written:06d}.png"), to_uint8(img))
+        for img in imgs[:n_local - written]:
+            idx = shard_index + written * num_shards
+            image_io.write_png(os.path.join(fake_dir, f"fake_{idx:06d}.png"), to_uint8(img))
             written += 1
 
 
@@ -77,9 +82,13 @@ class DiffcamPipeline(Pipeline):
         return init_diffcam_state(gen.to(dev), disc.to(dev), CamParams(**self.cam_kwargs).to(dev),
                                   self.train_cfg)
 
-    def make_step(self, state, aux_reg, d_regularize):
+    def make_step(self, state, aux_reg, d_regularize, mesh=None):
         return make_diffcam_train_step(state.generator, state.discriminator, state.camera,
-                                       self.train_cfg, self.nerf_kwargs, aux_reg=aux_reg)
+                                       self.train_cfg, self.nerf_kwargs, aux_reg=aux_reg,
+                                       mesh=mesh)
+
+    def module_list(self, state):
+        return [state.camera, *super().module_list(state)]
 
     def modules(self, state):
         return dict(cam_param=convert.cam_tree_from_state_dict(state.camera.state_dict()),
@@ -116,11 +125,11 @@ class DiffcamPipeline(Pipeline):
         nk = dataclasses.replace(self.nerf_kwargs, raw_noise_std=0.0)
         return gen.forward_rays(zs, rays_o, rays_d, nk, rng)[0]
 
-    def gen_eval_images(self, state, fake_dir, num_imgs, loop_cfg):
+    def gen_eval_images(self, state, fake_dir, num_imgs, loop_cfg, shard_index=0, num_shards=1):
         dev = state.camera.fx_raw.device
         _dump_fakes(lambda b, rng: self.render(state.ema, state.camera,
                                                sample_zs(b, self.gen_cfg, rng, device=dev), rng),
-                    fake_dir, num_imgs, loop_cfg.eval_batch_size, dev)
+                    fake_dir, num_imgs, loop_cfg.eval_batch_size, dev, shard_index, num_shards)
 
     @torch.no_grad()
     def save_monitors(self, state, out_dir):
@@ -154,9 +163,9 @@ class PiGANPipeline(Pipeline):
                                    device=dev)
         return init_pigan_state(gen.to(dev), disc.to(dev), self.train_cfg)
 
-    def make_step(self, state, aux_reg, d_regularize):
+    def make_step(self, state, aux_reg, d_regularize, mesh=None):
         return make_pigan_train_step(state.generator, state.discriminator, self.train_cfg,
-                                     self.opts)
+                                     self.opts, mesh=mesh)
 
     def modules(self, state):
         return {"generator": convert.pigan_tree_from_state_dict(state.generator.state_dict()),
@@ -187,11 +196,11 @@ class PiGANPipeline(Pipeline):
         return dataclasses.replace(self.opts, img_size=self.train_cfg.img_size, nerf_noise=0.0,
                                    **over)
 
-    def gen_eval_images(self, state, fake_dir, num_imgs, loop_cfg):
+    def gen_eval_images(self, state, fake_dir, num_imgs, loop_cfg, shard_index=0, num_shards=1):
         dev, opts = state.ema.device, self.eval_opts()
         _dump_fakes(lambda b, rng: state.ema(torch.randn((b, state.ema.z_dim), generator=rng,
                                                          device=dev), opts, rng)[0],
-                    fake_dir, num_imgs, loop_cfg.eval_batch_size, dev)
+                    fake_dir, num_imgs, loop_cfg.eval_batch_size, dev, shard_index, num_shards)
 
     @torch.no_grad()
     def save_monitors(self, state, out_dir):

@@ -509,7 +509,8 @@ def test_cli_trains_r32_then_finetunes_r64_on_the_cpu(tmp_path, capsys, monkeypa
         assert {"g_opt.npz", "d_opt.npz", "0Gz_ema.jpg"} <= set(os.listdir(run / "ckptdir" /
                                                                           "resume"))
     assert "loading finetune weights from results/ffhq/train_r32/ckptdir/best_fid" in out
-    with pytest.raises(NotImplementedError, match="ray_shards"):
+    # train_r512's 2-D layout (ray_shards 4) in one process: the JAX loop's ValueError
+    with pytest.raises(ValueError, match="ray_shards=4 must divide device count 1"):
         cli.main(["--config", os.path.join(ROOT, "configs", "ffhq.yaml"), "--command",
                   "train_r512", "--device", "cpu", "--opts", "data_path", "d.zip"])
     # the diffcam pipeline trains too (it was refused before the variants were ported):

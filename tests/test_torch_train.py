@@ -326,7 +326,11 @@ def test_unfused_generator_raises_and_config_validates():
     generator (the auto-pick keeps the plain D phase there).  A step with
     DiffAug builds and runs."""
     gen = GeneratorNerfINR(GeneratorConfig(**GCFG), generator=torch.Generator().manual_seed(0))
-    zs = {"z_nerf": torch.randn(1, 16), "z_inr": torch.randn(1, 32)}
+    # latents from their own seed, not the process's RNG: for about one draw in five the
+    # untrained NeRF's densities are all <= 0 under the relu clamp and no gradient reaches
+    # the SIREN, so the result depended on which tests had run before in the process
+    gz = torch.Generator().manual_seed(1)
+    zs = {"z_nerf": torch.randn(1, 16, generator=gz), "z_inr": torch.randn(1, 32, generator=gz)}
     img, _ = gen(zs, RenderOptions(img_size=IMG, num_steps=STEPS, hierarchical_sample=False),
                  torch.Generator().manual_seed(0))
     assert img.shape == (1, 3, IMG, IMG) and torch.isfinite(img).all()
