@@ -112,7 +112,20 @@ Phases, each printing one line (plus detail lines):
      pixels of both rows, D sees one row) against one process at b = 2, at
      phase 7's tolerances without density noise, both ranks' parameters
      equal bit for bit, each rank's peak memory beside one process's, and
-     #1 and #2 launched in every rank.
+     #1 and #2 launched in every rank;
+ 14. a reference checkpoint (`utils/convert_torch.py`): phase 4's
+     generator and a phase-7 discriminator through
+     `export_reference_checkpoint_dir` (the JAX function's four files), read
+     back as written, wrapped in ``{"state_dict": ...}`` and with the
+     ``to_rbgs`` spelling by `load_reference_generator`, every tensor bit
+     for bit; the loaded G served through `RenderService` at r128 x 24 and
+     r256 x 12 against the source G's frames (bit for bit, else within
+     FRAME_ATOL), #1 and #2 launched, and an r32 frame against the plain
+     CPU path; the parity gate's ``--self-test`` (exit 0, 24 + 24 PNGs, a
+     finite FID) and ``--dry-run`` in an empty directory (exit 1, the
+     three artifacts named) in subprocesses; each class of
+     `models/legacy.py` and `models/nerf_variants.py` on the card against
+     the CPU from the same weights, forward and one backward, TF32 off.
 Phase 4 also fetches /render and /render?depth=1 and checks the JPEGs.
 The second-to-last line is a JSON summary of the kernels (with each one's
 bound on the card: the larger of its multiply-adds over the 67 TFLOP/s f32
@@ -123,6 +136,7 @@ error before printing any result.
 """
 
 import copy
+import glob
 import itertools
 import json
 import math
@@ -250,6 +264,42 @@ def bound_ms(flops, nbytes):
 def siren_macs(H, L, C, R):
     """Multiply-adds of the FiLM-SIREN per point."""
     return 3 * H + (L - 1) * H * H + H * C + C * R + H
+
+
+def frame_vs_cpu(gen, cpu_gen, dev, label):
+    """An r32 x 12 frame (explicit camera, seeded draws) of ``gen`` on the
+    card against ``cpu_gen``, the same weights on the plain CPU path; fails
+    beyond FRAME_ATOL on more than MAX_OUTSIDE of the pixels or on depth."""
+    import torch
+
+    from cips3d_tpu_torch.apps.render import render_chunked
+    from cips3d_tpu_torch.models.generator import RenderOptions, sample_zs
+    from cips3d_tpu_torch.ops import ray_tile
+
+    gc = torch.Generator().manual_seed(5)
+    zs = sample_zs(1, gen.cfg, gc)
+    opts = RenderOptions(img_size=32, num_steps=12, h_stddev=0.0, v_stddev=0.0)
+    pos = torch.tensor([[0.2, 0.15, 0.968]])
+    pos = pos / pos.norm()
+    uniform = torch.rand((1, 32 * 32, 12, 1), generator=gc)
+    draws = [ray_tile.draw_ray_randoms(1, 1024, 12, False, gc, "cpu")]
+    with torch.no_grad():
+        st_c = cpu_gen.mapping(zs["z_nerf"], zs["z_inr"])
+        st_g = {k: v.to(dev) for k, v in st_c.items()}
+        ref_img, ref_dep = render_chunked(cpu_gen, st_c, opts, None, 1024, pos, -pos,
+                                          return_depth=True, perturb_uniform=uniform,
+                                          chunk_draws=draws)
+        got_img, got_dep = render_chunked(
+            gen, st_g, opts, None, 1024, pos.to(dev), -pos.to(dev), return_depth=True,
+            perturb_uniform=uniform.to(dev),
+            chunk_draws=[ray_tile.RayDraws(*(t.to(dev) for t in draws[0]))])
+    e_img = (got_img.cpu() - ref_img).abs()
+    e_dep = (got_dep.cpu() - ref_dep).abs()
+    share = (e_img > FRAME_ATOL).any(1).float().mean().item()
+    log(f"{label}: max_abs_err {e_img.max().item():.3e} "
+        f"depth {e_dep.max().item():.3e}; pixels outside atol {FRAME_ATOL}: {share:.2e}")
+    if share > MAX_OUTSIDE or e_dep.max().item() > FRAME_ATOL:
+        raise AssertionError(f"{label}: the kernel path disagrees with the plain path")
 
 
 def ptxas_resources(text):
@@ -2058,13 +2108,260 @@ def dist_phase(dev, smi, log, tmp):
     return launches
 
 
+# ---- phase 14: a reference checkpoint on the card ----------------------------
+
+ZOO_TOL = dict(rtol=1e-4, atol=1e-5)   # f32 modules, card vs CPU (TF32 off)
+
+
+def zoo_cases():
+    """(name, module, inputs) of every class of models/legacy.py and
+    models/nerf_variants.py at its default widths (where the JAX module
+    infers a width, the reference's: 32-wide features, 256 and 512 hidden),
+    on b = 2 x 1024 points, seeded."""
+    import numpy as np
+    import torch
+
+    from cips3d_tpu_torch.models import legacy as lg
+    from cips3d_tpu_torch.models import nerf_variants as nv
+
+    rng = np.random.default_rng(14)
+    b, n = 2, 1024
+
+    def x(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32))
+
+    def styles(keys, dim):
+        return {k: x(b, dim) for k in keys}
+
+    def prog(prefix, resolutions, dim):
+        return styles([f"{prefix}_w{r}_{j}" for r in resolutions for j in (0, 1)], dim)
+
+    pts = x(b, n, 3, scale=0.1)
+    nerf = styles(["nerf_w0", "nerf_w1", "nerf_rgb"], 128)
+    g = torch.Generator().manual_seed(140)
+    return [
+        ("CLN", lg.CLN(256, 256, generator=g), (x(b, n, 256, scale=3.0), x(b, 256))),
+        ("CLNLayer", lg.CLNLayer(32, 256, 256, generator=g), (x(b, n, 32), x(b, 256))),
+        ("INRNetwork", lg.INRNetwork(32, 256, 4, 256, generator=g),
+         (x(b, n, 32), styles([f"inr_w{i}" for i in range(4)], 256))),
+        ("INRNetworkSkip", lg.INRNetworkSkip(32, 9, 512, generator=g),
+         (x(b, n, 32), styles([f"inr_w{i}_{j}" for i in range(9) for j in (0, 1)], 512))),
+        ("PosEmbedding", lg.PosEmbedding(), (pts,)),
+        ("FCNet", lg.FCNet(32, 256, 4, generator=g), (x(b, n, 32),)),
+        ("ModulatedFCConv", lg.ModulatedFCConv(512, 512, 512, generator=g),
+         (x(b, n, 512), x(b, 512))),
+        ("INRNetworkSkipProg", lg.INRNetworkSkipProg(32, 256, generator=g),
+         (x(b, n, 32), prog("inr", lg.PROG_RESOLUTIONS, 256))),
+        ("CLNBlock", lg.CLNBlock(256, 256, 256, generator=g),
+         (x(b, n, 256), x(b, 256), x(b, 256), True)),
+        ("INRNetworkSkipCLN", lg.INRNetworkSkipCLN(32, 256, generator=g),
+         (x(b, n, 32), prog("inr", lg.CLN_RESOLUTIONS, 256))),
+        ("LinearSkipProg", lg.LinearSkipProg(32, 256, generator=g),
+         (x(b, n, 32), styles(["linear_w"], 256))),
+        ("ModSinLayer", lg.ModSinLayer(256, 256, generator=g), (x(b, n, 256, scale=3.0), x(b, 256))),
+        ("ModSinLayer sine", lg.ModSinLayer(256, 256, use_sine=True, freq=2.0, generator=g),
+         (x(b, n, 256), x(b, 256))),
+        ("NeRFNetworkCLN", nv.NeRFNetworkCLN(generator=g), (pts, nerf)),
+        ("FreqPhaseFiLM", nv.FreqPhaseFiLM(3, 128, generator=g), (pts, x(b, 256))),
+        ("NeRFNetworkFreqPhase", nv.NeRFNetworkFreqPhase(generator=g),
+         (pts, {"nerf_w0": x(b, 256), "nerf_w1": x(b, 256), "nerf_rgb": x(b, 128)})),
+        ("NeRFNetworkFreqPhase pos_embed", nv.NeRFNetworkFreqPhase(use_pos_embed=True, generator=g),
+         (pts, {"nerf_w0": x(b, 256), "nerf_w1": x(b, 256), "nerf_rgb": x(b, 128)})),
+        ("NeRFNetworkSmall", nv.NeRFNetworkSmall(generator=g), (pts, nerf)),
+        ("NeRFNetworkL", nv.NeRFNetworkL(generator=g), (pts, nerf)),
+        ("LinearSinAct", nv.LinearSinAct(3, 64, generator=g), (pts,)),
+        ("NeRFNetworkSigma", nv.NeRFNetworkSigma(generator=g), (pts, nerf)),
+    ]
+
+
+def zoo_on_card(dev, log):
+    """Each zoo module on the card against the CPU, from the same weights:
+    the forward at ZOO_TOL, one backward of a seeded cotangent (every
+    parameter's and every input's grad) by the normalised error < 1e-4.
+    A module whose grads miss that bound passes only if the card's grads
+    are at most F64_RATIO times as far from a float64 CPU run as the CPU's
+    own f32 grads are (rounding that the module amplifies, as in the deep
+    conditional LayerNorms)."""
+    import torch
+
+    def leaves(a):
+        if isinstance(a, dict):
+            return list(a.values())
+        return [a] if torch.is_tensor(a) else []
+
+    def run(mod, inputs, d, dtype=torch.float32):
+        for sub in mod.modules():   # the layers cast their inputs to their compute dtype
+            if hasattr(sub, "dtype"):
+                sub.dtype = dtype
+        args = [({k: v.to(d, dtype).requires_grad_(True) for k, v in a.items()}
+                 if isinstance(a, dict) else a.to(d, dtype).requires_grad_(True)
+                 if torch.is_tensor(a) else a) for a in inputs]
+        out = mod(*args)
+        out = torch.cat(out, -1) if isinstance(out, tuple) else out
+        cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(141)).to(d, dtype)
+        wrt = list(mod.parameters()) + [t for a in args for t in leaves(a)]
+        grads = torch.autograd.grad((out * cot).sum(), wrt, allow_unused=True)
+        return out.detach().cpu(), [None if g_ is None else g_.cpu() for g_ in grads]
+
+    def gerr(ga, gb):
+        return max([grad_err(a, b) for a, b in zip(ga, gb) if b is not None] or [0.0])
+
+    worst, cases = 0.0, zoo_cases()
+    for name, cpu_mod, inputs in cases:
+        dev_mod = copy.deepcopy(cpu_mod).to(dev)
+        ref, g_ref = run(cpu_mod, inputs, "cpu")
+        got, g_got = run(dev_mod, inputs, dev)
+        err = (got - ref).abs()
+        share = (err > ZOO_TOL["atol"] + ZOO_TOL["rtol"] * ref.abs()).float().mean().item()
+        g_err = gerr(g_got, g_ref)
+        worst = max(worst, g_err)
+        witness = ""
+        if g_err >= 1e-4:
+            _, g64 = run(copy.deepcopy(cpu_mod).double(), inputs, "cpu", torch.float64)
+            w_cpu, w_card = gerr(g_ref, g64), gerr(g_got, g64)
+            witness = (f"; over 1e-4: from a float64 CPU run the card {w_card:.2e}, the CPU's "
+                       f"f32 {w_cpu:.2e} (bound {F64_RATIO}x)")
+        log(f"phase 14 zoo: {name} {tuple(got.shape)}: card vs CPU max_abs_err "
+            f"{err.max().item():.3e}, outside rtol {ZOO_TOL['rtol']} atol {ZOO_TOL['atol']}: "
+            f"{share:.2e}; grads ({len(g_ref)}) normalised err {g_err:.2e}{witness}")
+        if share > 0 or not torch.isfinite(got).all() or (
+                g_err >= 1e-4 and w_card > F64_RATIO * w_cpu):
+            raise AssertionError(f"phase 14 zoo: {name} disagrees between the card and the CPU")
+    return len(cases), worst
+
+
+def checkpoint_phase(dev, smi, log, tmp, gen):
+    """Phase 14: the seeded flagship ``gen`` and a phase-7 discriminator
+    exported as the reference's checkpoint directory and read back three
+    ways, bit for bit; the loaded G served through RenderService (#1, #2)
+    against the source G's frames, and an r32 frame against the plain CPU
+    path; the parity gate's self-test and dry run in subprocesses; the
+    model zoo on the card against the CPU.  Returns the launches of the
+    loaded G's serving."""
+    import os
+
+    import torch
+
+    from cips3d_tpu_torch.apps.serve import RenderService
+    from cips3d_tpu_torch.eval.cli import serving_config
+    from cips3d_tpu_torch.models.discriminator import DiscriminatorMultiScaleAux
+    from cips3d_tpu_torch.utils import convert_torch as ct
+
+    # ---- (a) export and read back
+    t1 = time.perf_counter()
+    disc = DiscriminatorMultiScaleAux(max_size=1024, generator=torch.Generator().manual_seed(21))
+    out = os.path.join(tmp, "reference_ckpt")
+    ct.export_reference_checkpoint_dir(out, gen, generator=gen, info_msg="chip_smoke phase 14",
+                                       discriminator=disc.state_dict())
+    files = sorted(os.listdir(out))
+    want = ["G_ema_model.pth", "discriminator_model.pth", "generator_model.pth", "info.txt"]
+    with open(os.path.join(out, "info.txt")) as f:
+        info = f.read()
+    d_back = torch.load(os.path.join(out, "discriminator_model.pth"))
+    d_same = sorted(d_back) == sorted(disc.state_dict()) and all(
+        torch.equal(d_back[k], v) for k, v in disc.state_dict().items())
+    sizes = {f: os.path.getsize(os.path.join(out, f)) for f in files}
+    log(f"phase 14 export: {files} ({sum(sizes.values()) / 2 ** 20:.1f} MiB) in "
+        f"{time.perf_counter() - t1:.1f} s [{smi}]; info.txt {info!r}; discriminator read back "
+        f"bit for bit: {d_same}")
+    if files != want or info != "chip_smoke phase 14\n" or not d_same:
+        raise AssertionError(f"phase 14: the checkpoint directory is not the reference's: {files}")
+    src = gen.state_dict()
+    sd = torch.load(os.path.join(out, "G_ema_model.pth"))
+    variants = {"as written": os.path.join(out, "G_ema_model.pth"),
+                "wrapped": os.path.join(tmp, "G_ema_wrapped.pth"),
+                "to_rbgs": os.path.join(tmp, "G_ema_to_rbgs.pth")}
+    torch.save({"state_dict": sd, "epoch": 645500}, variants["wrapped"])
+    torch.save({k.replace("inr_net.to_rgbs.", "inr_net.to_rbgs."): v for k, v in sd.items()},
+               variants["to_rbgs"])
+    loaded = {}
+    for label, path in variants.items():
+        t1 = time.perf_counter()
+        g_l = ct.load_reference_generator(path, serving_config(), device=dev)
+        secs = time.perf_counter() - t1
+        own = g_l.state_dict()
+        same = sorted(own) == sorted(src) and all(torch.equal(own[k], v) for k, v in src.items())
+        log(f"phase 14 load: {label}: {len(own)} tensors, every one equal to the source bit for "
+            f"bit: {same}; load_reference_generator to the card {secs:.2f} s [{smi}]")
+        if not same:
+            raise AssertionError(f"phase 14: the {label} checkpoint did not round-trip")
+        loaded[label] = g_l
+
+    # ---- (b) serve the loaded G against the source G
+    g_l = loaded["as written"]
+    frames = {}
+    for who, model in (("source", gen), ("loaded", g_l)):
+        svc = RenderService(model, img_size=128, num_steps=SERVING_STEPS)
+        svc256 = RenderService(model, img_size=256, num_steps=12)
+        zero_kernel_counts()
+        t1 = time.perf_counter()
+        frames[who] = [svc.render(seed=s, psi=0.7)[0] for s in (0, 1, 2)] + \
+            [svc256.render(seed=0, psi=0.7)[0]]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        counts = kernel_counts()
+    launches = {"ray_tile": counts["ray_tile"], "inr_tile": counts["inr_tile"]}
+    exact = all(torch.equal(a, b) for a, b in zip(frames["loaded"], frames["source"]))
+    diff = max((a - b).abs().max().item() for a, b in zip(frames["loaded"], frames["source"]))
+    log(f"phase 14 serve: loaded G through RenderService, r128 x{SERVING_STEPS} seeds 0-2 and "
+        f"r256 x12 seed 0 (psi 0.7) in {secs:.2f} s [{smi}]: frames equal to the source G's bit "
+        f"for bit: {exact}; max abs diff {diff:.3e} (bound FRAME_ATOL {FRAME_ATOL}); "
+        f"launches {launches}")
+    if diff > FRAME_ATOL or min(launches.values()) <= 0:
+        raise AssertionError("phase 14: the loaded G does not serve the source G's frames "
+                             "through the kernels")
+    for f in frames["loaded"]:
+        if not torch.isfinite(f).all():
+            raise AssertionError("phase 14: a served frame is not finite")
+    frame_vs_cpu(g_l, copy.deepcopy(g_l).cpu(), dev,
+                 "phase 14 frame: loaded G, r32 x12, card vs plain CPU path")
+
+    # ---- (c) the gate in subprocesses
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("CIPS3D_")}
+    gate = os.path.join(tmp, "gate")
+    t1 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "cips3d_tpu_torch.tools.parity_gate", "--self-test",
+                        "--outdir", gate], cwd=root, env=env, capture_output=True, text=True,
+                       timeout=600)
+    secs = time.perf_counter() - t1
+    fid = re.search(r"FID = (\S+) ", p.stdout)
+    fid = float(fid.group(1)) if fid else float("nan")
+    n_real, n_fake = (len(glob.glob(os.path.join(gate, "fid", d, "*.png"))) for d in ("real", "fake"))
+    log(f"phase 14 gate: --self-test exit {p.returncode} in {secs:.1f} s [{smi}]: {n_real} real, "
+        f"{n_fake} fake PNGs, FID {fid} | " + " | ".join(
+            ln.strip() for ln in p.stdout.splitlines()
+            if ln.strip().startswith(("pool3", "reverse", "strict", "reference-class", "self-test"))))
+    if p.returncode != 0 or n_real != 24 or n_fake != 24 or not math.isfinite(fid):
+        log(p.stdout[-3000:] + p.stderr[-3000:])
+        raise AssertionError("phase 14: the gate's self-test failed")
+    empty = os.path.join(tmp, "empty")
+    os.makedirs(empty)
+    p = subprocess.run([sys.executable, "-m", "cips3d_tpu_torch.tools.parity_gate", "--dry-run"],
+                       cwd=empty, env=dict(env, HOME=empty, PYTHONPATH=root), capture_output=True,
+                       text=True, timeout=300)
+    named = [w for w in ("- FFHQ dataset zip", "- InceptionV3 FID weights",
+                         "- released reference checkpoints") if w in p.stdout]
+    log(f"phase 14 gate: --dry-run in an empty directory exit {p.returncode}; the manifest "
+        f"names {named}")
+    if p.returncode != 1 or len(named) != 3:
+        log(p.stdout[-3000:] + p.stderr[-3000:])
+        raise AssertionError("phase 14: the gate's dry run did not name the missing artifacts")
+
+    # ---- (d) the model zoo on the card
+    t1 = time.perf_counter()
+    n_cases, worst = zoo_on_card(dev, log)
+    log(f"phase 14 zoo: {n_cases} modules card vs CPU in {time.perf_counter() - t1:.1f} s; worst "
+        f"normalised grad err {worst:.2e}")
+    return launches
+
+
 def main():
     import torch
 
     # ---- phase 1: device ------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA GPU")
-    from cips3d_tpu_torch.apps.render import render_chunked
     from cips3d_tpu_torch.apps.serve import RenderService, serve
     from cips3d_tpu_torch.eval.cli import serving_config
     from cips3d_tpu_torch.models.generator import GeneratorNerfINR, RenderOptions, sample_zs
@@ -2246,30 +2543,7 @@ def main():
 
     # small frame against the plain path on the CPU (same weights, same draws)
     cpu_gen = copy.deepcopy(gen).cpu()
-    gc = torch.Generator().manual_seed(5)
-    zs = sample_zs(1, cfg, gc)
-    opts = RenderOptions(img_size=32, num_steps=12, h_stddev=0.0, v_stddev=0.0)
-    pos = torch.tensor([[0.2, 0.15, 0.968]])
-    pos = pos / pos.norm()
-    uniform = torch.rand((1, 32 * 32, 12, 1), generator=gc)
-    draws = [ray_tile.draw_ray_randoms(1, 1024, 12, False, gc, "cpu")]
-    with torch.no_grad():
-        st_c = cpu_gen.mapping(zs["z_nerf"], zs["z_inr"])
-        st_g = {k: v.to(dev) for k, v in st_c.items()}
-        ref_img, ref_dep = render_chunked(cpu_gen, st_c, opts, None, 1024, pos, -pos,
-                                          return_depth=True, perturb_uniform=uniform,
-                                          chunk_draws=draws)
-        got_img, got_dep = render_chunked(
-            gen, st_g, opts, None, 1024, pos.to(dev), -pos.to(dev), return_depth=True,
-            perturb_uniform=uniform.to(dev),
-            chunk_draws=[ray_tile.RayDraws(*(t.to(dev) for t in draws[0]))])
-    e_img = (got_img.cpu() - ref_img).abs()
-    e_dep = (got_dep.cpu() - ref_dep).abs()
-    share = (e_img > FRAME_ATOL).any(1).float().mean().item()
-    log(f"  frame r32 x12 vs plain CPU path: max_abs_err {e_img.max().item():.3e} "
-        f"depth {e_dep.max().item():.3e}; pixels outside atol {FRAME_ATOL}: {share:.2e}")
-    if share > MAX_OUTSIDE or e_dep.max().item() > FRAME_ATOL:
-        raise AssertionError("the kernel path disagrees with the plain path")
+    frame_vs_cpu(gen, cpu_gen, dev, "  frame r32 x12 vs plain CPU path")
 
     log(f"phase 4 done in {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
@@ -2355,13 +2629,17 @@ def main():
         t_phase = time.perf_counter()
         dist_counts = dist_phase(dev, smi, log, tmp)
         log(f"phase 13 done in {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        ckpt_counts = checkpoint_phase(dev, smi, log, tmp, gen)
+        log(f"phase 14 done in {time.perf_counter() - t_phase:.1f} s [{smi}]")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     # launches on the main paths: serving (phase 4), training (phase 7), apps (phase 11),
-    # training from the dataset tool's zip (phase 12), training on several processes (13)
+    # training from the dataset tool's zip (phase 12), training on several processes (13),
+    # a loaded reference checkpoint served (14)
     for k in ("ray_tile", "inr_tile"):
-        launches[k] += apps[k] + data_counts[k] + dist_counts[k]
+        launches[k] += apps[k] + data_counts[k] + dist_counts[k] + ckpt_counts[k]
     for e in train:
         e["launches"] += apps[e["name"]]
     kernels = [

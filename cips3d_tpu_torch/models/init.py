@@ -8,7 +8,8 @@ layout, so fan-in conventions read the same as there, and an explicit
     and bias;
   * `frequency_init(freq)`: U(-sqrt(6/fan_in)/freq, sqrt(6/fan_in)/freq);
   * kaiming-leaky: N(0, sqrt(2/(1+0.2^2))/sqrt(fan_in));
-  * SinStyleMod weight: kaiming-leaky with the *out* dim as fan.
+  * SinStyleMod weight: kaiming-leaky with the *out* dim as fan;
+  * `normal_kernel(std)`: N(0, std), the raw weights of equalized-lr layers.
 """
 
 from __future__ import annotations
@@ -68,5 +69,14 @@ def scaled_kernel(base_init: Init, scale: float) -> Init:
 
     def init(shape, generator=None):
         return base_init(shape, generator) * scale
+
+    return init
+
+
+def normal_kernel(std: float = 1.0) -> Init:
+    """randn * std: the StyleGAN2 equalized-lr raw weights."""
+
+    def init(shape, generator=None):
+        return torch.randn(tuple(shape), generator=generator) * std
 
     return init

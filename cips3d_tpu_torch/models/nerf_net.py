@@ -3,8 +3,8 @@
 
 UniformBoxWarp(0.24) → ``hidden_layers`` FiLM-SIREN layers (0 allowed) →
 sigma linear;
-colour branch: FiLM-SIREN (hidden → hidden/2) → linear(kaiming-leaky) →
-``rgb_dim`` feature.  Style keys ``nerf_w{i}`` per hidden layer and
+colour branch: FiLM-SIREN (hidden → ``color_hidden_dim``, default
+hidden/2) → linear(kaiming-leaky) → ``rgb_dim`` feature.  Style keys ``nerf_w{i}`` per hidden layer and
 ``nerf_rgb`` for the colour FiLM.  With ``fused_ray`` this module only
 holds the weights (`ops/ray_tile.py` runs its math inside the ray-tile
 kernel); the unfused NeRF stage calls `forward`.
@@ -27,6 +27,7 @@ class NeRFNetwork(nn.Module):
     def __init__(self, hidden_dim: int = 128, hidden_layers: int = 2, rgb_dim: int = 32,
                  style_dim: int = 128, box_sidelength: float = 0.24,
                  name_prefix: str = "nerf", fast_sin: bool = False,
+                 color_hidden_dim: Optional[int] = None,
                  generator: Optional[torch.Generator] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -37,7 +38,8 @@ class NeRFNetwork(nn.Module):
         )
         trunk_dim = hidden_dim if hidden_layers else 3   # depth 0: the heads read the points
         self.final_layer = TorchLinear(trunk_dim, 1, generator=generator, dtype=dtype)
-        color_dim = hidden_dim // 2
+        # NeRFNetworkL (models/nerf_variants.py) keeps the full hidden width
+        color_dim = hidden_dim // 2 if color_hidden_dim is None else color_hidden_dim
         self.color_layer_sine = FiLMSineLayer(trunk_dim, color_dim, style_dim,
                                               fast_sin=fast_sin, generator=generator,
                                               dtype=dtype)

@@ -30,6 +30,11 @@ and `load_optax_adam_state` move Adam's moments and count between
 `torch.optim.Adam` and optax's ``(ScaleByAdamState(count, mu, nu),
 EmptyState())``.  So snapshots move both ways between the packages.
 
+`tree_state_dict` carries any model-zoo module (`models/legacy.py`,
+`models/nerf_variants.py`) across: its submodules carry the JAX names, so
+``kernel`` (in, out) becomes ``weight`` (out, in), ``scale`` becomes
+``weight`` and the names are joined by ``.``.
+
 `inception_state_dict` maps the JAX package's InceptionV3 tree
 (``{Conv2d_*: {w, bn_*}, Mixed_*: {branch: {w, bn_*}}}``) onto
 torch-fidelity's names, which `eval/inception.py::InceptionV3` carries.
@@ -137,6 +142,26 @@ def state_dict_from_jax(params: dict) -> Dict[str, np.ndarray]:
     sd.update(_prefixed("mapping_network_inr", mapping_state_dict(p["mapping_network_inr"])))
     sd.update(_prefixed("inr_net", inr_state_dict(p["inr_net"])))
     _linear(sd, p["aux_to_rgb"], "aux_to_rbg.0")
+    return sd
+
+
+def tree_state_dict(params: dict) -> Dict[str, np.ndarray]:
+    """A model-zoo module's JAX params ({"params": {...}} or the inner dict)
+    → the state dict of its port counterpart: ``kernel`` → ``weight`` (out,
+    in), ``scale`` → ``weight``, other leaves as they are, names joined by
+    ``.``."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if hasattr(v, "items"):
+                walk(v, f"{prefix}{k}.")
+            elif k == "kernel":
+                sd[f"{prefix}weight"] = _np(v).T.copy()
+            else:
+                sd[prefix + ("weight" if k == "scale" else k)] = _np(v).copy()
+
+    walk(params.get("params", params), "")
     return sd
 
 
