@@ -125,11 +125,29 @@ Phases, each printing one line (plus detail lines):
      finite FID) and ``--dry-run`` in an empty directory (exit 1, the
      three artifacts named) in subprocesses; each class of
      `models/legacy.py` and `models/nerf_variants.py` on the card against
-     the CPU from the same weights, forward and one backward, TF32 off.
+     the CPU from the same weights, forward and one backward, TF32 off;
+ 15. the benches and the bf16 path they drive (bf16 compute, f32
+     parameters): (a) one bf16 r32 b = 2 step at full width without
+     density noise of each bench leg (the shipped config; exact sine with
+     the residual backward) on the card against the same bf16 step on the
+     CPU, the CPU's f32 step as the witness (BF16_RATIO), and an r64 x 12
+     bf16 serving frame likewise; (b) ``python -m
+     cips3d_tpu_torch.bench.train`` and ``python -m
+     cips3d_tpu_torch.bench.inference`` (BENCH_AB=1) at their default
+     sizes in subprocesses: exit 0, one JSON line with every key and
+     finite positive values, and per leg the kernels' launches by product
+     dtype (bf16 only: #1 and #2 in every training leg and the fused
+     serving leg, #2r and #3 in the exact-sine leg), #1's bf16
+     instantiation in one profiled step or call, and the device's idle
+     share there; (c) #2r and #3 with bf16 products and their plain
+     versions, timed.
 Phase 4 also fetches /render and /render?depth=1 and checks the JPEGs.
 The second-to-last line is a JSON summary of the kernels (with each one's
 bound on the card: the larger of its multiply-adds over the 67 TFLOP/s f32
-FMA peak and its bytes over 3.35 TB/s), the last line the device summary.
+FMA peak and its bytes over 3.35 TB/s), each also with bf16 products as
+the benches run it (``bf16_*``: phase 15's launches, the bf16 time, plain
+time and error, the bound at the 989 TFLOP/s bf16 peak); the last line
+the device summary.
 Any failed check raises, so the exit code is not 0.
 Without CUDA (or without the package beside it) the script exits with an
 error before printing any result.
@@ -165,6 +183,10 @@ MAX_OUTSIDE = 1e-3        # share of rays/pixels allowed outside the tolerance
 # the bf16 plain version must be at most half its mean error against the f32
 # plain version.  A kernel that skipped the rounding would be closer to f32.
 BF16_CLOSER = 2.0
+# Phase 15: a bf16 result on the card may be at most BF16_RATIO x as far from the CPU's bf16
+# result as that is from the CPU's f32 result, plus BF16_ATOL (tests/test_torch_bench.py's
+# rule against JAX); a gradient or parameter tensor may have BF16_KINKS elements beyond it
+BF16_RATIO, BF16_ATOL, BF16_KINKS = 2.0, 1e-6, 2
 FRAME_ATOL = 1e-3         # end-to-end frame vs plain CPU path: 1/8 of an 8-bit level
 # backward: weight and FiLM grads by max|a-b| / (max|b| + 1) (tests/test_pallas_ray.py);
 # d pts per ray, any element beyond D_PTS_TOL * (max|b| + 1) puts the ray outside
@@ -178,6 +200,7 @@ F64_RATIO = 2.0
 SHIPPED = "shipped: fast_sin, unfused G phase"            # configs/ffhq.yaml's generator
 R256 = "train_r256: freeze_nerf, DiffAug, warmup_d, aux off"   # the r256 stage's settings
 F32_PEAK = 67e12          # FLOP/s, f32 FMA outside the tensor cores (H100 SXM data sheet)
+BF16_PEAK = 989e12        # FLOP/s, dense bf16 on the tensor cores (the same sheet)
 HBM_RATE = 3.35e12        # B/s
 
 
@@ -221,8 +244,8 @@ def compare(name, got, ref, tol, check=True):
 def check_bf16(name, kernel_bf16, plain_bf16, plain_f32, kernel_f32, tol):
     """The bf16 kernel against the bf16 plain version (tolerance, rounding
     check), and the control: the f32 kernel, which skips the bf16 rounding,
-    must fail the same checks."""
-    _, mean_b, _ = compare(name, kernel_bf16, plain_bf16, tol)
+    must fail the same checks.  Returns the bf16 kernel's max abs error."""
+    err_b, mean_b, _ = compare(name, kernel_bf16, plain_bf16, tol)
     mean_f = (kernel_bf16.float() - plain_f32.float()).abs().mean().item()
     log(f"  {name}: mean_abs_err vs the f32 plain version {mean_f:.3e}, "
         f"{mean_f / max(mean_b, 1e-30):.1f}x the bf16 one (need >= {BF16_CLOSER})")
@@ -235,6 +258,7 @@ def check_bf16(name, kernel_bf16, plain_bf16, plain_f32, kernel_f32, tol):
         f"{ctrl_share > MAX_OUTSIDE}, fails the rounding check: {ctrl_b * BF16_CLOSER > ctrl_f}")
     if ctrl_share <= MAX_OUTSIDE and ctrl_b * BF16_CLOSER <= ctrl_f:
         raise AssertionError(f"{name}: the checks do not tell a kernel without bf16 rounding apart")
+    return err_b
 
 
 def grad_err(a, b):
@@ -255,15 +279,41 @@ def rays_outside(a, b, tol):
     return (err > bound).reshape(a.shape[0] * a.shape[1], -1).any(-1).double().mean().item()
 
 
-def bound_ms(flops, nbytes):
+def bound_ms(flops, nbytes, peak=F32_PEAK):
     """The least time on the card: (ms, what bounds it)."""
-    t_ops, t_bytes = flops / F32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_RATE * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def siren_macs(H, L, C, R):
     """Multiply-adds of the FiLM-SIREN per point."""
     return 3 * H + (L - 1) * H * H + H * C + C * R + H
+
+
+def train_bounds(dn):
+    """Bounds of #2r, #3 residual and #3 recompute at the training shapes
+    timed in phases 8 and 15(c) (r64, b = 4, S = 12) with ``dn``
+    ("float32" or "bfloat16") products: the multiply-adds at 2 FLOP each
+    over that dtype's peak; each input read once and each output written
+    once.  With bf16 products the residuals h and hc are bf16 (a and ac stay
+    f32), and so is phase 15(c)'s #2r feature."""
+    b, S, n = 4, 12, 64 * 64
+    H, L, C, R = 128, 2, 64, 32
+    half = dn == "bfloat16"
+    peak = BF16_PEAK if half else F32_PEAK
+    pts = b * n * 2 * S
+    macs = siren_macs(H, L, C, R)
+    in_bytes = 4 * b * n * (S * 3 + 6 + 3 * S + 2 * S) + 4 * macs
+    res_bytes = pts * (L * H + C) * (2 + 4 if half else 8)
+    fwd_out = b * n * (R * (2 if half else 4) + 4)   # feature, depth
+    bwd_in = 4 * b * n * (R + 1)                     # their cotangents
+    grad_bytes = 4 * (macs + L * H + C + R + 1 + b * (2 * L * H + 2 * C) + b * n * S * 3)
+    bwd_macs = pts * 2 * macs - (pts // 2) * 3 * H   # d-weight + d-input; fine points: no d x
+    return {"ray_tile_residuals": bound_ms(2 * pts * macs, in_bytes + res_bytes + fwd_out, peak),
+            "ray_tile_bwd_residual": bound_ms(2 * bwd_macs,
+                                              in_bytes + res_bytes + bwd_in + grad_bytes, peak),
+            "ray_tile_bwd_recompute": bound_ms(2 * (bwd_macs + pts * macs),
+                                               in_bytes + bwd_in + grad_bytes, peak)}
 
 
 def frame_vs_cpu(gen, cpu_gen, dev, label):
@@ -371,7 +421,8 @@ def cuda_ms(fns, reps=15, warmup=2):
 
 def kernel_phase(dev, log):
     """Phase 6: the training kernels against their plain versions at r64,
-    b = 4, S = 12.  Returns the f32 max abs errors of the main-path cases."""
+    b = 4, S = 12.  Returns the max abs errors of the main-path cases: f32
+    under the kernel's name, bf16 under "<name> bfloat16"."""
     import torch
 
     from cips3d_tpu_torch.models.generator import GeneratorConfig, GeneratorNerfINR, RenderOptions
@@ -428,8 +479,8 @@ def kernel_phase(dev, log):
                         if x.dtype != y.dtype or x.shape != y.shape:
                             raise AssertionError(f"2r residual {name}: {x.dtype} {tuple(x.shape)}")
                         compare(f"2r {tag} {dn} {name} (points)", x, y, rtol)
-                    if mm == f32 and noise == 0:
-                        errs["ray_tile_residuals"] = e
+                    if noise == 0:
+                        errs["ray_tile_residuals" + ("" if mm == f32 else " bfloat16")] = e
                     out[mm, "fwd"] = (fa, fb)
                 ga, pa = rt.ray_tile_bwd_cuda(*args, d_fea, d_dep, residuals=res, fast_sin=fs,
                                               mm_dtype=mm)
@@ -456,6 +507,9 @@ def kernel_phase(dev, log):
                     raise AssertionError(f"3 {tag} {dn}: grads outside tolerance")
                 if share > MAX_OUTSIDE and not (wit_share is not None and wit_share >= MAX_OUTSIDE):
                     raise AssertionError(f"3 {tag} {dn}: d_pts rays outside tolerance")
+                if mm == bf16 and noise == 0:
+                    errs[f"ray_tile_bwd_{mode} bfloat16"] = max(
+                        (a - b_).abs().max().item() for a, b_ in zip(ga, gb))
                 if mm == f32:
                     if noise == 0:
                         errs[f"ray_tile_bwd_{mode}"] = max(
@@ -501,12 +555,6 @@ def kernel_phase(dev, log):
     return errs
 
 
-def is_annotation(e):
-    """A `record_function` range (a user annotation), not a kernel."""
-    return bool(getattr(e, "is_user_annotation", False)) or re.match(
-        r"(Optimizer\.\w+#|ProfilerStep#)", e.key) is not None
-
-
 def step_snapshot(state):
     import torch
 
@@ -516,61 +564,32 @@ def step_snapshot(state):
 
 def profile_step(fn, state, real, rng, log, label, smi, phase=8):
     """One more call ``fn(state, real, rng=rng)`` (a step) under
-    `torch.profiler`: the device time by operation, and the device's busy
-    share of the call's host time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    `torch.profiler` (`bench/report.py::profile_call`): the device time by
+    operation, and the device's busy share of the call's host time."""
+    from cips3d_tpu_torch.bench import report
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn(state, real, rng=rng)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(
-        e, "self_cuda_time_total", 0)
-    # the device's own events (kernels, copies, sets): an operator's device time is also
-    # credited to the host-side event that launched it, so those are not summed.  A
-    # record_function range (Optimizer.step#Adam.step) shows on the device timeline as a
-    # user annotation spanning the kernels inside it and the gaps between them: it is
-    # listed apart and not summed either.
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
-    ranges = [e for e in events if is_annotation(e)]
-    kernels = [e for e in events if not is_annotation(e)]
-    busy = sum(dev_us(e) for e in kernels) / 1e3
-    log(f"phase {phase} profile: {label}: {wall:.1f} ms on the host clock (profiled), "
-        f"device busy {busy:.1f} ms = {100 * busy / wall:.1f} %, idle "
-        f"{100 - 100 * busy / wall:.1f} %, {sum(e.count for e in kernels)} device events "
-        f"[{smi}]; device time by kernel:")
-    for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
-        log(f"    {dev_us(e) / 1e3:8.2f} ms {e.count:5d} x {e.key[:90]}")
+    p = report.profile_call(lambda: fn(state, real, rng=rng))
+    log(f"phase {phase} profile: {label}: {p['wall_ms']:.1f} ms on the host clock (profiled), "
+        f"device busy {p['busy_ms']:.1f} ms = {100 - p['idle_pct']:.1f} %, idle "
+        f"{p['idle_pct']:.1f} %, {p['device_events']} device events [{smi}]; device time by "
+        f"kernel:")
+    for ms, count, key in p["top"]:
+        log(f"    {ms:8.2f} ms {count:5d} x {key[:90]}")
     log("  record_function ranges on the device timeline (spans, not summed): " + (", ".join(
-        f"{e.key[:60]} {dev_us(e) / 1e3:.2f} ms over {e.count}" for e in ranges) or "none"))
-
-
-# each kernel's launch counter: (wrapper, attribute, the name the checks use)
-KERNEL_COUNTERS = (("ray_tile_cuda", "launches", "ray_tile"),
-                   ("ray_tile_cuda", "residual_launches", "ray_tile_residuals"),
-                   ("ray_tile_bwd_cuda", "launches", "ray_tile_bwd_recompute"),
-                   ("ray_tile_bwd_cuda", "residual_launches", "ray_tile_bwd_residual"),
-                   ("inr_tile_cuda", "launches", "inr_tile"))
-
-
-def _wrapper(name):
-    from cips3d_tpu_torch.ops import inr_tile, ray_tile
-
-    return getattr(inr_tile if name.startswith("inr") else ray_tile, name)
+        f"{key[:60]} {ms:.2f} ms over {count}" for key, ms, count in p["ranges"]) or "none"))
 
 
 def kernel_counts():
     """Every kernel's launch count since the counters were last zeroed."""
-    return {name: getattr(_wrapper(w), a) for w, a, name in KERNEL_COUNTERS}
+    from cips3d_tpu_torch.ops import build
+
+    return {name: build.launches(name) for name in build.KERNELS}
 
 
 def zero_kernel_counts():
-    for w, a, _ in KERNEL_COUNTERS:
-        setattr(_wrapper(w), a, 0)
+    from cips3d_tpu_torch.ops import build
+
+    build.reset_launches()
 
 
 def train_run(dev, cfg_g, steps, log, label="", smi="", tcfg=None, disc_kwargs=None,
@@ -817,8 +836,8 @@ def step_vs_cpu(dev, log, noise, cfg=None, label="exact sine, residual backward"
 
 
 def training_phases(dev, smi, log):
-    """Phases 6-8; returns the summary entries of the training kernels and
-    the median step ms of each r64 config."""
+    """Phases 6-8; returns the median step ms of each r64 config, phase 6's
+    max abs errors and the summary entries of the training kernels."""
     import torch
 
     from cips3d_tpu_torch.models.generator import GeneratorConfig, GeneratorNerfINR, RenderOptions
@@ -933,32 +952,23 @@ def training_phases(dev, smi, log):
         log(f"phase 8 time: {name} r64 b=4 S=12 noise 0.5 f32: kernel {kern:.3f} ms, plain "
             f"{plain:.3f} ms [{smi}]; {resources_line(key, occ, ptxas)}")
     log(f"phase 8 done in {time.perf_counter() - t0:.1f} s (step times in phase 7)")
-    # bounds: multiply-adds at 2 FLOP each over the f32 FMA peak; bytes read once, written once
-    pts = b * n * 2 * S
-    macs = siren_macs(H, L, C, R)
-    in_bytes = 4 * b * n * (S * 3 + 6 + 3 * S + 2 * S) + 4 * macs
-    res_bytes = pts * 4 * (2 * L * H + 2 * C)
-    grad_bytes = 4 * (macs + L * H + C + R + 1 + b * (2 * L * H + 2 * C) + b * n * S * 3)
-    bwd_macs = pts * 2 * macs - (pts // 2) * 3 * H   # d-weight + d-input; fine points: no d x
-    b2r = bound_ms(2 * pts * macs, in_bytes + res_bytes + 4 * b * n * (R + 1))
-    b3s = bound_ms(2 * bwd_macs, in_bytes + res_bytes + 4 * b * n * (R + 1) + grad_bytes)
-    b3c = bound_ms(2 * (bwd_macs + pts * macs), in_bytes + 4 * b * n * (R + 1) + grad_bytes)
+    bnd = train_bounds("float32")
 
     def entry(name, source, replaces, count, err, t, bnd):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": count, "max_abs_err": err, "ms": t[1], "plain_ms": t[0],
                 "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
 
-    return step_ms, [
+    return step_ms, errs, [
         entry("ray_tile_residuals", "cips3d_tpu_torch/csrc/ray_tile.cu",
               "cips3d_tpu/ops/pallas/ray_tile.py:207", launches["ray_tile_residuals"],
-              errs["ray_tile_residuals"], t_res, b2r),
+              errs["ray_tile_residuals"], t_res, bnd["ray_tile_residuals"]),
         entry("ray_tile_bwd_residual", "cips3d_tpu_torch/csrc/ray_tile_bwd.cu",
               "cips3d_tpu/ops/pallas/ray_tile.py:421", launches["ray_tile_bwd_residual"],
-              errs["ray_tile_bwd_residual"], t_bres, b3s),
+              errs["ray_tile_bwd_residual"], t_bres, bnd["ray_tile_bwd_residual"]),
         entry("ray_tile_bwd_recompute", "cips3d_tpu_torch/csrc/ray_tile_bwd.cu",
               "cips3d_tpu/ops/pallas/ray_tile.py:421", launches["ray_tile_bwd_recompute"],
-              errs["ray_tile_bwd_recompute"], t_brec, b3c),
+              errs["ray_tile_bwd_recompute"], t_brec, bnd["ray_tile_bwd_recompute"]),
     ]
 
 
@@ -974,7 +984,7 @@ def cli_phase(log, tmp, data):
 
     from cips3d_tpu_torch.apps.serve import RenderService
     from cips3d_tpu_torch.eval.cli import load_generator, serving_config
-    from cips3d_tpu_torch.ops import inr_tile, ray_tile
+    from cips3d_tpu_torch.ops import build
 
     root = os.path.dirname(os.path.abspath(__file__))
     for command, extra in (("train_r32", []),
@@ -1013,10 +1023,9 @@ def cli_phase(log, tmp, data):
             raise AssertionError(f"{command}: missing {missing}")
     gen = load_generator(os.path.join(tmp, "train_r64", "ckptdir", "best_fid"),
                          serving_config(), "G_ema", device="cuda")
-    ray_tile.ray_tile_cuda.launches = 0
-    inr_tile.inr_tile_cuda.launches = 0
+    zero_kernel_counts()
     frame = RenderService(gen, img_size=64, num_steps=12).frame(seed=0)
-    counts = (ray_tile.ray_tile_cuda.launches, inr_tile.inr_tile_cuda.launches)
+    counts = (build.launches("ray_tile"), build.launches("inr_tile"))
     log(f"  r64 G_ema served: frame {frame.shape} {frame.dtype}, std {frame.std():.2f}; "
         f"launches ray_tile {counts[0]}, inr_tile {counts[1]}")
     if frame.shape != (64, 64, 3) or frame.dtype != np.uint8 or frame.std() == 0 \
@@ -1497,7 +1506,7 @@ def apps_phase(dev, smi, log, tmp, data, gen, cpu_gen):
                                                    RenderOptions, sample_zs)
     from cips3d_tpu_torch.ops import ray_tile
 
-    counts = {name: 0 for _, _, name in KERNEL_COUNTERS}
+    counts = {name: 0 for name in kernel_counts()}
 
     def add(c):
         for k, v in c.items():
@@ -2356,6 +2365,352 @@ def checkpoint_phase(dev, smi, log, tmp, gen):
     return launches
 
 
+# ---- phase 15: the benches and the bf16 path they drive -----------------------
+
+def bf16_counts(before=None):
+    """The kernels' launches by product dtype (`bench/report.py`), less
+    ``before``."""
+    from cips3d_tpu_torch.bench import report
+
+    return report.launch_counts() if before is None else report.launches_since(before)
+
+
+def bf16_run_step(gen, disc, cfg, dtype, dev, tcfg, draws, real):
+    """One step of fresh ``dtype`` modules holding ``gen``'s and ``disc``'s
+    weights on ``dev``: (metrics, [D grads, G grads] clipped, [D params, G
+    params] after Adam, seconds), all on the CPU."""
+    import torch
+
+    import cips3d_tpu_torch.train.step as step_mod
+    from cips3d_tpu_torch.models.discriminator import DiscriminatorMultiScaleAux
+    from cips3d_tpu_torch.models.generator import GeneratorNerfINR, RenderOptions
+    from cips3d_tpu_torch.train.step import init_train_state, make_train_step
+
+    g_m = GeneratorNerfINR(cfg, dtype=dtype)
+    g_m.load_state_dict(gen.state_dict())
+    d_m = DiscriminatorMultiScaleAux(max_size=1024, dtype=dtype)
+    d_m.load_state_dict(disc.state_dict())
+    g_m, d_m = g_m.to(dev), d_m.to(dev)
+    state = init_train_state(g_m, d_m, tcfg)
+    clip, seen = step_mod.clip_and_guard, []
+
+    def recording(grads, max_norm):
+        out = clip(grads, max_norm)
+        seen.append([x.detach().cpu() for x in out[0]])
+        return out
+
+    step_mod.clip_and_guard = recording
+    try:
+        fn = make_train_step(g_m, d_m, tcfg, RenderOptions(), aux_reg=True)
+        t0 = time.perf_counter()
+        _, m = fn(state, real.to(dev), draws=to_device(draws, dev))
+        secs = time.perf_counter() - t0
+    finally:
+        step_mod.clip_and_guard = clip
+    params = [[p.detach().cpu() for p in mod.parameters()] for mod in (d_m, g_m)]
+    return m, seen, params, secs
+
+
+def bf16_grad_outliers(got, ref, ref32):
+    """Elements of a gradient beyond BF16_RATIO x the witness's normalised
+    error (ref against ref32), as `tests/test_torch_bench.py` counts them;
+    and the distance and witness."""
+    got, ref, ref32 = (x.double() for x in (got, ref, ref32))
+    w = ((ref - ref32).abs().max() / (ref32.abs().max() + 1)).item()
+    err = (got - ref).abs() / (ref.abs().max() + 1)
+    return int((err > BF16_RATIO * w + BF16_ATOL).sum()), err.max().item(), w
+
+
+def bf16_step_vs_cpu(dev, log, cfg, label):
+    """Phase 15(a): one r32, b = 2 step at full width without density noise
+    in bf16 on the card against the same bf16 step on the CPU (the plain
+    versions), from the same weights, draws and reals, with the CPU's f32
+    step (phase 7's) as the witness, by the rules of tests/test_torch_bench.py:
+    losses within BF16_RATIO x the witness (abs); each clipped gradient's
+    normalised error within BF16_RATIO x its witness on all but
+    max(BF16_KINKS, 2 %) of its elements; after Adam, the parameters further
+    than 2e-2 lr from the CPU bf16 step (or the CPU f32 step) at most
+    BF16_RATIO x as many as the CPU bf16 step has from its f32 step, plus
+    BF16_KINKS.  Returns the launches by product dtype on the card."""
+    import torch
+
+    from cips3d_tpu_torch.models.discriminator import DiscriminatorMultiScaleAux
+    from cips3d_tpu_torch.models.generator import GeneratorNerfINR, RenderOptions
+    from cips3d_tpu_torch.train.state import TrainConfig
+    from cips3d_tpu_torch.train.step import draw_step
+
+    b, img = 2, 32
+    tcfg = TrainConfig(img_size=img, batch_size=b, ema_start_itr=0, nerf_noise_disable=True)
+    gen = GeneratorNerfINR(cfg, generator=torch.Generator().manual_seed(51))
+    disc = DiscriminatorMultiScaleAux(max_size=1024, generator=torch.Generator().manual_seed(52))
+    gc = torch.Generator().manual_seed(50)
+    draws = draw_step(cfg, False, tcfg, RenderOptions(img_size=img, nerf_noise=0.0), True, None,
+                      b, gc, "cpu")
+    real = torch.rand((b, 3, img, img), generator=gc) * 2 - 1
+    cpu = torch.device("cpu")
+    runs = {"cpu32": bf16_run_step(gen, disc, cfg, torch.float32, cpu, tcfg, draws, real),
+            "cpu16": bf16_run_step(gen, disc, cfg, torch.bfloat16, cpu, tcfg, draws, real)}
+    before = bf16_counts()
+    runs["card16"] = bf16_run_step(gen, disc, cfg, torch.bfloat16, dev, tcfg, draws, real)
+    launches = bf16_counts(before)
+    (m32, g32, p32, s32), (m16, g16, p16, s16), (mc, gcard, pc, sc) = (
+        runs[k] for k in ("cpu32", "cpu16", "card16"))
+    losses = {k: (abs(mc[k] - m16[k]), abs(m16[k] - m32[k]))
+              for k in ("d_loss", "g_loss", "grad_penalty")}
+    bad = [k for k, (d, w) in losses.items() if d > BF16_RATIO * w + BF16_ATOL]
+    names = [[n for n, _ in DiscriminatorMultiScaleAux(max_size=1024).named_parameters()],
+             [n for n, _ in gen.named_parameters()]]
+    worst, grad_fail = [], []
+    for phase in (0, 1):
+        for n, a, r, r32 in zip(names[phase], gcard[phase], g16[phase], g32[phase]):
+            k, d, w = bf16_grad_outliers(a, r, r32)
+            worst.append((d / max(w, 1e-12), n, d, w, k))
+            if k > max(BF16_KINKS, 0.02 * a.numel()):
+                grad_fail.append(n)
+    param_fail, moved_total = [], [0, 0]
+    for phase, lr in ((0, tcfg.disc_lr), (1, tcfg.gen_lr)):
+        for n, a, r, r32 in zip(names[phase], pc[phase], p16[phase], p32[phase]):
+            def moved(x, y):
+                return int(((x.double() - y.double()).abs() > 2e-2 * lr).sum())
+
+            d, w = min(moved(a, r), moved(a, r32)), moved(r, r32)
+            moved_total[0] += d
+            moved_total[1] += w
+            if d > BF16_RATIO * w + BF16_KINKS:
+                param_fail.append(f"{n} ({d} vs {w})")
+    worst.sort(reverse=True)
+    log(f"phase 15 bf16 step r{img} b={b} {label}, no noise, card vs CPU (witness: the CPU "
+        f"bf16 step vs its f32 step): losses " + ", ".join(
+            f"{k} {d:.2e} (witness {w:.2e})" for k, (d, w) in losses.items())
+        + "; largest grad error over witness: " + ", ".join(
+            f"{n} {d:.1e}/{w:.1e} ({k} beyond)" for _, n, d, w, k in worst[:3])
+        + f"; parameters moved otherwise after Adam {moved_total[0]} (witness "
+        f"{moved_total[1]}); steps: CPU f32 {s32:.1f} s, CPU bf16 {s16:.1f} s, card {sc:.2f} s; "
+        f"card launches {launches}")
+    if bad or grad_fail or param_fail:
+        raise AssertionError(f"bf16 step {label}: the card disagrees with the CPU beyond the "
+                             f"witness: losses {bad}, grads {grad_fail[:5]}, params "
+                             f"{param_fail[:5]}")
+    return launches
+
+
+def bf16_frame_vs_cpu(gen, dev, log):
+    """Phase 15(a): an r64 x 12 frame of the bf16 serving generator (both
+    kernels, fast_sin; ``gen``'s weights) on the card against the same bf16
+    frame on the CPU: the image's max abs error within BF16_RATIO x the
+    witness (the CPU's bf16 frame against its f32 frame), and the share of
+    depth pixels outside the bf16 tolerance within BF16_RATIO x the
+    witness's share (at least MAX_OUTSIDE).  Returns the launches by product
+    dtype."""
+    import torch
+
+    from cips3d_tpu_torch.apps.render import render_chunked
+    from cips3d_tpu_torch.models.generator import GeneratorNerfINR, RenderOptions, sample_zs
+    from cips3d_tpu_torch.ops import ray_tile
+
+    gc = torch.Generator().manual_seed(55)
+    zs = sample_zs(1, gen.cfg, gc)
+    opts = RenderOptions(img_size=64, num_steps=12, h_stddev=0.0, v_stddev=0.0)
+    pos = torch.tensor([[0.2, 0.15, 0.968]])
+    pos = pos / pos.norm()
+    uniform = torch.rand((1, 64 * 64, 12, 1), generator=gc)
+    draws = ray_tile.draw_ray_randoms(1, 64 * 64, 12, False, gc, "cpu")
+    out, launches = {}, None
+    for name, dtype, d in (("cpu32", torch.float32, "cpu"), ("cpu16", torch.bfloat16, "cpu"),
+                           ("card16", torch.bfloat16, dev)):
+        g_m = GeneratorNerfINR(gen.cfg, dtype=dtype)
+        g_m.load_state_dict(gen.state_dict())
+        g_m = g_m.to(d).eval()
+        before = bf16_counts()
+        with torch.no_grad():
+            st = g_m.mapping(zs["z_nerf"].to(d), zs["z_inr"].to(d))
+            img, dep = render_chunked(g_m, st, opts, None, 64 * 64, pos.to(d), -pos.to(d),
+                                      return_depth=True, perturb_uniform=uniform.to(d),
+                                      chunk_draws=[ray_tile.RayDraws(*(t.to(d) for t in draws))])
+        if name == "card16":
+            launches = bf16_counts(before)
+        out[name] = (img.float().cpu(), dep.float().cpu())
+    (img16, dep16), (img32, dep32), (imgc, depc) = (out[k] for k in ("cpu16", "cpu32", "card16"))
+    d = (imgc - img16).abs().max().item()
+    w = (img16 - img32).abs().max().item()
+    lim = BF16_RATIO * w + BF16_ATOL
+    # depth, by the share of pixels outside the bf16 tolerance, as phase 3 holds it: a ray whose
+    # depth-last density sits within a rounding of 0 moves its depth by up to the ray's length
+    # (its 1e10 delta), so the bound is BF16_RATIO x the share the CPU's bf16 frame has outside
+    # against its f32 frame, and never less than MAX_OUTSIDE
+    tol = TOL["ray_tile", "bfloat16"]
+    out_c = outside(depc.reshape(-1, 1), dep16.reshape(-1, 1), tol)
+    out_w = outside(dep16.reshape(-1, 1), dep32.reshape(-1, 1), tol)
+    share, wit = out_c.float().mean().item(), out_w.float().mean().item()
+    lim_d = max(MAX_OUTSIDE, BF16_RATIO * wit)
+    log(f"phase 15 bf16 frame r64 x12 (serving config, both kernels), card vs CPU (witness: "
+        f"CPU bf16 vs f32): image max_abs_err {d:.3e} (witness {w:.3e}, limit {lim:.3e}); depth "
+        f"max_abs_err {(depc - dep16).abs().max().item():.3e}, pixels outside rtol "
+        f"{tol['rtol']} atol {tol['atol']}: {share:.2e} (witness {wit:.2e}, limit {lim_d:.2e}; "
+        f"{int((out_c & ~out_w).sum())} of them where the witness is inside); card launches "
+        f"{launches}")
+    if d > lim or share > lim_d:
+        raise AssertionError("bf16 frame: the card disagrees with the CPU beyond the witness "
+                             "(image) or the bf16 tolerance (depth)")
+    if set(launches) != {"ray_tile", "inr_tile"} or any(
+            set(v) != {"bfloat16"} for v in launches.values()):
+        raise AssertionError(f"bf16 frame: #1 and #2 not launched with bf16 products only: "
+                             f"{launches}")
+    return launches
+
+
+# which kernels each bench leg must launch, all with bf16 products only
+BENCH_LEGS = {
+    ("train", "shipped"): ("ray_tile", "inr_tile"),
+    ("train", "exact_sin"): ("ray_tile", "inr_tile", "ray_tile_residuals",
+                             "ray_tile_bwd_residual"),
+    ("train", "loader"): ("ray_tile", "inr_tile"),
+    ("inference", "fused"): ("ray_tile", "inr_tile"),
+    ("inference", "plain"): (),
+}
+INR_BF16_SYMBOL = re.compile(r"inr_tile_kernel(I13__nv_bfloat16E|<__nv_bfloat16>)")
+
+
+def bench_run(module, args, env, log, smi, timeout):
+    """``python -m cips3d_tpu_torch.bench.<module>`` in a subprocess with
+    ``--report``; returns (its JSON line, its report, seconds)."""
+    import os
+
+    report = os.path.join(env["CHIP_SMOKE_TMP"], f"bench_{module}.json")
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", f"cips3d_tpu_torch.bench.{module}", *args,
+                        "--report", report], capture_output=True, text=True, timeout=timeout,
+                       env=env, cwd=os.path.dirname(os.path.abspath(__file__)))
+    secs = time.perf_counter() - t0
+    for line in p.stderr.strip().splitlines()[-14:]:
+        log(f"    {line}")
+    if p.returncode != 0:
+        raise AssertionError(f"bench.{module} exited {p.returncode}: {p.stderr[-3000:]}")
+    lines = [ln for ln in p.stdout.strip().splitlines() if ln.startswith("{")]
+    if len(lines) != 1:
+        raise AssertionError(f"bench.{module}: want one JSON line, got {p.stdout!r}")
+    log(f"phase 15 bench.{module}: exit 0 in {secs:.1f} s: {lines[0]} [{smi}]")
+    with open(report) as f:
+        return json.loads(lines[0]), json.load(f), secs
+
+
+def bench_phase(dev, smi, log, tmp, gen):
+    """Phase 15: (a) the bf16 step of each bench leg and a bf16 frame on the
+    card against the CPU; (b) both benches at their default sizes in
+    subprocesses, their JSON lines and, per leg, the kernels' launches by
+    product dtype, #1's bf16 symbol and the device's idle share of one
+    profiled step or call; (c) #2r and #3 with bf16 products and their
+    plain versions timed (phase 6 holds them against each other).  Returns
+    the launches of each kernel (all bf16) and the times of (c), (plain ms,
+    kernel ms) by kernel, for the summary line."""
+    import os
+
+    import torch
+
+    from cips3d_tpu_torch.models.generator import GeneratorConfig, GeneratorNerfINR, RenderOptions
+    from cips3d_tpu_torch.models.generator import sample_zs
+    from cips3d_tpu_torch.ops import ray_tile as rt
+
+    totals = {}
+
+    def add(counts):
+        for k, by in counts.items():
+            totals[k] = totals.get(k, 0) + sum(by.values())
+
+    t1 = time.perf_counter()
+    legs = {"shipped": GeneratorConfig(fast_sin=True, fused_ray=False),
+            "exact_sin": GeneratorConfig(fast_sin=False, fused_ray=True,
+                                         fused_ray_vjp="pallas_residual")}
+    for label, cfg in legs.items():
+        counts = bf16_step_vs_cpu(dev, log, cfg, label)
+        need = BENCH_LEGS["train", label]
+        if set(counts) != set(need) or any(set(v) != {"bfloat16"} for v in counts.values()):
+            raise AssertionError(f"bf16 step {label}: want {need} with bf16 products, got "
+                                 f"{counts}")
+        add(counts)
+    add(bf16_frame_vs_cpu(gen, dev, log))
+    log(f"phase 15(a) done in {time.perf_counter() - t1:.1f} s")
+
+    # ---- (b) the benches as a user runs them
+    env = dict(os.environ, CIPS3D_BENCH_DATA=os.path.join(tmp, "bench", "blobs_64.zip"),
+               CHIP_SMOKE_TMP=tmp)
+    for k in ("BENCH_FAST_SIN", "BENCH_FUSED", "BENCH_VJP", "BENCH_DPHASE", "BENCH_DPHASE_INR",
+              "BENCH_BATCH", "BENCH_FUSED_INR"):
+        env.pop(k, None)
+    train_line, train_rep, _ = bench_run("train", [], env, log, smi, 900)
+    inf_line, inf_rep, _ = bench_run("inference", [], dict(env, BENCH_AB="1"), log, smi, 600)
+    for line, keys, metric in (
+            (train_line, ("exact_sin_imgs_per_sec", "loader_imgs_per_sec"),
+             "train_imgs_per_sec_per_chip_r64"),
+            (inf_line, ("xla_fps",), "novel_view_fps_per_chip_r256")):
+        if line.get("metric") != metric or line.get("unit") not in ("imgs/s", "fps"):
+            raise AssertionError(f"bench line {line}: want metric {metric}")
+        for k in ("value", "vs_baseline") + keys:
+            if not (isinstance(line.get(k), (int, float)) and math.isfinite(line[k])
+                    and line[k] > 0):
+                raise AssertionError(f"bench line {line}: {k} is not a finite positive number")
+    for (bench, leg), need in BENCH_LEGS.items():
+        rep = (train_rep if bench == "train" else inf_rep)[leg]
+        counts = rep["launches"]
+        add(counts)
+        prof = rep.get("profile")
+        idle = (f"; one profiled {'step' if bench == 'train' else 'call'}: {prof['wall_ms']:.1f} "
+                f"ms host clock, device busy {prof['busy_ms']:.1f} ms, idle "
+                f"{prof['idle_pct']:.1f} %, {prof['device_events']} device events; the port's "
+                f"kernels: {prof['kernels']}" if prof else "")
+        rates = rep.get("rates")
+        log(f"phase 15 bench.{bench} {leg}: launches by product dtype {counts}"
+            + (f"; per-call rates {[round(r, 2) for r in rates]} (over all calls "
+               f"{rep['value']:.2f}, median {rep['median']:.2f})" if rates else "")
+            + idle + f" [{smi}]")
+        if set(counts) != set(need) or any(set(v) != {"bfloat16"} for v in counts.values()):
+            raise AssertionError(f"bench.{bench} {leg}: want {need} launched with bf16 products "
+                                 f"only, got {counts}")
+        if "inr_tile" in need and prof is not None and not any(
+                INR_BF16_SYMBOL.search(k) for k in prof["kernels"]):
+            raise AssertionError(f"bench.{bench} {leg}: #1's bf16 instantiation is not in the "
+                                 f"profile: {prof['kernels']}")
+    log(f"phase 15(b) done in {time.perf_counter() - t1:.1f} s")
+
+    # ---- (c) #2r and #3 with bf16 products at the bench's G-phase shapes
+    b, S, n, R = 4, 12, 64 * 64, 32
+    g_m = GeneratorNerfINR(GeneratorConfig(fused_ray=True),
+                           generator=torch.Generator().manual_seed(40)).to(dev)
+    g = torch.Generator(dev).manual_seed(41)
+    bf16 = dict(mm_dtype=torch.bfloat16)
+    with torch.no_grad():
+        zs = sample_zs(b, g_m.cfg, g, device=dev)
+        wt = rt.flat_weights(g_m.siren, g_m.mapping(zs["z_nerf"], zs["z_inr"]))
+        world = g_m.sample_world(b, RenderOptions(img_size=64, num_steps=S), g)
+        args = (wt, world.points, world.origins, world.dirs, world.z_vals[..., 0],
+                *rt.draw_ray_randoms(b, n, S, True, g, dev), 0.5)
+        d_fea = torch.randn((b, n, R), generator=g, device=dev)
+        d_dep = torch.randn((b, n, 1), generator=g, device=dev)
+        res = rt.ray_tile_cuda(*args, with_residuals=True, out_dtype=torch.bfloat16, **bf16)[2]
+        times = {
+            "ray_tile_residuals": cuda_ms(
+                [lambda: rt.ray_tile_plain(*args, with_residuals=True, out_dtype=torch.bfloat16,
+                                           **bf16),
+                 lambda: rt.ray_tile_cuda(*args, with_residuals=True, out_dtype=torch.bfloat16,
+                                          **bf16)], reps=10),
+            "ray_tile_bwd_residual": cuda_ms(
+                [lambda: rt.ray_tile_bwd_plain(*args, d_fea, d_dep, residuals=res, **bf16),
+                 lambda: rt.ray_tile_bwd_cuda(*args, d_fea, d_dep, residuals=res, **bf16)],
+                reps=10),
+            "ray_tile_bwd_recompute": cuda_ms(
+                [lambda: rt.ray_tile_bwd_plain(*args, d_fea, d_dep, fast_sin=True, **bf16),
+                 lambda: rt.ray_tile_bwd_cuda(*args, d_fea, d_dep, fast_sin=True, **bf16)],
+                reps=10)}
+    bounds = train_bounds("bfloat16")
+    for key, name in (("ray_tile_residuals", "2r ray tile with residuals"),
+                      ("ray_tile_bwd_residual", "3 backward, residual mode"),
+                      ("ray_tile_bwd_recompute", "3 backward, recompute mode (fast_sin)")):
+        plain, kern = times[key]
+        log(f"phase 15 time: #{name} r64 b=4 S=12 noise 0.5 bf16 products: kernel {kern:.3f} ms, "
+            f"plain {plain:.3f} ms, bound {bounds[key][0]:.4f} ms ({bounds[key][1]}) [{smi}]")
+    return totals, times
+
+
 def main():
     import torch
 
@@ -2369,6 +2724,8 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products accumulate in f32 (phase 15), as flax's bf16 compute does
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda")
     smi = nvidia_smi()
     log(f"phase 1 device: {smi} | torch {torch.__version__} cuda {torch.version.cuda} "
@@ -2447,8 +2804,10 @@ def main():
                     plain = {mm: ray_tile.ray_tile_plain(*args, fast_sin=fs, mm_dtype=mm, out_dtype=bf16)
                              for mm in (f32, bf16)}
                     for i, part in ((0, "feature"), (1, "depth")):
-                        check_bf16(f"{tag} bfloat16 {part}", outs[bf16][i], plain[bf16][i],
-                                   plain[f32][i], outs[f32][i], TOL["ray_tile", "bfloat16"])
+                        e = check_bf16(f"{tag} bfloat16 {part}", outs[bf16][i], plain[bf16][i],
+                                       plain[f32][i], outs[f32][i], TOL["ray_tile", "bfloat16"])
+                        if S == SERVING_STEPS and noise == 0 and i == 0:
+                            err_at_main["ray_tile bfloat16"] = e
         world, st = world_and_styles(2, 64, 12)      # two samples: b = 2, 4096 pixels
         fea, _ = ray_tile.ray_tile_cuda(ray_tile.flat_weights(gen.siren, st), world.points,
                                         world.origins, world.dirs, world.z_vals[..., 0],
@@ -2471,8 +2830,10 @@ def main():
                 e, _, _ = compare(tag + " float32", outs[f32], plain[f32], TOL[case, "float32"])
                 if b == 1 and rgb_scale == 1:   # the served shape: one batch row
                     err_at_main["inr_tile"] = e
-                check_bf16(tag + " bfloat16", outs[bf16], plain[bf16], plain[f32], outs[f32],
-                           TOL[case, "bfloat16"])
+                e = check_bf16(tag + " bfloat16", outs[bf16], plain[bf16], plain[f32], outs[f32],
+                               TOL[case, "bfloat16"])
+                if b == 1 and rgb_scale == 1:
+                    err_at_main["inr_tile bfloat16"] = e
 
     log(f"phase 3 done in {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
@@ -2480,8 +2841,7 @@ def main():
     # ---- phase 4: the serving path ----------------------------------------
     service = RenderService(gen, img_size=128, num_steps=SERVING_STEPS)
     service_r256 = RenderService(gen, img_size=256, num_steps=12)
-    ray_tile.ray_tile_cuda.launches = 0
-    inr_tile.inr_tile_cuda.launches = 0
+    zero_kernel_counts()
     frames = [service.frame(seed=0), service.frame(seed=1),
               service.frame(seed=0, yaw=math.pi / 2 - 0.3),
               service.frame(seed=0, yaw=math.pi / 2 + 0.3),
@@ -2506,8 +2866,7 @@ def main():
         httpd.server_close()
         th.join(timeout=30)
     torch.cuda.synchronize()
-    launches = {"ray_tile": ray_tile.ray_tile_cuda.launches,
-                "inr_tile": inr_tile.inr_tile_cuda.launches}
+    launches = {k: build.launches(k) for k in ("ray_tile", "inr_tile")}
     import numpy as np
 
     for i, f in enumerate(frames):
@@ -2595,14 +2954,15 @@ def main():
     n5, H, L, C, R = 128 * 128, 128, 2, 64, 32
     macs = siren_macs(H, L, C, R)
     fwd_in_bytes = 4 * n5 * (SERVING_STEPS * 3 + 6 + 3 * SERVING_STEPS + 2 * SERVING_STEPS)
-    serve_bounds = {
+    # (the bf16 calls take and give the same f32 tensors: the same bytes, the bf16 peak)
+    serve_bounds, serve_bounds_bf16 = ({
         "ray_tile": bound_ms(2 * n5 * 2 * SERVING_STEPS * macs,
-                             fwd_in_bytes + 4 * macs + 4 * n5 * (R + 1)),
+                             fwd_in_bytes + 4 * macs + 4 * n5 * (R + 1), peak),
         "inr_tile": bound_ms(2 * n5 * (32 * 512 + 17 * 512 * 512 + 6 * 512 * 3),
-                             4 * n5 * (32 + 3) + 4 * (32 * 512 + 17 * 512 * 512)),
-    }
+                             4 * n5 * (32 + 3) + 4 * (32 * 512 + 17 * 512 * 512), peak),
+    } for peak in (F32_PEAK, BF16_PEAK))
 
-    step_ms, train = training_phases(dev, smi, log)
+    step_ms, train_errs, train = training_phases(dev, smi, log)
 
     import os
     import shutil
@@ -2632,16 +2992,20 @@ def main():
         t_phase = time.perf_counter()
         ckpt_counts = checkpoint_phase(dev, smi, log, tmp, gen)
         log(f"phase 14 done in {time.perf_counter() - t_phase:.1f} s [{smi}]")
+        t_phase = time.perf_counter()
+        bench_counts, bf16_times = bench_phase(dev, smi, log, tmp, gen)
+        log(f"phase 15 done in {time.perf_counter() - t_phase:.1f} s [{smi}]")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     # launches on the main paths: serving (phase 4), training (phase 7), apps (phase 11),
     # training from the dataset tool's zip (phase 12), training on several processes (13),
-    # a loaded reference checkpoint served (14)
+    # a loaded reference checkpoint served (14), the bf16 step, frame and benches (15)
     for k in ("ray_tile", "inr_tile"):
-        launches[k] += apps[k] + data_counts[k] + dist_counts[k] + ckpt_counts[k]
+        launches[k] += (apps[k] + data_counts[k] + dist_counts[k] + ckpt_counts[k]
+                        + bench_counts.get(k, 0))
     for e in train:
-        e["launches"] += apps[e["name"]]
+        e["launches"] += apps[e["name"]] + bench_counts.get(e["name"], 0)
     kernels = [
         {"name": "ray_tile", "route": "cuda", "source": "cips3d_tpu_torch/csrc/ray_tile.cu",
          "replaces": "cips3d_tpu/ops/pallas/ray_tile.py:137", "launches": launches["ray_tile"],
@@ -2654,6 +3018,19 @@ def main():
          "plain_ms": timings["inr_tile float32"][0], "bound_ms": serve_bounds["inr_tile"][0],
          "bound_by": serve_bounds["inr_tile"][1], "library_ms": None},
     ] + train
+    # each kernel with bf16 products, as the benches launch it (phase 15, all bf16): its
+    # time and plain time at the row's shapes (phase 5 for #1 and #2, phase 15(c) for #2r
+    # and #3), its max abs error there against the bf16 plain version (phases 3 and 6) and
+    # its bound at the bf16 peak
+    bf16_t = dict(bf16_times, ray_tile=timings["ray_tile bfloat16"],
+                  inr_tile=timings["inr_tile bfloat16"])
+    bf16_err = dict(train_errs, **err_at_main)
+    bf16_bounds = dict(train_bounds("bfloat16"), **serve_bounds_bf16)
+    for e in kernels:
+        k = e["name"]
+        e.update(bf16_launches=bench_counts.get(k, 0), bf16_ms=bf16_t[k][1],
+                 bf16_plain_ms=bf16_t[k][0], bf16_max_abs_err=bf16_err[k + " bfloat16"],
+                 bf16_bound_ms=bf16_bounds[k][0], bf16_bound_by=bf16_bounds[k][1])
     log(nvidia_smi())   # the card's name and power limit, as nvidia-smi prints them
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -45,6 +45,19 @@ class PixelNorm(nn.Module):
         return x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + 1e-8)
 
 
+class LayerNormTorch(nn.LayerNorm):
+    """LayerNorm with torch's defaults (eps 1e-5, affine, f32 parameters)
+    over the last axis, computed in f32 and returned in the input's dtype,
+    as flax's ``LayerNorm(dtype=x.dtype)`` of the JAX layer does."""
+
+    def __init__(self, dim: int):
+        super().__init__(dim, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias,
+                            self.eps).to(x.dtype)
+
+
 def uniform_box_warp(coords: torch.Tensor, sidelength: float = 0.24) -> torch.Tensor:
     """Scale xyz into the SIREN's input box."""
     return coords * (2.0 / sidelength)
@@ -114,7 +127,8 @@ class SinStyleMod(nn.Module):
         s = self.modulation(style) + 1.0
         w = self.weight[0].to(self.dtype)
         out = (x.to(self.dtype) * s[:, None, :]) @ w
-        demod = torch.rsqrt((s.float() ** 2) @ (w.float() ** 2) + self.EPS)
+        # squares in the compute dtype, their products summed in f32 (the JAX layer's casts)
+        demod = torch.rsqrt((s ** 2).float() @ (w ** 2).float() + self.EPS)
         out = out * demod[:, None, :].to(self.dtype)
         return out[:, 0] if squeeze else out
 

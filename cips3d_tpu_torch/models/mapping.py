@@ -3,7 +3,9 @@
 
 PixelNorm → ``base_layers`` x [Linear(kaiming-leaky) (+LayerNorm if
 add_norm) → LeakyReLU(0.2)], where the last base layer gets neither, then a
-final LayerNorm with ``norm_out``.  Only ``head_layers == 0`` is ported (the
+final LayerNorm with ``norm_out`` (`LayerNormTorch`: in f32, then back to
+the compute dtype, as flax's; CUDA's layer norm refuses a bf16 input with
+f32 parameters).  Only ``head_layers == 0`` is ported (the
 flagship uses it for both nets): every head shares the base feature.  The
 ``base_net`` Sequential reproduces the reference's state-dict slot indices.
 """
@@ -16,7 +18,7 @@ import torch
 from torch import nn
 
 from cips3d_tpu_torch.models import init as winit
-from cips3d_tpu_torch.models.layers import PixelNorm, TorchLinear
+from cips3d_tpu_torch.models.layers import LayerNormTorch, PixelNorm, TorchLinear
 
 
 class MultiHeadMappingNetwork(nn.Module):
@@ -36,10 +38,10 @@ class MultiHeadMappingNetwork(nn.Module):
             in_dim = hidden_dim
             if i != base_layers - 1:
                 if add_norm:
-                    seq.append(nn.LayerNorm(hidden_dim, eps=1e-5))
+                    seq.append(LayerNormTorch(hidden_dim))
                 seq.append(nn.LeakyReLU(0.2))
         if base_layers > 0 and norm_out:
-            seq.append(nn.LayerNorm(hidden_dim, eps=1e-5))
+            seq.append(LayerNormTorch(hidden_dim))
         self.base_net = nn.Sequential(*seq)
         self.head_names = tuple(head_dim_dict)
         self.dtype = dtype

@@ -126,3 +126,27 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} launch failed: CUDA error {err} "
                            f"({lib.cips_error_string(err).decode()})")
+
+
+# Every kernel launch, counted by the wrapper that launches it: {(kernel, product dtype): n}
+# since the last `reset_launches`.  The kernels: #2, #2r, #3 recompute, #3 residual, #1.
+KERNELS = ("ray_tile", "ray_tile_residuals", "ray_tile_bwd_recompute", "ray_tile_bwd_residual",
+           "inr_tile")
+LAUNCHES = {}
+
+
+def count_launch(kernel: str, mm_dtype) -> None:
+    """One launch of ``kernel`` (a name of `KERNELS`) with ``mm_dtype``
+    products (``"float32"`` or ``"bfloat16"``: #2, #2r and #3 take it as a
+    flag, so their symbol does not tell it)."""
+    key = (kernel, str(mm_dtype).replace("torch.", ""))
+    LAUNCHES[key] = LAUNCHES.get(key, 0) + 1
+
+
+def launches(kernel: str) -> int:
+    """``kernel``'s launches in either product dtype."""
+    return sum(n for (k, _), n in LAUNCHES.items() if k == kernel)
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()

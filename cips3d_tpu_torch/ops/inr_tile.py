@@ -166,11 +166,9 @@ def inr_tile_cuda(x: torch.Tensor, s: torch.Tensor, d: torch.Tensor, weights: In
             wr.data_ptr(), br.data_ptr(), out.data_ptr(), scratch.data_ptr(),
             b, n, in0, D, n_blocks, int(mm_dtype == torch.bfloat16), grid, stream)
     build.check(lib, err, "inr_tile")
-    inr_tile_cuda.launches += 1
+    build.count_launch("inr_tile", mm_dtype)
     return out
 
-
-inr_tile_cuda.launches = 0
 
 
 def kernel_occupancy(D: int, mm_dtype=torch.float32) -> Tuple[int, int, int]:

@@ -88,14 +88,24 @@ def extract_siren_weights(siren) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _films_f32(layer, style: torch.Tensor):
+    """A FiLM layer's (gain, bias) in f32 from its f32 parameters, whatever
+    the layer's dtype: the JAX package multiplies the (bf16 or f32) style by
+    the f32 kernels here, and the product promotes to f32."""
+    s = style.float()
+    gain = s @ layer.gain_fc.weight.T + layer.gain_fc.bias
+    return (gain * layer.GAIN_SCALE + layer.GAIN_BIAS,
+            s @ layer.bias_fc.weight.T + layer.bias_fc.bias)
+
+
 def compute_films(siren, style_dict: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Per-sample FiLM gains and biases, each (b, dim): gain =
+    """Per-sample FiLM gains and biases, each (b, dim) f32: gain =
     gain_fc(style) * 15 + 30, bias = bias_fc(style)."""
     p = siren.name_prefix
     out = {}
     for i, layer in enumerate(siren.network):
-        out[f"g{i}"], out[f"f{i}"] = layer.films(style_dict[f"{p}_w{i}"])
-    out["gc"], out["fc"] = siren.color_layer_sine.films(style_dict[f"{p}_rgb"])
+        out[f"g{i}"], out[f"f{i}"] = _films_f32(layer, style_dict[f"{p}_w{i}"])
+    out["gc"], out["fc"] = _films_f32(siren.color_layer_sine, style_dict[f"{p}_rgb"])
     return out
 
 
@@ -530,14 +540,11 @@ def ray_tile_cuda(
         clamp_mode=clamp_mode, white_back=white_back, last_back=last_back, fast_sin=fast_sin,
         mm_dtype=mm_dtype, warp_scale=warp_scale, out_dtype=out_dtype)
     if with_residuals:
-        ray_tile_cuda.residual_launches += 1
+        build.count_launch("ray_tile_residuals", mm_dtype)
         return fea, depth, tuple(res)
-    ray_tile_cuda.launches += 1
+    build.count_launch("ray_tile", mm_dtype)
     return fea, depth
 
-
-ray_tile_cuda.launches = 0            # forward launches without residuals (kernel #2)
-ray_tile_cuda.residual_launches = 0   # forward launches with residuals (kernel #2r)
 
 
 def ray_tile(wt, pts, *args, **kwargs):
@@ -619,15 +626,10 @@ def ray_tile_bwd_cuda(
             float(noise_std), float(warp_scale), int(clamp_mode == "softplus"), int(white_back),
             int(last_back), _flags(noise_std, fast_sin, mm_dtype), stream)
     build.check(lib, err, "ray_tile_bwd")
-    if residuals is None:
-        ray_tile_bwd_cuda.launches += 1
-    else:
-        ray_tile_bwd_cuda.residual_launches += 1
+    build.count_launch("ray_tile_bwd_recompute" if residuals is None else "ray_tile_bwd_residual",
+                       mm_dtype)
     return _unpack_grads(wt, out_w, out_f, L, H, C, R), d_pts
 
-
-ray_tile_bwd_cuda.launches = 0            # recompute mode (kernel #3, 'pallas')
-ray_tile_bwd_cuda.residual_launches = 0   # residual mode (kernel #3, 'pallas_residual')
 
 
 def kernel_occupancy(S: int, L: int, H: int, C: int, R: int, mm_dtype=torch.float32):

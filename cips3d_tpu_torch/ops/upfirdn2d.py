@@ -1,16 +1,22 @@
-"""upfirdn2d (FIR filter, then downsample): counterpart of
-`cips3d_tpu/ops/upfirdn2d.py`, NCHW only, for the separable kernels the
-discriminator blurs with.
+"""upfirdn2d (zero-stuff by ``up``, pad, FIR filter, stride by ``down``):
+counterpart of `cips3d_tpu/ops/upfirdn2d.py`, NCHW only.
 
 The JAX package computes this outside any Pallas kernel, and so does the
-port, in plain PyTorch, with the JAX package's lowering of a separable
-kernel: one small banded (out, in) matrix per axis (pad, correlate with
-the flipped taps, stride by ``down``) and two matrix products.  They are
-differentiable to any order, which R1's gradient of a gradient needs, and
-keep that double backward fast: cuDNN runs the double backward of a
-single-channel `F.conv2d` over N*C images as a slow implicit GEMM, which
-took most of a training step's device time on the GPU.  The port has no
-upsampling blur (the transposed convolution upsamples), so no ``up``.
+port, in plain PyTorch, with the JAX package's two lowerings:
+  * a separable kernel (every blur of the discriminator) becomes one small
+    banded (out, in) matrix per axis (zero-stuff, pad, correlate with the
+    flipped taps, stride) and two matrix products.  The matrices are in the
+    input's dtype and the products accumulate in f32, each rounded back to
+    the input's dtype, as the JAX einsums with ``preferred_element_type``
+    do.  They are differentiable to any order, which R1's gradient of a
+    gradient needs, and keep that double backward fast: cuDNN runs the
+    double backward of a single-channel `F.conv2d` over N*C images as a
+    slow implicit GEMM, which took most of a training step's device time on
+    the GPU;
+  * any other kernel runs as a depthwise convolution of the zero-stuffed,
+    padded input.
+The JAX function's ``data_format="NHWC"`` is not ported: its only users
+are the JAX discriminator's layout option and a TPU layout A/B tool.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from typing import Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def make_kernel(k: Union[Sequence[float], np.ndarray]) -> np.ndarray:
@@ -32,34 +39,48 @@ def make_kernel(k: Union[Sequence[float], np.ndarray]) -> np.ndarray:
 
 def upfirdn2d(x: torch.Tensor, kernel, down: int = 1,
               pad: Tuple[int, int] = (0, 0)) -> torch.Tensor:
-    """x (N, C, H, W), a separable 2-D ``kernel``; the same ``pad``
-    (before, after) on both axes (negative pads crop).  Output size per
-    axis: ``(in + pad0 + pad1 - k) // down + 1``."""
-    _, _, h, w = x.shape
-    u, s, vt = np.linalg.svd(np.asarray(kernel, np.float32))
-    if not (s[0] > 0 and s[1:].max(initial=0.0) < 1e-6 * s[0]):
-        raise NotImplementedError("upfirdn2d: only separable kernels are ported")
-    p0, p1 = pad
-    my = _axis_matrix(h, tuple((u[:, 0] * s[0]).tolist()), down, p0, p1)
-    mx = _axis_matrix(w, tuple(vt[0].tolist()), down, p0, p1)
-    my = torch.as_tensor(my, dtype=x.dtype, device=x.device)
-    mx = torch.as_tensor(mx, dtype=x.dtype, device=x.device)
-    return torch.einsum("ncow,pw->ncop", torch.einsum("oh,nchw->ncow", my, x), mx)
+    """x (N, C, H, W); the same ``down`` and ``pad`` (before, after;
+    negative pads crop) on both axes.  Output size per axis:
+    ``(in + pad0 + pad1 - k) // down + 1``."""
+    return upfirdn2d_general(x, kernel, 1, 1, down, down, pad[0], pad[1], pad[0], pad[1])
+
+
+def upfirdn2d_general(x: torch.Tensor, kernel, up_x: int, up_y: int, down_x: int, down_y: int,
+                      pad_x0: int, pad_x1: int, pad_y0: int, pad_y1: int) -> torch.Tensor:
+    """x (N, C, H, W); the 2-D ``kernel`` (kh, kw) applies to every
+    channel."""
+    n, c, h, w = x.shape
+    k = np.asarray(kernel, np.float32)
+    u, s, vt = np.linalg.svd(k)
+    if s[0] > 0 and s[1:].max(initial=0.0) < 1e-6 * s[0]:
+        my = _axis_matrix(h, tuple((u[:, 0] * s[0]).tolist()), up_y, down_y, pad_y0, pad_y1)
+        mx = _axis_matrix(w, tuple(vt[0].tolist()), up_x, down_x, pad_x0, pad_x1)
+        my, mx = (torch.as_tensor(m, dtype=x.dtype, device=x.device).float() for m in (my, mx))
+        t = torch.einsum("oh,nchw->ncow", my, x.float()).to(x.dtype)
+        return torch.einsum("ncow,pw->ncop", t.float(), mx).to(x.dtype)
+    if up_x > 1 or up_y > 1:   # zero-stuff to (h * up_y, w * up_x), trailing zeros included
+        stuffed = x.new_zeros((n, c, h * up_y, w * up_x))
+        stuffed[:, :, ::up_y, ::up_x] = x
+        x = stuffed
+    x = F.pad(x, (pad_x0, pad_x1, pad_y0, pad_y1))   # negative pads crop
+    weight = torch.as_tensor(np.ascontiguousarray(k[::-1, ::-1]), dtype=x.dtype, device=x.device)
+    return F.conv2d(x, weight.expand(c, 1, *k.shape), stride=(down_y, down_x), groups=c)
 
 
 @functools.lru_cache(maxsize=None)
-def _axis_matrix(in_size: int, k1d: Tuple[float, ...], down: int, pad0: int,
+def _axis_matrix(in_size: int, k1d: Tuple[float, ...], up: int, down: int, pad0: int,
                  pad1: int) -> np.ndarray:
-    """(out, in) matrix of the 1-D upfirdn on one axis: pad, correlate with
-    the flipped taps, stride by ``down``."""
+    """(out, in) matrix of the 1-D upfirdn on one axis: zero-stuff by ``up``
+    (to in * up, trailing zeros included), pad, correlate with the flipped
+    taps, stride by ``down``."""
     kflip = k1d[::-1]
-    out_size = (in_size + pad0 + pad1 - len(k1d)) // down + 1
+    out_size = (in_size * up + pad0 + pad1 - len(k1d)) // down + 1
     m = np.zeros((out_size, in_size), np.float32)
     for o in range(out_size):
         for t, tap in enumerate(kflip):
             j = o * down + t - pad0
-            if 0 <= j < in_size:
-                m[o, j] += tap
+            if 0 <= j < in_size * up and j % up == 0:
+                m[o, j // up] += tap
     return m
 
 

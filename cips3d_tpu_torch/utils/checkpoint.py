@@ -76,6 +76,43 @@ def load_pytree(path: str) -> Any:
     return nested
 
 
+def load_pytree_like(path: str, reference: Mapping) -> Dict[str, Any]:
+    """Read an .npz and graft its values onto the structure of
+    ``reference``: nested dicts whose leaves have a shape and a dtype
+    (numpy arrays, torch tensors), where a dotted key (a state dict's
+    ``siren.network.0.weight``) is a path of nested keys.  Each value comes
+    back as a numpy array in its leaf's dtype (float32 for bfloat16, which
+    numpy lacks).  A key the file lacks raises `KeyError`
+    naming it; a shape that differs raises `ValueError`."""
+    loaded = load_pytree(path)
+
+    def pick(keys):
+        cur = loaded
+        for i, k in enumerate(keys):
+            if not isinstance(cur, Mapping) or k not in cur:
+                raise KeyError(f"{path} has no {_keystr(keys[:i + 1])} (the reference's "
+                               f"{'.'.join(keys)})")
+            cur = cur[k]
+        return cur
+
+    def graft(ref, keys):
+        out = {}
+        for k, v in ref.items():
+            sub = keys + str(k).split(".")
+            if isinstance(v, Mapping):
+                out[k] = graft(v, sub)
+                continue
+            val = np.asarray(pick(sub))
+            if val.shape != tuple(v.shape):
+                raise ValueError(f"shape mismatch at {'.'.join(sub)}: ckpt {val.shape} vs "
+                                 f"model {tuple(v.shape)}")
+            name = str(v.dtype).replace("torch.", "")
+            out[k] = val.astype(np.float32 if name == "bfloat16" else np.dtype(name))
+        return out
+
+    return graft(reference, [])
+
+
 def load_snapshot_module(snapshot_dir: str, module: str = "G_ema") -> Any:
     """One module's tree from a snapshot directory (``<dir>/<module>.npz``)."""
     return load_pytree(os.path.join(snapshot_dir, f"{module}.npz"))

@@ -162,9 +162,13 @@ def test_upfirdn2d_matches_jax(kernel, down, pad):
 
 
 def test_upfirdn2d_rejects_non_separable_kernel():
+    """A non-separable kernel is ported (this test held the raise before):
+    the depthwise convolution against the JAX function's conv path."""
     k = np.outer([1, 2, 1], [1, 0, -1]).astype(np.float32) + np.eye(3, dtype=np.float32)
-    with pytest.raises(NotImplementedError, match="separable"):
-        port_upfirdn.upfirdn2d(torch.zeros(1, 1, 5, 5), k)
+    x = _x((2, 3, 9, 9), 8)
+    ref = jax_upfirdn2d(jnp.asarray(x), k, 1, 2, (1, 1))
+    out = port_upfirdn.upfirdn2d(torch.from_numpy(x), k, 2, (1, 1))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=2e-6)
 
 
 def test_diffaug_is_not_ported():

@@ -135,14 +135,14 @@ def test_cuda_wrappers_refuse_widths_off_the_mma_tiling(widths):
 
 def test_dispatch_runs_plain_on_cpu():
     wt, args = _ray_inputs("cpu")
-    before = ray_tile.ray_tile_cuda.launches, inr_tile.inr_tile_cuda.launches
+    before = dict(build.LAUNCHES)
     fea, dep = ray_tile.ray_tile(wt, *args)
     g, d_pts = ray_tile.ray_tile_bwd(wt, *args, 0.0, torch.ones_like(fea), torch.ones_like(dep))
     x, s, d, w = _inr_inputs("cpu", 9)
     out = inr_tile.inr_tile(x, s, d, w)
     assert fea.shape == (B, N, 16) and dep.shape == (B, N, 1) and out.shape == (2, 70, 3)
     assert [t.shape for t in g] == [t.shape for t in wt] and d_pts.shape == (B, N, S, 3)
-    assert (ray_tile.ray_tile_cuda.launches, inr_tile.inr_tile_cuda.launches) == before
+    assert build.LAUNCHES == before
 
 
 @pytest.mark.parametrize("b,n,steps,sms", [(4, 4096, 12, 132), (1, 16384, 24, 132), (2, 45, 10, 132),
@@ -228,11 +228,11 @@ def test_ray_tile_kernel_matches_plain(cuda_device, mm_dtype, kwargs):
     wt, args = _ray_inputs(cuda_device)
     kwargs = dict(kwargs)
     ns = kwargs.pop("noise_std", 0.0)
-    launches = ray_tile.ray_tile_cuda.launches
+    launches = build.launches("ray_tile")
     fa, da = ray_tile.ray_tile_cuda(wt, *args, ns, mm_dtype=mm_dtype, out_dtype=mm_dtype, **kwargs)
     fb, db = ray_tile.ray_tile_plain(wt, *args, ns, mm_dtype=mm_dtype, out_dtype=mm_dtype, **kwargs)
     torch.cuda.synchronize()
-    assert ray_tile.ray_tile_cuda.launches == launches + 1
+    assert build.launches("ray_tile") == launches + 1
     assert fa.dtype == mm_dtype and da.dtype == torch.float32
     tol = F32_TOL if mm_dtype == torch.float32 else RAY_BF16_TOL
     _close(fa, fb, tol)
@@ -352,11 +352,11 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 @pytest.mark.parametrize("mm_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_ray_tile_residuals_match_plain(cuda_device, mm_dtype):
     wt, args = _ray_inputs(cuda_device)
-    before = ray_tile.ray_tile_cuda.residual_launches
+    before = build.launches("ray_tile_residuals")
     fa, da, ra = ray_tile.ray_tile_cuda(wt, *args, 0.4, mm_dtype=mm_dtype, with_residuals=True)
     fb, db, rb = ray_tile.ray_tile_plain(wt, *args, 0.4, mm_dtype=mm_dtype, with_residuals=True)
     torch.cuda.synchronize()
-    assert ray_tile.ray_tile_cuda.residual_launches == before + 1
+    assert build.launches("ray_tile_residuals") == before + 1
     tol = F32_TOL if mm_dtype == torch.float32 else RAY_BF16_TOL
     _close(fa, fb, tol)
     _close(da, db, tol)

@@ -24,7 +24,7 @@ from cips3d_tpu.ops.pallas import ray_tile as jax_ray_tile
 from cips3d_tpu.ops.pallas.ray_tile import fused_ray_render as jax_fused_ray_render
 from cips3d_tpu_torch.models.cips_net import CIPSNet
 from cips3d_tpu_torch.models.nerf_net import NeRFNetwork
-from cips3d_tpu_torch.ops import inr_tile, ray_tile
+from cips3d_tpu_torch.ops import build, inr_tile, ray_tile
 from cips3d_tpu_torch.ops.fast_sin import fast_sin, fast_sin_grad
 from cips3d_tpu_torch.utils.convert import inr_state_dict, siren_state_dict, to_torch
 
@@ -165,12 +165,12 @@ def test_ray_tile_dispatch_on_cpu_uses_plain(ray_setup):
     a kernel launch there."""
     pts, origins, dirs, z = ray_setup["arrays"]
     styles = {k: t(v) for k, v in ray_setup["styles"].items()}
-    before = ray_tile.ray_tile_cuda.launches
+    before = build.launches("ray_tile")
     fea, dep = ray_tile.fused_ray_render(
         ray_setup["port"], styles, t(pts), t(origins), t(dirs), t(z),
         generator=torch.Generator().manual_seed(0))
     assert fea.shape == (B, N, R) and dep.shape == (B, N, 1)
-    assert torch.isfinite(fea).all() and ray_tile.ray_tile_cuda.launches == before
+    assert torch.isfinite(fea).all() and build.launches("ray_tile") == before
     with pytest.raises(ValueError, match="CUDA"):
         ray_tile.ray_tile_cuda(ray_tile.flat_weights(ray_setup["port"], styles),
                                t(pts), t(origins), t(dirs), t(z[..., 0]),
