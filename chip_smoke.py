@@ -72,7 +72,13 @@ Phases, each printing one line (plus detail lines):
      --debug`, then `train_r64 --debug` finetuning from it, `cam_param` and
      `cam_opt` in the trees; pi-GAN `train_r32 --debug`); and the first two
      `FFHQ_STAGES` through `run_progressive` under debug (stage 2 loads stage
-     1's best_fid);
+     1's best_fid); (d) beside them, the training CLI without ``--debug``
+     (`train/loop.py` in chunks), train_r32 at full width, 5 steps with
+     evals after steps 1, 4 and 5, deterministic algorithms on, in
+     subprocesses: the flagship with ``dispatch_chunk`` 1 (eager), 2, and 2
+     in a one-rank NCCL group, diffcam with 1 and 2; each logs steps 1-5
+     and ends with both counters at 5, the chunked ones capture a CUDA
+     graph, and a config's resume trees agree bit for bit;
  11. the eval CLI and the apps at full width: a translate_rotate trajectory
      frame (explicit camera, rolled up vector) at r64 x 12 on the card vs
      the CPU (phase 4's rule); trajectory-frame times at r128 x 24 and r256
@@ -140,7 +146,27 @@ Phases, each printing one line (plus detail lines):
      serving leg, #2r and #3 in the exact-sine leg), #1's bf16
      instantiation in one profiled step or call, and the device's idle
      share there; (c) #2r and #3 with bf16 products and their plain
-     versions, timed.
+     versions, timed (phases 8 and 15 pass the density noise as the step
+     does, a 0-d tensor on the device);
+ 16. chunked dispatch (`cips3d_tpu_torch/train/chunk.py`: K replays of a
+     CUDA graph of the step), with deterministic algorithms on: (a) 10
+     eager steps against one chunk of 10 for both bench legs (bf16 compute,
+     r64 b = 4), 4 for diffcam and pi-GAN at full width, each from a fresh
+     state of the same seeds and the same generator seed: bit for bit in
+     every state tensor and metric, else within phase 7's tolerances (the
+     line says which held), and the chunk's launches, counted through its
+     replays, equal to the eager steps'; (b) the shipped leg at steps
+     4998-5002 (the density noise to 0, the EMA on from 5000); (c) one
+     chunk at train_r256's settings (r256 b = 4), its peak device memory at
+     most CHUNK_PEAK_GIB; (d) phase 13(a)'s case through a one-rank NCCL
+     group, 10 eager steps against 5 chunks of 2 (the all-reduces captured
+     with the step), bit for bit, 3 collectives a step through the replays;
+     (e) the shipped bench leg eager, then chunked (2 calls of 10 steps
+     each): images/s and a profiled run's device idle share,
+     printed without a threshold.  In (a) the bench legs' last
+     WITNESS_STEPS replays run under the profiler: the port's kernels that
+     the trace shows on the device must equal the launches counted through
+     those replays.
 Phase 4 also fetches /render and /render?depth=1 and checks the JPEGs.
 The second-to-last line is a JSON summary of the kernels (with each one's
 bound on the card: the larger of its multiply-adds over the 67 TFLOP/s f32
@@ -153,7 +179,9 @@ Without CUDA (or without the package beside it) the script exits with an
 error before printing any result.
 """
 
+import collections
 import copy
+import dataclasses
 import glob
 import itertools
 import json
@@ -555,6 +583,11 @@ def kernel_phase(dev, log):
     return errs
 
 
+def host_metrics(m):
+    """A step's metrics (0-d tensors on the device) as floats: waits for it."""
+    return {k: float(v) for k, v in m.items()}
+
+
 def step_snapshot(state):
     import torch
 
@@ -625,7 +658,8 @@ def train_run(dev, cfg_g, steps, log, label="", smi="", tcfg=None, disc_kwargs=N
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         batch = real[i] if loader is None else torch.from_numpy(next(loader)[0]).to(dev)
-        state, m = fn(state, batch, rng=rng)   # the metrics' floats wait for the step
+        state, m = fn(state, batch, rng=rng)
+        m = host_metrics(m)   # waits for the step
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         metrics.append(m)
@@ -795,6 +829,7 @@ def step_vs_cpu(dev, log, noise, cfg=None, label="exact sine, residual backward"
             fn = make_train_step(g_m, d_m, tcfg, ropts, aux_reg=aux)
             t0 = time.perf_counter()
             state, m = fn(state, real.to(d), draws=to_device(draws, d))
+            m = host_metrics(m)
             secs = time.perf_counter() - t0
         finally:
             step_mod.clip_and_guard = clip
@@ -931,7 +966,8 @@ def training_phases(dev, smi, log):
         wt = rt.flat_weights(gen.siren, gen.mapping(zs["z_nerf"], zs["z_inr"]))
         world = gen.sample_world(b, RenderOptions(img_size=64, num_steps=S), g)
         args = (wt, world.points, world.origins, world.dirs, world.z_vals[..., 0],
-                *rt.draw_ray_randoms(b, n, S, True, g, dev), 0.5)
+                *rt.draw_ray_randoms(b, n, S, True, g, dev),
+                torch.full((), 0.5, device=dev))   # the noise as the step passes it
         d_fea = torch.randn((b, n, R), generator=g, device=dev)
         d_dep = torch.randn((b, n, 1), generator=g, device=dev)
         res = rt.ray_tile_cuda(*args, with_residuals=True)[2]
@@ -949,7 +985,7 @@ def training_phases(dev, smi, log):
             ("2r ray tile with residuals (exact sine)", "ray_tile_residuals", t_res),
             ("3 backward, residual mode (exact sine)", "ray_tile_bwd_residual", t_bres),
             ("3 backward, recompute mode (fast_sin)", "ray_tile_bwd_recompute", t_brec)):
-        log(f"phase 8 time: {name} r64 b=4 S=12 noise 0.5 f32: kernel {kern:.3f} ms, plain "
+        log(f"phase 8 time: {name} r64 b=4 S=12 noise 0.5 (a device operand) f32: kernel {kern:.3f} ms, plain "
             f"{plain:.3f} ms [{smi}]; {resources_line(key, occ, ptxas)}")
     log(f"phase 8 done in {time.perf_counter() - t0:.1f} s (step times in phase 7)")
     bnd = train_bounds("float32")
@@ -1078,6 +1114,7 @@ def variant_train(dev, name, steps, log, smi):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m = fn(state, real[i], rng=rng)
+        m = host_metrics(m)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         metrics.append(m)
@@ -1196,6 +1233,7 @@ def variant_step_vs_cpu(dev, log, name, noise):
             fn = pipe.make_step(state, cfg.train_aux_img, True)
             t0 = time.perf_counter()
             state, m = fn(state, real.to(d), draws=to_device(draws, d))
+            m = host_metrics(m)
             secs = time.perf_counter() - t0
         finally:
             step_mod.clip_and_guard = clip
@@ -1292,13 +1330,123 @@ def progressive_run(dev, tmp, data):
     return state, buf.getvalue(), time.perf_counter() - t0
 
 
+# phase 10(d): the training CLI without --debug, so that its loop chunks.  Of its 5 steps,
+# step 0 runs alone (the step-0 eval), steps 1-2 as a chunk of 2 and step 3 as one of 1 (the
+# eval after step 4), step 4 as one of 1 (the final eval)
+LOOP_OPTS = ("total_iters", "5", "eval_every", "4", "log_every", "1", "num_images_real_eval",
+             "16", "num_images_gen_eval", "16", "num_workers", "2")
+LOOP_RUNS = {   # name: (config, dispatch_chunk, in a one-rank NCCL group)
+    "flagship k=1": ("ffhq", 1, False), "flagship k=2": ("ffhq", 2, False),
+    "flagship k=2 NCCL": ("ffhq", 2, True),
+    "diffcam k=1": ("diffcam", 1, False), "diffcam k=2": ("diffcam", 2, False),
+}
+
+
+def loop_run(argv):
+    """One training-CLI run of phase 10(d), in a subprocess that
+    `loop_cli_runs` starts: ``argv`` as the CLI takes it, after ``--nccl``
+    for a one-rank NCCL group made here (the loop then steps through the
+    group, its all-reduces captured with the step).  Deterministic
+    algorithms on, so that the runs agree bit for bit.  Prints the final
+    state's host and device counters."""
+    import torch
+    import torch.distributed as dist
+
+    from cips3d_tpu_torch.train import cli, loop
+
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    nccl = argv[:1] == ["--nccl"]
+    final, run_pipeline = [], loop.run_pipeline
+
+    def keep_state(*args, **kw):
+        final.append(run_pipeline(*args, **kw))
+        return final[-1]
+
+    loop.run_pipeline = cli.run_pipeline = keep_state
+    t0 = time.perf_counter()
+    if nccl:
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                                world_size=1, rank=0)
+    try:
+        rc = cli.run(cli.parse_args(argv[1:] if nccl else argv))
+    finally:
+        if nccl:
+            dist.destroy_process_group()
+    print(f"final state: step {final[0].step} step_t {int(final[0].step_t)} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return rc
+
+
+def loop_cli_runs(tmp, data):
+    """Start the LOOP_RUNS together, each `loop_run` in a subprocess on
+    train_r32 at full width on phase 9's zip, output to files under
+    ``tmp``.  Returns {name: (process, outdir)}."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = {}
+    for name, (config, k, nccl) in LOOP_RUNS.items():
+        out = os.path.join(tmp, "loop", re.sub(r"\W+", "_", name))
+        os.makedirs(out)
+        cmd = ([sys.executable, os.path.abspath(__file__), "--loop-run"]
+               + (["--nccl"] if nccl else [])
+               + ["--config", f"configs/{config}.yaml", "--command", "train_r32", "--opts",
+                  "data_path", data, "outdir", out, "dispatch_chunk", str(k), *LOOP_OPTS])
+        with open(os.path.join(out, "stdout.txt"), "w") as fo, \
+                open(os.path.join(out, "stderr.txt"), "w") as fe:
+            procs[name] = (subprocess.Popen(cmd, cwd=root, stdout=fo, stderr=fe), out)
+    return procs
+
+
+def check_loop_runs(procs, log, smi):
+    """Phase 10(d): every run logged steps 1-5 and its evals and ended with
+    both counters at 5; a run of chunks of 2 captured its step into a CUDA
+    graph, one of chunks of 1 stepped eagerly; the resume trees (modules
+    and optimizer states, the camera's for diffcam) of a config's runs are
+    equal bit for bit."""
+    import numpy as np
+
+    trees = {}
+    for name, (p, out) in procs.items():
+        rc = p.wait(timeout=900)
+        text = open(os.path.join(out, "stdout.txt")).read()
+        lines = [ln for ln in text.splitlines()
+                 if ln.startswith(("step ", "dispatch:", "final state:"))]
+        log(f"phase 10 loop: {name}: train_r32 {' '.join(LOOP_OPTS[:6])} exit {rc}: "
+            + " | ".join(lines) + f" [{smi}]")
+        k = LOOP_RUNS[name][1]
+        missing = [w for w in [f"step {i}: d_loss=" for i in range(1, 6)]
+                   + ["FID_surrogate=", "final state: step 5 step_t 5 "] if w not in text]
+        captured = "captured into a CUDA graph" in text
+        if rc != 0 or missing or captured != (k > 1) or (k == 1 and "dispatch:" in text):
+            log(open(os.path.join(out, "stderr.txt")).read()[-4000:])
+            raise AssertionError(f"phase 10 loop {name}: exit {rc}, missing {missing}, "
+                                 f"captured {captured}")
+        rdir = os.path.join(out, "train_r32", "ckptdir", "resume")
+        trees[name] = {f"{f}/{key}": a for f in sorted(os.listdir(rdir)) if f.endswith(".npz")
+                       for key, a in np.load(os.path.join(rdir, f)).items()}
+    for ref in ("flagship k=1", "diffcam k=1"):
+        for name in [n for n in trees if n != ref and n.split()[0] == ref.split()[0]]:
+            a, b = trees[ref], trees[name]
+            diff = [key for key in a if key not in b or not np.array_equal(a[key], b[key])]
+            log(f"  {name} vs {ref}: resume trees {len(a)} vs {len(b)} arrays, "
+                f"{len(diff)} differ")
+            if diff or len(a) != len(b):
+                raise AssertionError(f"phase 10 loop: {name}'s resume tree is not {ref}'s: "
+                                     f"{diff[:5]}")
+
+
 def variant_phase(dev, smi, log, tmp, data):
     """Phase 10: the diffcam and pi-GAN pipelines at full width (10 steps
     each at r64 with step time, images/s and peak memory), their r32 step
-    on the card against the CPU, their CLI in subprocesses, and the
-    flagship's two-stage `run_progressive`."""
+    on the card against the CPU, their CLI in subprocesses, the flagship's
+    two-stage `run_progressive`, and the loop in chunks (`check_loop_runs`:
+    the training CLI without ``--debug``, in subprocesses beside the
+    rest)."""
+    import gc
     import os
     import threading
+
+    import torch
 
     steps = {}
     for name in ("diffcam", "pigan"):
@@ -1310,13 +1458,22 @@ def variant_phase(dev, smi, log, tmp, data):
             f"{q[0]:.1f}..{q[2]:.1f}, steps 2-9; first {times[0]:.1f} ms) = {b * 1e3 / ms:.2f} "
             f"images/s, max_memory_allocated {peak / 2 ** 30:.2f} GiB [{smi}]")
 
-    # the CLI runs in subprocesses, one thread a variant, beside the in-process checks below
+    # the CLI runs in subprocesses, one thread a variant, and the loop's runs in chunks,
+    # beside the in-process checks below; this process's cached blocks go back to the card
+    # first (seven subprocesses share it)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    log(f"phase 10: {free / 2 ** 30:.2f} of {total / 2 ** 30:.2f} GiB of the card free before "
+        f"the CLI runs in subprocesses")
     cli = {name: [] for name in ("diffcam", "pigan")}
     workers = [threading.Thread(target=lambda n=name: cli[n].extend(variant_cli(tmp, data, n)))
                for name in cli]
     for w in workers:
         w.start()
+    loop_procs = {}
     try:
+        loop_procs = loop_cli_runs(tmp, data)
         tols = [STEP_TOL["loss_rtol"]] + [STEP_TOL["grad"]] * 3 + [MAX_OUTSIDE] * 4
         zero_kernel_counts()
         for name in ("diffcam", "pigan"):
@@ -1342,7 +1499,12 @@ def variant_phase(dev, smi, log, tmp, data):
         if state.step != 2 or f"loading finetune weights from {best}" not in out or not all(
                 os.path.isdir(f"{tmp}/progressive/{s}/ckptdir/best_fid") for s in ("r32", "r64")):
             raise AssertionError("run_progressive: stage 2 did not finetune from stage 1")
+        check_loop_runs(loop_procs, log, smi)
     finally:
+        for p, _ in loop_procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
         for w in workers:
             w.join()
     for label, secs, p, missing in cli["diffcam"] + cli["pigan"]:
@@ -1910,6 +2072,7 @@ def dist_step(kind, dev, mesh=None):
         zero_kernel_counts()
         t0 = time.perf_counter()
         state, m = fn(state, real, draws=draws)
+        m = host_metrics(m)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
     finally:
@@ -2015,6 +2178,7 @@ def dist_phase(dev, smi, log, tmp):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 state, m = fn(state, reals[i], draws=draws[i])
+                m = host_metrics(m)
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t0) * 1e3)
             runs[name] = (step_snapshot(state), times, kernel_counts(),
@@ -2403,7 +2567,7 @@ def bf16_run_step(gen, disc, cfg, dtype, dev, tcfg, draws, real):
     try:
         fn = make_train_step(g_m, d_m, tcfg, RenderOptions(), aux_reg=True)
         t0 = time.perf_counter()
-        _, m = fn(state, real.to(dev), draws=to_device(draws, dev))
+        m = host_metrics(fn(state, real.to(dev), draws=to_device(draws, dev))[1])
         secs = time.perf_counter() - t0
     finally:
         step_mod.clip_and_guard = clip
@@ -2654,7 +2818,8 @@ def bench_phase(dev, smi, log, tmp, gen):
         counts = rep["launches"]
         add(counts)
         prof = rep.get("profile")
-        idle = (f"; one profiled {'step' if bench == 'train' else 'call'}: {prof['wall_ms']:.1f} "
+        what = prof and (f"chunk of {prof['steps']} steps" if bench == "train" else "call")
+        idle = (f"; one profiled {what}: {prof['wall_ms']:.1f} "
                 f"ms host clock, device busy {prof['busy_ms']:.1f} ms, idle "
                 f"{prof['idle_pct']:.1f} %, {prof['device_events']} device events; the port's "
                 f"kernels: {prof['kernels']}" if prof else "")
@@ -2683,7 +2848,8 @@ def bench_phase(dev, smi, log, tmp, gen):
         wt = rt.flat_weights(g_m.siren, g_m.mapping(zs["z_nerf"], zs["z_inr"]))
         world = g_m.sample_world(b, RenderOptions(img_size=64, num_steps=S), g)
         args = (wt, world.points, world.origins, world.dirs, world.z_vals[..., 0],
-                *rt.draw_ray_randoms(b, n, S, True, g, dev), 0.5)
+                *rt.draw_ray_randoms(b, n, S, True, g, dev),
+                torch.full((), 0.5, device=dev))   # the noise as the step passes it
         d_fea = torch.randn((b, n, R), generator=g, device=dev)
         d_dep = torch.randn((b, n, 1), generator=g, device=dev)
         res = rt.ray_tile_cuda(*args, with_residuals=True, out_dtype=torch.bfloat16, **bf16)[2]
@@ -2706,9 +2872,294 @@ def bench_phase(dev, smi, log, tmp, gen):
                       ("ray_tile_bwd_residual", "3 backward, residual mode"),
                       ("ray_tile_bwd_recompute", "3 backward, recompute mode (fast_sin)")):
         plain, kern = times[key]
-        log(f"phase 15 time: #{name} r64 b=4 S=12 noise 0.5 bf16 products: kernel {kern:.3f} ms, "
+        log(f"phase 15 time: #{name} r64 b=4 S=12 noise 0.5 (a device operand) bf16 products: kernel {kern:.3f} ms, "
             f"plain {plain:.3f} ms, bound {bounds[key][0]:.4f} ms ({bounds[key][1]}) [{smi}]")
     return totals, times
+
+
+# ---- phase 16: chunked dispatch ----------------------------------------------
+
+CHUNK_PEAK_GIB = 72.0   # phase 16(c): one chunk at train_r256's settings, peak device memory
+
+
+def chunk_state(kind, dev, start=0):
+    """(state, step function, batch shape, label) of one phase-16 case, built
+    from seeds: ``shipped`` and ``exact`` the two bench legs (bf16 compute,
+    f32 parameters, r64 b = 4, aux on), ``diffcam`` and ``pigan`` the
+    variants' train_r64 at full width, ``r256`` train_r256's settings at
+    r256 b = 4; the counter at ``start``, the EMA from step 5000."""
+    import torch
+
+    from cips3d_tpu_torch.bench import train as bench_train
+    from cips3d_tpu_torch.models.discriminator import DiscriminatorMultiScaleAux
+    from cips3d_tpu_torch.models.generator import GeneratorConfig, GeneratorNerfINR, RenderOptions
+    from cips3d_tpu_torch.train.loop import LoopConfig
+    from cips3d_tpu_torch.train.state import TrainConfig
+    from cips3d_tpu_torch.train.step import init_train_state, make_train_step
+
+    if kind in ("shipped", "exact"):
+        kw = (dict(fused_ray=False) if kind == "shipped"
+              else dict(fused_ray=True, fused_ray_vjp="pallas_residual"))
+        gen, disc, tcfg, opts = bench_train.build(kind == "shipped", device=dev, seed=60, **kw)
+        tcfg = dataclasses.replace(tcfg, ema_start_itr=5000)
+        state = init_train_state(gen, disc, tcfg)
+        fn = make_train_step(gen, disc, tcfg, opts, aux_reg=True)
+        label = f"{SHIPPED if kind == 'shipped' else 'exact sine, residual backward'}, bf16"
+    elif kind == "r256":
+        gen = GeneratorNerfINR(GeneratorConfig(fast_sin=True, fused_ray=False, freeze_nerf=True),
+                               generator=torch.Generator().manual_seed(60)).to(dev)
+        disc = DiscriminatorMultiScaleAux(max_size=1024, diffaug=True,
+                                          generator=torch.Generator().manual_seed(61)).to(dev)
+        tcfg = TrainConfig(img_size=256, batch_size=4, ema_start_itr=0, diffaug=True,
+                           warmup_d=True, train_aux_img=False, nerf_noise_disable=True,
+                           gen_lr=1e-4, disc_lr=5e-4)
+        state = init_train_state(gen, disc, tcfg)
+        fn = make_train_step(gen, disc, tcfg, RenderOptions(), aux_reg=False)
+        label = f"{R256}, r256 b=4"
+    else:
+        pipe = variant_pipeline(kind, "train_r64", ["ema_start_itr", "5000"])
+        tcfg = pipe.train_cfg
+        state = pipe.init_state(LoopConfig(device=str(dev), seed=60, fixed_z_bs=4))
+        fn = pipe.make_step(state, tcfg.train_aux_img, True)
+        label = f"{kind} train_r64 b={tcfg.batch_size}"
+    state.step = start
+    return state, fn, (tcfg.batch_size, 3, tcfg.img_size, tcfg.img_size), label
+
+
+# The port's kernels in a profiler trace, each with the wrapper launches it runs for: a
+# backward launch (#3) runs the cotangent, weight-grad and reduce kernels, and in recompute
+# mode the forward kernel again first.  No symbol is a substring of another.
+TRACE_SYMBOLS = {
+    "ray_tile_kernel": ("ray_tile", "ray_tile_residuals", "ray_tile_bwd_recompute"),
+    "ray_tile_bwd_cot": ("ray_tile_bwd_residual", "ray_tile_bwd_recompute"),
+    "ray_tile_bwd_wgrad": ("ray_tile_bwd_residual", "ray_tile_bwd_recompute"),
+    "ray_tile_bwd_reduce": ("ray_tile_bwd_residual", "ray_tile_bwd_recompute"),
+    "inr_tile_kernel": ("inr_tile",),
+}
+WITNESS_STEPS = 2   # the last steps of a bench leg's chunk in phase 16(a), replayed under the profiler
+
+
+def witness_replays(chunk, reals, log, label):
+    """Replay ``chunk`` on ``reals`` under `torch.profiler` and hold the port's
+    kernels that the trace shows ran on the device against the launches the
+    chunk counted for these replays (its capture's record times the
+    replays).  Returns the metric rows."""
+    from cips3d_tpu_torch.bench import report
+
+    before, rows = kernel_counts(), []
+    prof = report.profile_call(lambda: rows.extend(chunk(reals).read()))
+    counted = {k: n - before[k] for k, n in kernel_counts().items()}
+    want = {sym: sum(counted[k] for k in ks) for sym, ks in TRACE_SYMBOLS.items()}
+    traced = {sym: sum(n for key, n in prof["ours"].items() if sym in key)
+              for sym in TRACE_SYMBOLS}
+    log(f"  {label}: {len(reals)} replays under the profiler: the port's kernels on the device "
+        f"{traced}, counted through the replays {want}")
+    if traced != want or not any(want.values()):
+        raise AssertionError(f"phase 16 {label}: the trace's kernels {traced} are not the "
+                             f"launches counted through the replays {want}")
+    return rows
+
+
+def chunk_vs_eager(dev, log, smi, kind, K, start=0, witness=False):
+    """K eager steps against one chunk of K replays (`train/chunk.py`), each
+    from a fresh state built from the same seeds, the same generator seed
+    and the same uint8 batches.  Bit for bit in every state tensor and
+    metric, else within phase 7's tolerances (losses rtol, parameters beyond
+    STEP_TOL["param"] * lr on at most MAX_OUTSIDE of the elements); the
+    chunk's launches (counted through its replays) equal the eager steps'.
+    With ``witness`` the chunk's last WITNESS_STEPS replays run under the
+    profiler (`witness_replays`) and only the ones before are timed.
+    Returns the chunk run's launches by kernel."""
+    import numpy as np
+    import torch
+
+    from cips3d_tpu_torch.train.chunk import Metrics, make_chunk_fn, state_tensors
+
+    runs = {}
+    timed = K - WITNESS_STEPS if witness else K   # the chunk's replays on the host clock
+    for mode in ("eager", "chunk"):
+        state, fn, shape, label = chunk_state(kind, dev, start)
+        reals = [np.random.default_rng(70 + i).integers(0, 256, shape, np.uint8)
+                 for i in range(K)]
+        rng = torch.Generator(dev).manual_seed(71)
+        lrs = [g["lr"] for opt in (state.g_opt, state.d_opt) for g in opt.param_groups]
+        torch.cuda.synchronize()
+        if mode == "eager":
+            zero_kernel_counts()
+            t0 = time.perf_counter()
+            rows = [Metrics.of_step(fn(state, torch.from_numpy(r).to(dev), rng=rng)[1]).read()[0]
+                    for r in reals]
+            secs = time.perf_counter() - t0
+        else:
+            chunk = make_chunk_fn(fn, state, shape, rng, label=label)
+            torch.cuda.synchronize()
+            zero_kernel_counts()
+            t0 = time.perf_counter()
+            rows = chunk(reals[:timed]).read()
+            secs = time.perf_counter() - t0
+            if witness:
+                rows += witness_replays(chunk, reals[timed:], log, label)
+            chunk.close()
+        counts = kernel_counts()
+        if state.step != start + K or int(state.step_t) != start + K:
+            raise AssertionError(f"phase 16 {label} {mode}: counter at {state.step} / "
+                                 f"{int(state.step_t)}, want {start + K}")
+        runs[mode] = (rows, [t.detach().float().cpu() for t in state_tensors(state)], counts,
+                      secs, lrs)
+        del state, fn
+        torch.cuda.empty_cache()
+    (er, et, ec, es, lrs), (cr, ct, cc, cs, _) = runs["eager"], runs["chunk"]
+    exact = er == cr and all(torch.equal(a, b) for a, b in zip(et, ct))
+    diff = max((a - b).abs().max().item() for a, b in zip(et, ct))
+    lerr = max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-6) for x, y in zip(cr, er)
+               for k in ("d_loss", "g_loss"))
+    held = "bit for bit" if exact else "phase 7's tolerances"
+    log(f"phase 16 chunk: {label}, steps {start}-{start + K - 1}: {K} eager steps vs one chunk "
+        f"of {K} replays: {held} (state max abs diff {diff:.3e}, loss rel err {lerr:.2e}); "
+        f"host {es:.2f} s eager ({K} steps), {cs:.2f} s chunk ({timed} replays) = "
+        f"{shape[0] * K / es:.2f} vs {shape[0] * timed / cs:.2f} images/s; launches {cc} [{smi}]")
+    if not exact:
+        if lerr > STEP_TOL["loss_rtol"] or any(
+                r1["d_finite"] != r2["d_finite"] for r1, r2 in zip(cr, er)):
+            raise AssertionError(f"phase 16 {label}: the chunk's losses leave the eager ones")
+        far = sum(((a - b).abs() > STEP_TOL["param"] * min(lrs)).sum().item()
+                  for a, b in zip(et, ct) if a.numel() > 1)
+        if far > MAX_OUTSIDE * sum(a.numel() for a in et):
+            raise AssertionError(f"phase 16 {label}: {far} state elements differ by more than "
+                                 f"{STEP_TOL['param']} lr")
+    if cc != ec:
+        raise AssertionError(f"phase 16 {label}: the chunk launched {cc}, the eager steps {ec}")
+    if "nerf_noise" in er[0]:
+        log(f"  nerf_noise by step: {[r['nerf_noise'] for r in cr]} (chunk), "
+            f"{[r['nerf_noise'] for r in er]} (eager); alpha {[r['alpha'] for r in cr]}")
+    return cc
+
+
+def chunk_phase(dev, smi, log):
+    """Phase 16: chunked dispatch on the card.  (a) 10 eager steps against a
+    chunk of 10 replays for both bench legs (bf16) and 4 for diffcam and
+    pi-GAN, deterministic algorithms on; (b) the shipped leg at steps
+    4998-5002 (the density noise to 0, the EMA on at 5000); (c) one chunk at
+    train_r256's settings, its peak memory; (d) phase 13(a) with chunks of 2
+    through a one-rank NCCL group; (e) the shipped bench leg eager and
+    chunked, images/s and a profiled chunk's idle share (no threshold).
+    Returns the launches of the chunks of (a)-(d) by kernel."""
+    import copy
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from cips3d_tpu_torch.bench import train as bench_train
+    from cips3d_tpu_torch.models.generator import RenderOptions
+    from cips3d_tpu_torch.parallel.mesh import COLLECTIVES, make_mesh
+    from cips3d_tpu_torch.train.chunk import make_chunk_fn
+    from cips3d_tpu_torch.train.step import init_train_state, make_train_step
+
+    totals = collections.Counter()
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    t0 = time.perf_counter()
+    try:
+        for kind, K in (("shipped", 10), ("exact", 10), ("diffcam", 4), ("pigan", 4)):
+            totals.update(chunk_vs_eager(dev, log, smi, kind, K,
+                                         witness=kind in ("shipped", "exact")))
+        log(f"phase 16(a) done in {time.perf_counter() - t0:.1f} s")
+        totals.update(chunk_vs_eager(dev, log, smi, "shipped", 5, start=4998))
+        log(f"phase 16(b) done in {time.perf_counter() - t0:.1f} s")
+
+        # (c) one chunk at train_r256's settings
+        state, fn, shape, label = chunk_state("r256", dev)
+        rng = torch.Generator(dev).manual_seed(72)
+        reals = [np.random.default_rng(73 + i).integers(0, 256, shape, np.uint8)
+                 for i in range(2)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_kernel_counts()
+        chunk = make_chunk_fn(fn, state, shape, rng, label=label)
+        t1 = time.perf_counter()
+        rows = chunk(reals).read()
+        secs = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        chunk.close()
+        totals.update(kernel_counts())
+        if not all(math.isfinite(v) for r in rows for v in r.values()):
+            raise AssertionError(f"phase 16(c): non-finite metrics {rows}")
+        log(f"phase 16 chunk: {label}: warm-up, capture and a chunk of 2 replays, peak "
+            f"max_memory_allocated {peak:.2f} GiB (bound {CHUNK_PEAK_GIB:g}); the chunk "
+            f"{secs * 1e3:.1f} ms on the host clock = {2 * shape[0] / secs:.2f} images/s "
+            f"[{smi}]")
+        if peak > CHUNK_PEAK_GIB:
+            raise AssertionError(f"phase 16(c): peak {peak:.2f} GiB over {CHUNK_PEAK_GIB} GiB")
+        del state, fn, chunk
+        torch.cuda.empty_cache()
+
+        # (d) phase 13(a)'s case through a one-rank NCCL group: eager against chunks of 2
+        gen0, disc0, tcfg, aux, _, _ = dist_case("r64", dev)
+        g = torch.Generator().manual_seed(74)
+        reals = [(torch.rand((4, 3, 64, 64), generator=g) * 255).to(torch.uint8).numpy()
+                 for _ in range(10)]
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                                world_size=1, rank=0)
+        runs = {}
+        try:
+            mesh = make_mesh(1)
+            for name in ("eager", "chunks of 2"):
+                gen, disc = copy.deepcopy(gen0), copy.deepcopy(disc0)
+                state = init_train_state(gen, disc, tcfg)
+                fn = make_train_step(gen, disc, tcfg, RenderOptions(), aux_reg=aux, mesh=mesh)
+                rng = torch.Generator(dev).manual_seed(75)
+                zero_kernel_counts()
+                COLLECTIVES.clear()
+                if name == "eager":
+                    for r in reals:
+                        fn(state, torch.from_numpy(r).to(dev), rng=rng)
+                else:
+                    chunk = make_chunk_fn(fn, state, reals[0].shape, rng, mesh,
+                                          label="the one-rank NCCL step")
+                    zero_kernel_counts()
+                    COLLECTIVES.clear()
+                    for i in range(0, 10, 2):
+                        chunk(reals[i:i + 2])
+                    chunk.close()
+                torch.cuda.synchronize()
+                runs[name] = (step_snapshot(state), kernel_counts(), sum(COLLECTIVES.values()))
+        finally:
+            dist.destroy_process_group()
+        diff = max((x - y).abs().max().item() for a, b in zip(runs["eager"][0],
+                                                             runs["chunks of 2"][0])
+                   for x, y in zip(a, b))
+        counts, coll = runs["chunks of 2"][1], runs["chunks of 2"][2]
+        log(f"phase 16 nccl: phase 13(a)'s shipped r64 b=4 case, one NCCL rank, 10 steps eager "
+            f"vs 5 chunks of 2 (dispatch_chunk 2), the all-reduces captured with the step: G, "
+            f"D and EMA max abs diff {diff:.3e}; {coll / 10:g} collectives a step through the "
+            f"replays; launches {counts} [{smi}]")
+        if diff != 0 or coll != 30 or counts != runs["eager"][1]:
+            raise AssertionError("phase 16(d): the chunked NCCL steps differ from the eager ones")
+        totals.update(counts)
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
+        torch.use_deterministic_algorithms(False)
+    log(f"phase 16(d) done in {time.perf_counter() - t0:.1f} s")
+
+    # (e) the shipped bench leg, eager and chunked, in turns
+    rep = {}
+    for tag, chunked in (("eager", False), ("chunked", True)):
+        _, chunk = bench_train.measure(True, n_calls=2, K=10, device=str(dev), report=rep,
+                                       tag=tag, chunked=chunked, fused_ray=False)
+        if chunk is not None:
+            chunk.close()
+        torch.cuda.empty_cache()
+    for tag, leg in rep.items():
+        p = leg["profile"]
+        log(f"phase 16 bench: shipped leg r64 b=4 bf16, {tag}: {leg['value']:.2f} images/s over "
+            f"2 calls of 10 steps (calls {[round(r, 2) for r in leg['rates']]}); a profiled "
+            f"{'chunk' if leg['chunked'] else 'run'} of {p['steps']} steps: {p['wall_ms']:.1f} ms "
+            f"host clock, device busy {p['busy_ms']:.1f} ms, idle {p['idle_pct']:.1f} %, "
+            f"{p['device_events']} device events [{smi}]")
+    log(f"phase 16 done in {time.perf_counter() - t0:.1f} s")
+    return totals
 
 
 def main():
@@ -2995,17 +3446,19 @@ def main():
         t_phase = time.perf_counter()
         bench_counts, bf16_times = bench_phase(dev, smi, log, tmp, gen)
         log(f"phase 15 done in {time.perf_counter() - t_phase:.1f} s [{smi}]")
+        chunk_counts = chunk_phase(dev, smi, log)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     # launches on the main paths: serving (phase 4), training (phase 7), apps (phase 11),
     # training from the dataset tool's zip (phase 12), training on several processes (13),
-    # a loaded reference checkpoint served (14), the bf16 step, frame and benches (15)
+    # a loaded reference checkpoint served (14), the bf16 step, frame and benches (15), the
+    # chunks' replays (16)
     for k in ("ray_tile", "inr_tile"):
         launches[k] += (apps[k] + data_counts[k] + dist_counts[k] + ckpt_counts[k]
-                        + bench_counts.get(k, 0))
+                        + bench_counts.get(k, 0) + chunk_counts[k])
     for e in train:
-        e["launches"] += apps[e["name"]] + bench_counts.get(e["name"], 0)
+        e["launches"] += apps[e["name"]] + bench_counts.get(e["name"], 0) + chunk_counts[e["name"]]
     kernels = [
         {"name": "ray_tile", "route": "cuda", "source": "cips3d_tpu_torch/csrc/ray_tile.cu",
          "replaces": "cips3d_tpu/ops/pallas/ray_tile.py:137", "launches": launches["ray_tile"],
@@ -3040,4 +3493,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase13-rank"]:   # one rank of phase 13(b), started by main
         sys.exit(phase13_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--loop-run"]:   # one training-CLI run of phase 10(d), started by main
+        sys.exit(loop_run(sys.argv[2:]))
     sys.exit(main())

@@ -112,7 +112,7 @@ def run_steps(kind, ranks, tiny, dev, mesh=None):
         if cuda:
             torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-        metrics.append(m)
+        metrics.append({k: float(v) for k, v in m.items()})
         if i == 0:
             first = [[p.detach().cpu().clone() for p in mod.parameters()]
                      for mod in (state.generator, state.discriminator, state.ema)]

@@ -47,7 +47,8 @@ def is_annotation(e) -> bool:
 def profile_call(fn: Callable[[], object]) -> Dict[str, object]:
     """One call of ``fn`` on the card under `torch.profiler`: its host-clock
     ms, the device's busy ms and idle share, the number of device events,
-    the names of the port's kernels it ran, the ten largest device times
+    the names of the port's kernels it ran (``kernels``) and how many times
+    each ran (``ours``: {name: device events}), the ten largest device times
     (``top``: [ms, count, name]) and the `record_function` ranges
     (``ranges``: [name, ms, count]).
 
@@ -78,6 +79,7 @@ def profile_call(fn: Callable[[], object]) -> Dict[str, object]:
     return {"wall_ms": wall, "busy_ms": busy, "idle_pct": 100.0 - 100.0 * busy / wall,
             "device_events": sum(e.count for e in kernels),
             "kernels": sorted({e.key for e in kernels if _OURS.search(e.key)}),
+            "ours": {e.key: e.count for e in kernels if _OURS.search(e.key)},
             "top": [[dev_us(e) / 1e3, e.count, e.key]
                     for e in sorted(kernels, key=dev_us, reverse=True)[:10]],
             "ranges": [[e.key, dev_us(e) / 1e3, e.count] for e in ranges]}

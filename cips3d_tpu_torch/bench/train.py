@@ -19,15 +19,17 @@ r64, b = 4 (``BENCH_BATCH``), 12 steps a ray, aux on:
   3. the loader: leg 1's state fed from a zip (``CIPS3D_BENCH_DATA``,
      default ``datasets/blobs_64.zip``, written by `data/synthetic.py` when
      missing) through `ZipImageDataset` and `DataLoader`, uint8 batches
-     normalised on the device.
+     into the chunk's input buffer step by step, normalised on the device.
 ``BENCH_FAST_SIN`` set runs that one configuration only; ``BENCH_FUSED``,
 ``BENCH_VJP``, ``BENCH_DPHASE_INR`` and ``BENCH_DPHASE`` route the kernels
 as in `bench.py`.
 
-A call is a Python loop of K steps ending in the host readback of the last
-``d_loss`` (the step reads its metrics back anyway); the first call warms
-up (kernel build, cuDNN's choices), then each of the timed calls is timed
-on its own.  ``value`` is all timed images over all timed seconds, so a
+A call is one chunk of K steps (`train/chunk.py`), as `bench.py`'s call is
+one ``lax.scan`` of K steps: on the card K replays of a CUDA graph of the
+step, each fed the same uint8 batch through the graph's input buffer,
+ending in the host read of the last ``d_loss``; on the CPU K eager steps.
+The first call builds the chunk (a warm-up step, then the capture) and
+runs it, then each of the timed calls is timed on its own.  ``value`` is all timed images over all timed seconds, so a
 stall counts for as long as it lasts; each call's rate and their median go
 to stderr and to ``--report``, for the spread.  A leg that fails raises:
 the process exits non-zero and prints no JSON line.
@@ -47,6 +49,7 @@ import sys
 import time
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 BASELINE_IMGS_PER_SEC_PER_CHIP = 200000 * 32 / (2 * 86400) / 8   # 4.63
@@ -96,13 +99,21 @@ def _sync(device):
         torch.cuda.synchronize()
 
 
+PROFILED_STEPS = 5   # the chunk profiled for the report
+
+
 def measure(fast_sin: bool, n_calls: int = 4, K: int = 50, *, device="cuda",
-            report: Optional[dict] = None, tag: Optional[str] = None, **build_kw):
-    """Warm up, then time ``n_calls`` calls of K steps each; returns (images/s
-    over all timed calls, state, step function).  With ``report`` (a dict) the leg's
-    per-call rates, launches by product dtype and, on the card, one
-    profiled step land in ``report[tag]``."""
+            report: Optional[dict] = None, tag: Optional[str] = None, chunked: bool = True,
+            **build_kw):
+    """Build the chunk, then time ``n_calls`` calls of K steps each; returns
+    (images/s over all timed calls, the chunk or None).  ``chunked`` False times K
+    eager steps a call instead, each reading its ``d_loss`` back (the loop
+    before chunks; a comparison, not the bench's value).  With ``report`` (a
+    dict) the leg's per-call rates, launches by product dtype and, on the
+    card, one profiled chunk of PROFILED_STEPS steps land in
+    ``report[tag]``."""
     from cips3d_tpu_torch.bench import report as rep
+    from cips3d_tpu_torch.train.chunk import make_chunk_fn
     from cips3d_tpu_torch.train.step import init_train_state, make_train_step
 
     tag = tag or f"fast_sin={int(fast_sin)}"
@@ -112,19 +123,27 @@ def measure(fast_sin: bool, n_calls: int = 4, K: int = 50, *, device="cuda",
     state = init_train_state(gen, disc, tcfg)
     step_fn = make_train_step(gen, disc, tcfg, opts, aux_reg=True)
     rng = torch.Generator(device).manual_seed(0)
-    real = torch.rand((b, 3, IMG_SIZE, IMG_SIZE), generator=rng, device=device) * 2 - 1
-
-    def run_k():
-        nonlocal state
-        for _ in range(K):
-            state, metrics = step_fn(state, real, rng=rng)
-        return metrics["d_loss"]   # a float: the step's metrics are read back to the host
-
+    real = np.random.default_rng(0).integers(0, 256, (b, 3, IMG_SIZE, IMG_SIZE), np.uint8)
     before = rep.launch_counts()
     t0 = time.perf_counter()
+    chunk = None
+    if chunked:
+        chunk = make_chunk_fn(step_fn, state, real.shape, rng, label=f"the bench step ({tag})")
+
+        def run_k(k=K):
+            return chunk([real] * k).read()[-1]["d_loss"]
+    else:
+        real_dev = torch.from_numpy(real).to(device)
+
+        def run_k(k=K):
+            for _ in range(k):
+                _, metrics = step_fn(state, real_dev, rng=rng)
+                loss = float(metrics["d_loss"])
+            return loss
+
     loss = run_k()
-    print(f"[{tag}] warm-up call, {K} steps: {time.perf_counter() - t0:.1f} s  "
-          f"d_loss={loss:.4f}", file=sys.stderr)
+    print(f"[{tag}] {'chunk built and ' if chunked else ''}first call, {K} steps: "
+          f"{time.perf_counter() - t0:.1f} s  d_loss={loss:.4f}", file=sys.stderr)
     rates: List[float] = []
     total = 0.0
     for i in range(n_calls):
@@ -140,20 +159,25 @@ def measure(fast_sin: bool, n_calls: int = 4, K: int = 50, *, device="cuda",
     median = statistics.median(rates)
     print(f"[{tag}] {n_calls} calls: {value:.2f} images/s over all of them, median of the "
           f"calls {median:.2f}", file=sys.stderr)
-    if report is not None:   # the launches of every step here, the profiled one's too
-        leg = {"rates": rates, "value": value, "median": median, "steps": (n_calls + 1) * K}
+    if report is not None:   # the launches of every step here, the profiled ones' too
+        leg = {"rates": rates, "value": value, "median": median, "steps": (n_calls + 1) * K,
+               "chunked": chunked}
         if torch.device(device).type == "cuda":
-            leg["profile"] = rep.profile_call(lambda: step_fn(state, real, rng=rng))
-            leg["steps"] += 1
+            leg["profile"] = rep.profile_call(lambda: run_k(PROFILED_STEPS))
+            leg["profile"]["steps"] = PROFILED_STEPS
+            leg["steps"] += PROFILED_STEPS
         leg["launches"] = rep.launches_since(before)
         report[tag] = leg
-    return value, state, step_fn
+    return value, chunk
 
 
-def bench_with_input_pipeline(step_fn, state, n_steps: int = 100, *, device="cuda",
+def bench_with_input_pipeline(chunk, n_steps: int = 100, K: int = 50, *, device="cuda",
                               report: Optional[dict] = None) -> float:
-    """The loader leg: one warm-up step, then ``n_steps`` steps fed from the
-    zip; images/s over them (loader, the host-to-card copy and the step)."""
+    """The loader leg on the shipped leg's chunk: one warm-up step, then
+    ``n_steps`` steps fed from the zip in chunks of at most K, each step's
+    batch copied into the chunk's input buffer; images/s over them (loader,
+    the host-to-card copies and the steps), ending in the host read of the
+    last ``d_loss``."""
     from cips3d_tpu_torch.bench import report as rep
     from cips3d_tpu_torch.data.zip_dataset import DataLoader, ZipImageDataset
 
@@ -169,22 +193,22 @@ def bench_with_input_pipeline(step_fn, state, n_steps: int = 100, *, device="cud
     b = batch_size()
     ds = ZipImageDataset(data, resize_resolution=IMG_SIZE, xflip=True)
     loader = DataLoader(ds, batch_size=b, num_workers=2)
-    rng = torch.Generator(device).manual_seed(1)
     before = rep.launch_counts()
     try:
-        imgs, _ = next(loader)   # warm-up
-        state, metrics = step_fn(state, torch.from_numpy(imgs).to(device), rng=rng)
+        chunk([next(loader)[0]]).read()   # warm-up
         _sync(device)
         t0 = time.perf_counter()
-        for _ in range(n_steps):
-            imgs, _ = next(loader)
-            state, metrics = step_fn(state, torch.from_numpy(imgs).to(device), rng=rng)
+        done = 0
+        while done < n_steps:
+            k = min(K, n_steps - done)
+            loss = chunk([next(loader)[0] for _ in range(k)]).read()[-1]["d_loss"]
+            done += k
         dt = time.perf_counter() - t0
     finally:
         loader.close()
     ips = n_steps * b / dt
     print(f"real-data pipeline: {n_steps} steps in {dt:.2f} s = {ips:.1f} images/s "
-          f"(loader, copy to the device and the step)  d_loss={metrics['d_loss']:.4f}",
+          f"(loader, copy to the device and the steps, chunks of {K})  d_loss={loss:.4f}",
           file=sys.stderr)
     if report is not None:
         report["loader"] = {"images_per_sec": ips, "steps": n_steps + 1,
@@ -214,16 +238,18 @@ def main(argv=None) -> int:
     forced = os.environ.get("BENCH_FAST_SIN")
     extra = {}
     if forced is not None:   # one requested configuration, nothing else
-        ips, state, step_fn = measure(forced == "1", args.calls, **kw)
+        ips, _ = measure(forced == "1", args.calls, **kw)
     else:
         # the shipped config, then the exact-sine alternate with its fused residual
         # backward in the same process, then the loader
-        ips, state, step_fn = measure(True, args.calls, tag="shipped", **kw)
-        exact, _, _ = measure(False, args.exact_calls, fused_ray=True,
-                              fused_ray_vjp="pallas_residual", tag="exact_sin", **kw)
+        ips, chunk = measure(True, args.calls, tag="shipped", **kw)
+        chunk.close()   # the exact-sine leg's graph next; the loader leg captures again
+        exact, exact_chunk = measure(False, args.exact_calls, fused_ray=True,
+                                     fused_ray_vjp="pallas_residual", tag="exact_sin", **kw)
+        exact_chunk.close()
         extra["exact_sin_imgs_per_sec"] = round(exact, 2)
         extra["loader_imgs_per_sec"] = round(bench_with_input_pipeline(
-            step_fn, state, args.loader_steps, device=args.device, report=report), 1)
+            chunk, args.loader_steps, args.k, device=args.device, report=report), 1)
     if report is not None:
         with open(args.report, "w") as f:
             json.dump(report, f, indent=1)

@@ -130,7 +130,9 @@ def create_cam2world_matrix(forward_vector, origin, up_vector=None):
     """Look-at cam2world matrix (b, 4, 4)."""
     forward_vector = normalize_vecs(forward_vector)
     if up_vector is None:
-        up_vector = forward_vector.new_tensor([0.0, 1.0, 0.0]).expand_as(forward_vector)
+        # filled on the device (no copy from host memory: a captured step makes it too)
+        up_vector = torch.zeros_like(forward_vector)
+        up_vector.select(-1, 1).fill_(1.0)
     left_vector = normalize_vecs(torch.linalg.cross(up_vector, forward_vector, dim=-1))
     up_vector = normalize_vecs(torch.linalg.cross(forward_vector, left_vector, dim=-1))
     rot = torch.stack([-left_vector, up_vector, -forward_vector], -1)

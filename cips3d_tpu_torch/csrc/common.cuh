@@ -5,6 +5,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <utility>
+
 namespace cips {
 
 // Matmul-input types: float, or bf16 with float accumulation.
@@ -51,12 +55,32 @@ __host__ __device__ inline size_t take(size_t& off, size_t bytes) {
   return o;
 }
 
+// Raise `kernel`'s dynamic shared-memory limit on the current device to at
+// least `bytes`.  The limit only grows and is set once per (device, kernel,
+// size): a launch that fits what is set makes no CUDA call besides itself,
+// so a training step captured into a CUDA graph after its warm-up launches
+// only kernels.
+template <typename K>
+cudaError_t raise_smem(K kernel, size_t bytes) {
+  static std::mutex mu;
+  static std::map<std::pair<int, const void*>, size_t> set;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const std::pair<int, const void*> key(dev, reinterpret_cast<const void*>(kernel));
+  std::lock_guard<std::mutex> hold(mu);
+  auto it = set.find(key);
+  if (it != set.end() && it->second >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) set[key] = bytes;
+  return err;
+}
+
 // Resident warps per SM of `kernel` at `threads` threads and `smem` bytes of
 // dynamic shared memory: out[0] warps, out[1] shared bytes, out[2] threads.
 template <typename K>
 int occupancy(K kernel, int threads, size_t smem, int* out) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = raise_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);

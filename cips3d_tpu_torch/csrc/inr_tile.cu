@@ -397,9 +397,7 @@ __global__ void __launch_bounds__(kThreads, 1) inr_tile_kernel(InrArgs a) {
 template <typename T>
 int launch(const InrArgs& a, int grid, cudaStream_t stream) {
   const InrLayout lay = InrLayout::make<T>();
-  cudaError_t err = cudaFuncSetAttribute(inr_tile_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)lay.total);
+  const cudaError_t err = cips::raise_smem(inr_tile_kernel<T>, lay.total);
   if (err != cudaSuccess) return (int)err;
   inr_tile_kernel<T><<<grid, kThreads, lay.total, stream>>>(a);
   return (int)cudaGetLastError();

@@ -60,6 +60,7 @@ struct RayArgs {
   const float* u;      // (b, n, S) importance-sample uniforms
   const float* nc;     // (b, n, S) resample density noise
   const float* nf;     // (b, n, 2S) compositing density noise
+  const float* noise;  // (1,) density-noise scale, read on the device (a traced schedule)
   const void* wbuf;    // mm type: w_0 (3,H), w_1.. (H,H), wc (H,C), wr (C,R), ws (H)
   const float* pbuf;   // b_0.. (H), bc (C), br (R), bs (1); padded
   const float* films;  // (b, nfilm): g_0, f_0, g_1, f_1, .. (H each), gc, fc (C each); padded
@@ -72,7 +73,7 @@ struct RayArgs {
   float* rgb;          // scratch (grid, kRays, 2S, R)
   int b, n, S, L, H, C, R, grid;
   int np, nfilm;       // padded element counts of pbuf and one films row
-  float noise_std, warp_scale;
+  float warp_scale;
   int softplus, white_back, last_back, use_noise, fast_sin, out_bf16;
 };
 
@@ -133,6 +134,9 @@ __global__ void __launch_bounds__(kThreads, 1) ray_tile_kernel(RayArgs a) {
   const int warp = tid >> 5, lane = tid & 31;
   const int nrb = (n + kRays - 1) / kRays;
   float* rgbs = a.rgb + (size_t)blockIdx.x * kRays * M * R;   // this block's slot
+  // the scale lives on the device, as the Pallas kernel's ns_ref[0, 0]: a CUDA graph of a
+  // training step replays with the step's own value.  Without noise it is never read.
+  const float noise_std = a.use_noise ? __ldg(a.noise) : 0.f;
 
   cips_mlp::load_weights<T>(wsm, static_cast<const T*>(a.wbuf), wl, a.L, a.H, a.C, R);
   for (int i = tid; i < a.np; i += kThreads) psm[i] = a.pbuf[i];
@@ -196,7 +200,7 @@ __global__ void __launch_bounds__(kThreads, 1) ray_tile_kernel(RayArgs a) {
 
     run_pass(false);
     cips_ray::resample_ray(zall + warp * M, sall + warp * M + S, uv + warp * S, ncv + warp * S,
-                           t1 + warp * M, t2 + warp * M, S, a.use_noise, a.noise_std, a.softplus);
+                           t1 + warp * M, t2 + warp * M, S, a.use_noise, noise_std, a.softplus);
     __syncthreads();
     run_pass(true);
 
@@ -206,7 +210,7 @@ __global__ void __launch_bounds__(kThreads, 1) ray_tile_kernel(RayArgs a) {
     float wsum;
     const cips_ray::CompLane cl = cips_ray::composite_ray(
         zall + r * M, sall + r * M, nfv + r * M, t1 + r * M, rank + r * M, M, a.use_noise,
-        a.noise_std, a.softplus, a.last_back, wsum);
+        noise_std, a.softplus, a.last_back, wsum);
     float dpart = 0.f;
 #pragma unroll
     for (int t = 0; t < 2; ++t) {
@@ -237,9 +241,7 @@ __global__ void __launch_bounds__(kThreads, 1) ray_tile_kernel(RayArgs a) {
 template <typename T, bool kRes>
 int launch(const RayArgs& a, cudaStream_t stream) {
   const RayLayout lay = RayLayout::make<T>(a);
-  cudaError_t err = cudaFuncSetAttribute(ray_tile_kernel<T, kRes>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)lay.total);
+  const cudaError_t err = cips::raise_smem(ray_tile_kernel<T, kRes>, lay.total);
   if (err != cudaSuccess) return (int)err;
   ray_tile_kernel<T, kRes><<<a.grid, kThreads, lay.total, stream>>>(a);
   return (int)cudaGetLastError();
@@ -251,16 +253,16 @@ int launch(const RayArgs& a, cudaStream_t stream) {
 extern "C" int cips_ray_tile_block_rays() { return kRays; }
 
 // Shapes as in RayArgs; rh, ra, rhc, rac are all null (no residuals) or
-// all set.  rgb is (grid, kRays, 2S, R) f32 scratch.  The wrapper checks S
+// all set.  noise is the density-noise scale, one f32 on the device (null
+// without flags bit 0, and read only with it).  rgb is (grid, kRays, 2S, R) f32 scratch.  The wrapper checks S
 // in [3, 32], H, C, R multiples of 16 up to 128, and pads pbuf and the
 // films rows to 16-byte multiples.  Returns the CUDA error of the launch (0
 // on success).
 extern "C" int cips_ray_tile_forward(
     const void* pts, const void* org, const void* dir, const void* z, const void* u,
-    const void* nc, const void* nf, const void* wbuf, const void* pbuf, const void* films,
-    void* fea, void* depth, void* rh, void* ra, void* rhc, void* rac, void* rgb,
-    int b, int n, int S, int L, int H, int C, int R, int grid,
-    float noise_std, float warp_scale,
+    const void* nc, const void* nf, const void* noise, const void* wbuf, const void* pbuf,
+    const void* films, void* fea, void* depth, void* rh, void* ra, void* rhc, void* rac,
+    void* rgb, int b, int n, int S, int L, int H, int C, int R, int grid, float warp_scale,
     int np, int nfilm, int softplus, int white_back, int last_back, int flags,
     void* stream) {
   RayArgs a;
@@ -271,6 +273,7 @@ extern "C" int cips_ray_tile_forward(
   a.u = static_cast<const float*>(u);
   a.nc = static_cast<const float*>(nc);
   a.nf = static_cast<const float*>(nf);
+  a.noise = static_cast<const float*>(noise);
   a.wbuf = wbuf;
   a.pbuf = static_cast<const float*>(pbuf);
   a.films = static_cast<const float*>(films);
@@ -284,7 +287,6 @@ extern "C" int cips_ray_tile_forward(
   a.b = b; a.n = n; a.S = S; a.L = L; a.H = H; a.C = C; a.R = R;
   a.grid = grid;
   a.np = np; a.nfilm = nfilm;
-  a.noise_std = noise_std;
   a.warp_scale = warp_scale;
   a.softplus = softplus;
   a.white_back = white_back;

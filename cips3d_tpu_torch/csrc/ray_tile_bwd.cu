@@ -67,6 +67,7 @@ constexpr int kXW = 8;          // row width of the point scratch (3 used)
 
 struct BwdArgs {
   const float *pts, *org, *dir, *z, *u, *nc, *nf;   // as the forward's
+  const float* noise;  // (1,) density-noise scale on the device, as the forward's
   const void* wbuf;    // mm type: w_0 (3,H), w_1.. (H,H), wc (H,C), wr (C,R), ws (H)
   const float* pbuf;   // b_0.. (H), bc (C), br (R), bs (1); padded
   const float* films;  // (b, nfilm): g_0, f_0, g_1, f_1, .. (H each), gc, fc (C each)
@@ -81,7 +82,7 @@ struct BwdArgs {
   float* part_b;       // (b, gx, nb + nf): per-block bias and FiLM sums
   float* dpts;         // (b, n, S, 3)
   int b, n, S, L, H, C, R, gx, np, nfilm;
-  float noise_std, warp_scale;
+  float warp_scale;
   int softplus, white_back, last_back, use_noise, fast_sin;
 };
 
@@ -217,6 +218,7 @@ __global__ void __launch_bounds__(kThreads, 1) ray_tile_bwd_cot(BwdArgs a) {
   const float* gc = fsm + 2 * LH;
   const float* fcv = gc + C;
 
+  const float noise_std = a.use_noise ? __ldg(a.noise) : 0.f;
   const int nrb = (n + kRays - 1) / kRays;
   for (int rb = blockIdx.x; rb < nrb; rb += a.gx) {
     const int ray0 = rb * kRays;
@@ -287,7 +289,7 @@ __global__ void __launch_bounds__(kThreads, 1) ray_tile_bwd_cot(BwdArgs a) {
     phase_a(false);
     __syncthreads();
     cips_ray::resample_ray(zall + warp * M, sall + warp * M + S, uv + warp * S, ncv + warp * S,
-                           t1 + warp * M, t2 + warp * M, S, a.use_noise, a.noise_std, a.softplus);
+                           t1 + warp * M, t2 + warp * M, S, a.use_noise, noise_std, a.softplus);
     __syncthreads();
     phase_a(true);
     __syncthreads();
@@ -298,7 +300,7 @@ __global__ void __launch_bounds__(kThreads, 1) ray_tile_bwd_cot(BwdArgs a) {
       float wsum;
       const cips_ray::CompLane cl = cips_ray::composite_ray(
           zall + r * M, sall + r * M, nfv + r * M, t1 + r * M, rank + r * M, M, a.use_noise,
-          a.noise_std, a.softplus, a.last_back, wsum);
+          noise_std, a.softplus, a.last_back, wsum);
       const float* df = dfv + r * R;
       float dw0[2] = {0.f, 0.f}, lastpart = 0.f;
 #pragma unroll
@@ -690,17 +692,14 @@ template <typename T>
 int launch(const BwdArgs& a, float* part_w, int nsplit, int split_rows, float* out_w,
            float* out_f, cudaStream_t stream) {
   const CotLayout lay = CotLayout::make<T>(a);
-  cudaError_t err = cudaFuncSetAttribute(ray_tile_bwd_cot<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)lay.total);
+  cudaError_t err = cips::raise_smem(ray_tile_bwd_cot<T>, lay.total);
   if (err != cudaSuccess) return (int)err;
   ray_tile_bwd_cot<T><<<dim3(a.gx, a.b), kThreads, lay.total, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const WgradArgs w = wgrad_args(a, part_w, split_rows);
   const size_t sm = wg_smem<T>(wmax(a), wmax(a));   // enough for every job
-  err = cudaFuncSetAttribute(ray_tile_bwd_wgrad<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)sm);
+  err = cips::raise_smem(ray_tile_bwd_wgrad<T>, sm);
   if (err != cudaSuccess) return (int)err;
   ray_tile_bwd_wgrad<T><<<dim3(nsplit, w.njobs), kWThreads, sm, stream>>>(w);
   err = cudaGetLastError();
@@ -719,7 +718,7 @@ extern "C" int cips_ray_tile_backward_cot_width(int L, int H, int C, int R) {
   return CotRow(L, H, C, R).width;
 }
 
-// Shapes as in BwdArgs; rh, ra, rhc, rac in the layout of
+// Shapes as in BwdArgs (noise as the forward's); rh, ra, rhc, rac in the layout of
 // cips_ray_tile_forward's residuals (residual mode: the forward's; recompute
 // mode: the wrapper's rerun of the forward).  xs (b, 2, n, S, 8) and dq
 // (b, 2, n, S, cot_width) are mm-type scratch, part_b (b, gx, nb + nf) and
@@ -729,11 +728,11 @@ extern "C" int cips_ray_tile_backward_cot_width(int L, int H, int C, int R) {
 // order.  Returns the CUDA error of the launches (0 on success).
 extern "C" int cips_ray_tile_backward(
     const void* pts, const void* org, const void* dir, const void* z, const void* u,
-    const void* nc, const void* nf, const void* wbuf, const void* pbuf, const void* films,
-    const void* dfea, const void* ddep, const void* rh, const void* ra, const void* rhc,
+    const void* nc, const void* nf, const void* noise, const void* wbuf, const void* pbuf,
+    const void* films, const void* dfea, const void* ddep, const void* rh, const void* ra, const void* rhc,
     const void* rac, void* xs, void* dq, void* part_b, void* part_w, void* dpts, void* out_w,
     void* out_f, int b, int n, int S, int L, int H, int C, int R, int gx, int nsplit,
-    int split_rows, int np, int nfilm, float noise_std, float warp_scale, int softplus,
+    int split_rows, int np, int nfilm, float warp_scale, int softplus,
     int white_back, int last_back, int flags, void* stream) {
   if (split_rows % kWRows != 0 || (long long)nsplit * split_rows < (long long)b * 2 * n * S)
     return (int)cudaErrorInvalidValue;
@@ -745,6 +744,7 @@ extern "C" int cips_ray_tile_backward(
   a.u = static_cast<const float*>(u);
   a.nc = static_cast<const float*>(nc);
   a.nf = static_cast<const float*>(nf);
+  a.noise = static_cast<const float*>(noise);
   a.wbuf = wbuf;
   a.pbuf = static_cast<const float*>(pbuf);
   a.films = static_cast<const float*>(films);
@@ -760,7 +760,6 @@ extern "C" int cips_ray_tile_backward(
   a.dpts = static_cast<float*>(dpts);
   a.b = b; a.n = n; a.S = S; a.L = L; a.H = H; a.C = C; a.R = R; a.gx = gx;
   a.np = np; a.nfilm = nfilm;
-  a.noise_std = noise_std;
   a.warp_scale = warp_scale;
   a.softplus = softplus;
   a.white_back = white_back;

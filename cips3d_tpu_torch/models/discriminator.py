@@ -38,7 +38,8 @@ from cips3d_tpu_torch.models.layers import (EqualConv2d, EqualConvTranspose2d, E
                                             minibatch_stddev)
 from cips3d_tpu_torch.ops.diffaug import DiffAugDraws, diff_augment, draw_diffaug
 from cips3d_tpu_torch.ops.fused_act import fused_leaky_relu, scaled_leaky_relu
-from cips3d_tpu_torch.ops.upfirdn2d import blur_pad_down, blur_pad_up, make_kernel, upfirdn2d
+from cips3d_tpu_torch.ops.upfirdn2d import (blur_pad_down, blur_pad_up, make_kernel, on_device,
+                                           upfirdn2d)
 from cips3d_tpu_torch.utils import debug
 
 BLUR_KERNEL = (1, 3, 3, 1)
@@ -78,9 +79,10 @@ def _resize_matrix(in_size: int, out_size: int) -> np.ndarray:
 
 
 def resize_bilinear(x: torch.Tensor, size: int) -> torch.Tensor:
-    """NCHW bilinear resize of H and W to ``size``, as `jax.image.resize`."""
-    my = torch.as_tensor(_resize_matrix(x.shape[2], size), dtype=x.dtype, device=x.device)
-    mx = torch.as_tensor(_resize_matrix(x.shape[3], size), dtype=x.dtype, device=x.device)
+    """NCHW bilinear resize of H and W to ``size``, as `jax.image.resize`
+    (its matrices made on the device once per shape, `upfirdn2d.on_device`)."""
+    my, mx = (on_device(("resize", n, size), lambda n=n: _resize_matrix(n, size), x.dtype,
+                        x.device) for n in x.shape[2:])
     return torch.einsum("oh,nchw,pw->ncop", my, x, mx)
 
 
@@ -207,8 +209,11 @@ class DiscriminatorMultiScale(nn.Module):
         self.out_linear = EqualLinear(final_in, 1, **g)
         self.stddev_group = stddev_group
 
-    def forward(self, x: torch.Tensor, alpha: float = 1.0, fade_in: bool = True,
+    def forward(self, x: torch.Tensor, alpha=1.0, fade_in: bool = True,
                 diffaug: Optional[DiffAugDraws] = None) -> torch.Tensor:
+        """Logits (b, 1).  ``alpha`` (a number, or a 0-d tensor on the device:
+        the step's fade-in schedule) blends in the half-resolution head under
+        ``fade_in``."""
         if self.diffaug and diffaug is not None:
             x = diff_augment(x, diffaug)
         size = x.shape[-1]
@@ -258,7 +263,7 @@ class DiscriminatorMultiScaleAux(nn.Module):
         self.aux_disc = DiscriminatorMultiScale(first_downsample=True, use_aux_channels=True,
                                                 **common)
 
-    def forward(self, x: torch.Tensor, alpha: float = 1.0, use_aux_disc: bool = False,
+    def forward(self, x: torch.Tensor, alpha=1.0, use_aux_disc: bool = False,
                 fade_in: bool = True, diffaug=None) -> torch.Tensor:
         """With ``use_aux_disc`` the first half of the batch goes to the main
         D and the second half (the NeRF aux images) to the aux D.

@@ -18,7 +18,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-from typing import Dict, Mapping, NamedTuple, Optional, Tuple
+from typing import Any, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -32,7 +32,8 @@ from cips3d_tpu_torch.models.layers import TorchLinear
 from cips3d_tpu_torch.models.mapping import MultiHeadMappingNetwork
 from cips3d_tpu_torch.models.nerf_net import NeRFNetwork
 from cips3d_tpu_torch.ops.inr_tile import fused_inr_decode
-from cips3d_tpu_torch.ops.ray_tile import VJP_IMPLS, RayDraws, draw_ray_randoms, fused_ray_render
+from cips3d_tpu_torch.ops.ray_tile import (VJP_IMPLS, RayDraws, draw_ray_randoms, fused_ray_render,
+                                           uses_noise)
 from cips3d_tpu_torch.utils import debug
 
 
@@ -94,7 +95,7 @@ class RenderOptions:
     clamp_mode: str = "relu"
     white_back: bool = False
     last_back: bool = False
-    nerf_noise: float = 0.0
+    nerf_noise: Any = 0.0        # a number, or a 0-d tensor (the training step's schedule)
     psi: float = 1.0
 
 
@@ -182,7 +183,7 @@ class GeneratorNerfINR(nn.Module):
             return self._decode_pixels(fea, depth, style_dict, return_depth, c)
         fea, depth = fused_ray_render(
             self.siren, style_dict, pts, origins, dirs, z_vals,
-            draws=draws, generator=generator, noise_std=float(opts.nerf_noise),
+            draws=draws, generator=generator, noise_std=opts.nerf_noise,
             clamp_mode=opts.clamp_mode, white_back=opts.white_back,
             last_back=opts.last_back, dtype=self.dtype, fast_sin=c.fast_sin,
             vjp_impl=c.fused_ray_vjp)
@@ -200,12 +201,11 @@ class GeneratorNerfINR(nn.Module):
         without hierarchical sampling).  Under ``freeze_nerf`` the stage
         runs without gradient.  Returns (features, depth)."""
         b, n, s, _ = pts.shape
-        noise_std = float(opts.nerf_noise)
+        noise_std = opts.nerf_noise
+        noise = uses_noise(noise_std)
         if draws is None:
-            draws = draw_ray_randoms(b, n, s, noise_std != 0, generator, pts.device,
+            draws = draw_ray_randoms(b, n, s, noise, generator, pts.device,
                                      hierarchical=opts.hierarchical_sample)
-
-        noise = noise_std != 0
 
         def siren(p):
             rgb, sigma = self.siren(p.reshape(b, n * s, 3), style_dict)
@@ -344,7 +344,7 @@ class GeneratorNerfINR(nn.Module):
         for i, (idx, rd) in enumerate(parts):
             n = n_all if idx is None else idx.shape[0]
             if rd is None:
-                rd = draw_ray_randoms(b, n, steps, float(opts.nerf_noise) != 0, generator,
+                rd = draw_ray_randoms(b, n, steps, uses_noise(opts.nerf_noise), generator,
                                       self.device, hierarchical=opts.hierarchical_sample)
             lo, hi = mesh.pixel_range(n)
             idx_r = torch.arange(lo, hi, device=self.device) if idx is None else idx[lo:hi]

@@ -76,7 +76,7 @@ class GeneratorDiffcam(GeneratorNerfINR):
             style_dict = truncate_styles(style_dict, avg_styles, psi)
         if draws is None:
             draws = draw_diffcam(b, n, nk, generator, rays_o.device)
-        noise = float(nk.raw_noise_std)
+        noise = nk.raw_noise_std   # a number, or the step's 0-d schedule tensor
 
         z_vals = torch.linspace(nk.near, nk.far, s, dtype=rays_o.dtype, device=rays_o.device)
         z_vals = z_vals[None, None, :, None].expand(b, n, s, 1)

@@ -162,7 +162,7 @@ class ImplicitGenerator3d(nn.Module):
         b, s = z.shape[0], opts.num_steps
         if draws is None:
             draws = draw_pigan(b, opts, generator, z.device)
-        noise = float(opts.nerf_noise)
+        noise = opts.nerf_noise   # a number, or the step's 0-d schedule tensor
         world = rays_lib.get_world_points_and_direction(
             b, s, opts.img_size, opts.fov, opts.ray_start, opts.ray_end, opts.h_stddev,
             opts.v_stddev, opts.h_mean, opts.v_mean, opts.sample_dist,
@@ -282,7 +282,9 @@ class ProgressiveDiscriminator(nn.Module):
         self.fromRGB = nn.ModuleList(AdapterBlock(c, generator=g) for c in PIGAN_PLANES)
         self.final_layer = _conv(400, (1 + 256 + 2) if predict_encodings else 1, 2, g)
 
-    def forward(self, x, alpha: float = 1.0):
+    def forward(self, x, alpha=1.0):
+        """(logit, latent, position); ``alpha`` a number or the step's 0-d
+        fade-in tensor."""
         size = x.shape[-1]
         start = PIGAN_START[size]
         h = self.fromRGB[start](x)

@@ -34,10 +34,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "cips_ray_tile_forward": [_P] * 17 + [_I] * 8 + [_F, _F] + [_I] * 6 + [_P],
+    # the density-noise scale is a pointer (a one-element f32 tensor on the device, null
+    # where the noise does not apply)
+    "cips_ray_tile_forward": [_P] * 18 + [_I] * 8 + [_F] + [_I] * 6 + [_P],
     "cips_ray_tile_forward_occupancy": [_I] * 6 + [_P],
     "cips_ray_tile_block_rays": [],
-    "cips_ray_tile_backward": [_P] * 23 + [_I] * 12 + [_F, _F] + [_I] * 4 + [_P],
+    "cips_ray_tile_backward": [_P] * 24 + [_I] * 12 + [_F] + [_I] * 4 + [_P],
     "cips_ray_tile_backward_cot_width": [_I] * 4,
     "cips_ray_tile_backward_occupancy": [_I] * 7 + [_P],
     "cips_inr_tile_forward": [_P] * 9 + [_I] * 7 + [_P],

@@ -20,7 +20,10 @@ raises.  `RayTileFunction` puts them under autograd.
 
 The random draws (importance-sample uniforms ``u``, density noise ``nc`` and
 ``nf``) are made outside the kernel, as in the JAX package, and can be
-passed in: `RayDraws`.  The style FCs that make the FiLM gains and biases
+passed in: `RayDraws`.  The noise scale ``noise_std`` is a number or a 0-d
+float32 tensor (the training step's schedule, on the device): the kernels
+read it from a device operand, as the Pallas kernel reads ``ns_ref``, so a
+captured step replays with each step's value (`uses_noise`).  The style FCs that make the FiLM gains and biases
 (`compute_films`) are tiny matmuls outside the kernel.
 
 Numerics as in the Pallas kernel: matmul inputs in the mm dtype (f32 or
@@ -52,6 +55,14 @@ class RayDraws(NamedTuple):
     u: torch.Tensor    # (b, n, S) importance-sample uniforms in [0, 1)
     nc: torch.Tensor   # (b, n, S) resample density noise, standard normal
     nf: torch.Tensor   # (b, n, 2S) compositing density noise, standard normal
+
+
+def uses_noise(noise_std) -> bool:
+    """Whether density noise applies: always for a tensor (a schedule on the
+    device, which may reach 0 inside a CUDA graph), else unless it is a
+    literal 0 (the Pallas wrapper's rule, `ray_tile.py:957`).  Adding ``nc *
+    0`` is exact, so a tensor at 0 gives the noiseless result."""
+    return not (isinstance(noise_std, (int, float)) and noise_std == 0)
 
 
 def draw_ray_randoms(b: int, n: int, S: int, use_noise: bool,
@@ -167,7 +178,7 @@ def _fine_depths(sig_c, z, u, nc, noise_std, clamp_mode):
     importance sample: fine depths (b, n, S)."""
     S = z.shape[-1]
     deltas = torch.cat([z[..., 1:] - z[..., :-1], torch.full_like(z[..., :1], 1e10)], -1)
-    sc = sig_c + nc * noise_std if noise_std != 0 else sig_c
+    sc = sig_c + nc * noise_std if uses_noise(noise_std) else sig_c
     alpha = 1.0 - torch.exp(-deltas * _density(sc, clamp_mode))
     logx = torch.log(torch.clamp(1.0 - alpha, min=1e-10))   # max(), never + eps
     excl = torch.triu(torch.ones(S, S, dtype=z.dtype, device=z.device), diagonal=1)
@@ -192,7 +203,7 @@ def _fine_depths(sig_c, z, u, nc, noise_std, clamp_mode):
 
 
 def plain_fine_depths(
-    wt, pts, z, u, nc, noise_std: float = 0.0, *, clamp_mode: str = "relu",
+    wt, pts, z, u, nc, noise_std=0.0, *, clamp_mode: str = "relu",
     fast_sin: bool = False, mm_dtype=torch.float32, warp_scale: float = 2.0 / 0.24,
 ) -> torch.Tensor:
     """The fine depths (b, n, S) that `ray_tile_plain` samples from the same
@@ -214,7 +225,7 @@ def _composite(fine_z, z, sig_f, sig_c, nf, noise_std, clamp_mode, last_back):
     tie = ar[None, :] < ar[:, None]                                     # k < j: fine first
     before = (less | (equal & tie)).to(z.dtype)
     rank = before.sum(-1)
-    if noise_std != 0:
+    if uses_noise(noise_std):
         sig_all = sig_all + nf * noise_std
     dens = _density(sig_all, clamp_mode)
     succ = (rank[..., :, None] + 1.0 == rank[..., None, :]).to(z.dtype)
@@ -233,7 +244,7 @@ def _composite(fine_z, z, sig_f, sig_c, nf, noise_std, clamp_mode, last_back):
 
 
 def ray_tile_plain(
-    wt, pts, org, dirs, z, u, nc, nf, noise_std: float = 0.0, *,
+    wt, pts, org, dirs, z, u, nc, nf, noise_std=0.0, *,
     clamp_mode: str = "relu", white_back: bool = False, last_back: bool = False,
     fast_sin: bool = False, mm_dtype=torch.float32, warp_scale: float = 2.0 / 0.24,
     out_dtype=torch.float32, fine_z: Optional[torch.Tensor] = None,
@@ -284,7 +295,7 @@ def ray_tile_plain(
 
 
 def ray_tile_bwd_plain(
-    wt, pts, org, dirs, z, u, nc, nf, noise_std: float, d_fea, d_dep, *,
+    wt, pts, org, dirs, z, u, nc, nf, noise_std, d_fea, d_dep, *,
     residuals=None, clamp_mode: str = "relu", white_back: bool = False,
     last_back: bool = False, fast_sin: bool = False, mm_dtype=torch.float32,
     warp_scale: float = 2.0 / 0.24, fine_z: Optional[torch.Tensor] = None,
@@ -486,8 +497,29 @@ def _residual_shapes(b, n, S, L, H, C, mm_dtype):
 
 
 def _flags(noise_std, fast_sin, mm_dtype, out_dtype=torch.float32):
-    return (int(noise_std != 0) | int(fast_sin) << 1 | int(mm_dtype == torch.bfloat16) << 2
-            | int(out_dtype == torch.bfloat16) << 3)
+    return (int(uses_noise(noise_std)) | int(fast_sin) << 1
+            | int(mm_dtype == torch.bfloat16) << 2 | int(out_dtype == torch.bfloat16) << 3)
+
+
+def noise_operand(noise_std, dev) -> Optional[torch.Tensor]:
+    """The density-noise scale as #2, #2r and #3 read it: one float32 on
+    ``dev``, or None where the noise does not apply (a literal 0: the kernel
+    then reads nothing and gets a null pointer).  A tensor is used where it
+    lies (a 0-d schedule value of the step); another number is filled in on
+    the device, with no copy from host memory, which a CUDA-graph capture
+    would refuse."""
+    if not uses_noise(noise_std):
+        return None
+    if torch.is_tensor(noise_std):
+        if noise_std.numel() != 1 or noise_std.device != dev:
+            raise ValueError(f"noise_std: expected one element on {dev}, got "
+                             f"{tuple(noise_std.shape)} on {noise_std.device}")
+        return noise_std.reshape(1).to(torch.float32).contiguous()
+    return torch.full((1,), float(noise_std), dtype=torch.float32, device=dev)
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def _launch_forward(lib, inputs, packed, dims, noise_std, res, *, clamp_mode, white_back,
@@ -505,12 +537,13 @@ def _launch_forward(lib, inputs, packed, dims, noise_std, res, *, clamp_mode, wh
     depth = torch.empty((b, n, 1), dtype=torch.float32, device=dev)
     rgb = torch.empty((grid, BLOCK_RAYS, 2 * S, R), dtype=torch.float32, device=dev)
     res_ptrs = [t.data_ptr() for t in res] if res else [None] * 4
+    noise = noise_operand(noise_std, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.cips_ray_tile_forward(
-            *(t.data_ptr() for t in inputs), wbuf.data_ptr(), pbuf.data_ptr(), films.data_ptr(),
-            fea.data_ptr(), depth.data_ptr(), *res_ptrs, rgb.data_ptr(),
-            b, n, S, L, H, C, R, grid, float(noise_std), float(warp_scale),
+            *(t.data_ptr() for t in inputs), _ptr(noise), wbuf.data_ptr(), pbuf.data_ptr(),
+            films.data_ptr(), fea.data_ptr(), depth.data_ptr(), *res_ptrs, rgb.data_ptr(),
+            b, n, S, L, H, C, R, grid, float(warp_scale),
             pbuf.numel(), films.shape[1], int(clamp_mode == "softplus"), int(white_back),
             int(last_back), _flags(noise_std, fast_sin, mm_dtype, out_dtype), stream)
     build.check(lib, err, "ray_tile")
@@ -518,7 +551,7 @@ def _launch_forward(lib, inputs, packed, dims, noise_std, res, *, clamp_mode, wh
 
 
 def ray_tile_cuda(
-    wt, pts, org, dirs, z, u, nc, nf, noise_std: float = 0.0, *,
+    wt, pts, org, dirs, z, u, nc, nf, noise_std=0.0, *,
     clamp_mode: str = "relu", white_back: bool = False, last_back: bool = False,
     fast_sin: bool = False, mm_dtype=torch.float32, warp_scale: float = 2.0 / 0.24,
     out_dtype=torch.float32, with_residuals: bool = False,
@@ -570,7 +603,7 @@ def _unpack_grads(wt, out_w, out_f, L, H, C, R):
 
 
 def ray_tile_bwd_cuda(
-    wt, pts, org, dirs, z, u, nc, nf, noise_std: float, d_fea, d_dep, *,
+    wt, pts, org, dirs, z, u, nc, nf, noise_std, d_fea, d_dep, *,
     residuals=None, clamp_mode: str = "relu", white_back: bool = False,
     last_back: bool = False, fast_sin: bool = False, mm_dtype=torch.float32,
     warp_scale: float = 2.0 / 0.24,
@@ -615,15 +648,17 @@ def ray_tile_bwd_cuda(
     d_pts = torch.empty((b, n, S, 3), dtype=torch.float32, device=dev)
     out_w = torch.empty((plan.n_weight + plan.n_bias,), dtype=torch.float32, device=dev)
     out_f = torch.empty((b, plan.n_film), dtype=torch.float32, device=dev)
+    noise = noise_operand(noise_std, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.cips_ray_tile_backward(
-            *(t.data_ptr() for t in inputs), wbuf.data_ptr(), pbuf.data_ptr(), films.data_ptr(),
+            *(t.data_ptr() for t in inputs), _ptr(noise), wbuf.data_ptr(), pbuf.data_ptr(),
+            films.data_ptr(),
             d_fea.data_ptr(), d_dep.data_ptr(), *(t.data_ptr() for t in res), xs.data_ptr(),
             dq.data_ptr(), part_b.data_ptr(), part_w.data_ptr(), d_pts.data_ptr(),
             out_w.data_ptr(), out_f.data_ptr(),
             b, n, S, L, H, C, R, plan.gx, plan.nsplit, SPLIT_ROWS, pbuf.numel(), films.shape[1],
-            float(noise_std), float(warp_scale), int(clamp_mode == "softplus"), int(white_back),
+            float(warp_scale), int(clamp_mode == "softplus"), int(white_back),
             int(last_back), _flags(noise_std, fast_sin, mm_dtype), stream)
     build.check(lib, err, "ray_tile_bwd")
     build.count_launch("ray_tile_bwd_recompute" if residuals is None else "ray_tile_bwd_residual",
@@ -719,7 +754,7 @@ def fused_ray_render(
     *,
     draws: Optional[RayDraws] = None,
     generator: Optional[torch.Generator] = None,
-    noise_std: float = 0.0,
+    noise_std=0.0,
     clamp_mode: str = "relu",
     white_back: bool = False,
     last_back: bool = False,
@@ -739,7 +774,7 @@ def fused_ray_render(
         raise ValueError(f"vjp_impl must be one of {VJP_IMPLS}, got {vjp_impl!r}")
     b, n, S, _ = pts.shape
     if draws is None:
-        draws = draw_ray_randoms(b, n, S, noise_std != 0, generator, pts.device)
+        draws = draw_ray_randoms(b, n, S, uses_noise(noise_std), generator, pts.device)
     mm_dtype = torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
     wt = flat_weights(siren, style_dict)
     kw = dict(clamp_mode=clamp_mode, white_back=white_back, last_back=last_back,
@@ -748,5 +783,5 @@ def fused_ray_render(
     inputs = (pts.float(), origins.float(), dirs.float(), z_vals[..., 0].float(),
               draws.u.float(), draws.nc.float(), draws.nf.float())
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in (*wt, inputs[0]))):
-        return ray_tile(wt, *inputs, float(noise_std), **kw)
-    return RayTileFunction.apply((float(noise_std), vjp_impl, kw), *inputs, *wt)
+        return ray_tile(wt, *inputs, noise_std, **kw)
+    return RayTileFunction.apply((noise_std, vjp_impl, kw), *inputs, *wt)

@@ -15,6 +15,9 @@ port, in plain PyTorch, with the JAX package's two lowerings:
     the GPU;
   * any other kernel runs as a depthwise convolution of the zero-stuffed,
     padded input.
+The matrices and taps are made once per shape, kernel, dtype and device
+(`on_device`): a copy from host memory on every call would cost a
+transfer a call and is refused inside a CUDA-graph capture.
 The JAX function's ``data_format="NHWC"`` is not ported: its only users
 are the JAX discriminator's layout option and a TPU layout A/B tool.
 """
@@ -45,17 +48,43 @@ def upfirdn2d(x: torch.Tensor, kernel, down: int = 1,
     return upfirdn2d_general(x, kernel, 1, 1, down, down, pad[0], pad[1], pad[0], pad[1])
 
 
+_ON_DEVICE = {}
+
+
+def on_device(key, make, dtype: torch.dtype, device) -> torch.Tensor:
+    """``make()`` (a numpy array) as a ``dtype`` tensor on ``device``, made at
+    the first call for ``key`` and reused after."""
+    full = (key, dtype, torch.device(device))
+    t = _ON_DEVICE.get(full)
+    if t is None:
+        t = _ON_DEVICE[full] = torch.as_tensor(make(), dtype=dtype, device=device)
+    return t
+
+
+@functools.lru_cache(maxsize=None)
+def _separable(shape: Tuple[int, int], data: bytes):
+    """The (column, row) taps of a rank-1 kernel (its SVD's first pair),
+    or None."""
+    k = np.frombuffer(data, np.float32).reshape(shape)
+    u, s, vt = np.linalg.svd(k)
+    if s[0] > 0 and s[1:].max(initial=0.0) < 1e-6 * s[0]:
+        return tuple((u[:, 0] * s[0]).tolist()), tuple(vt[0].tolist())
+    return None
+
+
 def upfirdn2d_general(x: torch.Tensor, kernel, up_x: int, up_y: int, down_x: int, down_y: int,
                       pad_x0: int, pad_x1: int, pad_y0: int, pad_y1: int) -> torch.Tensor:
     """x (N, C, H, W); the 2-D ``kernel`` (kh, kw) applies to every
     channel."""
     n, c, h, w = x.shape
-    k = np.asarray(kernel, np.float32)
-    u, s, vt = np.linalg.svd(k)
-    if s[0] > 0 and s[1:].max(initial=0.0) < 1e-6 * s[0]:
-        my = _axis_matrix(h, tuple((u[:, 0] * s[0]).tolist()), up_y, down_y, pad_y0, pad_y1)
-        mx = _axis_matrix(w, tuple(vt[0].tolist()), up_x, down_x, pad_x0, pad_x1)
-        my, mx = (torch.as_tensor(m, dtype=x.dtype, device=x.device).float() for m in (my, mx))
+    k = np.ascontiguousarray(kernel, np.float32)
+    kid = (k.shape, k.tobytes())
+    taps = _separable(*kid)
+    if taps is not None:
+        ay, ax = (h, taps[0], up_y, down_y, pad_y0, pad_y1), (w, taps[1], up_x, down_x, pad_x0,
+                                                               pad_x1)
+        my, mx = (on_device(("axis",) + a, lambda a=a: _axis_matrix(*a), x.dtype, x.device)
+                  .float() for a in (ay, ax))
         t = torch.einsum("oh,nchw->ncow", my, x.float()).to(x.dtype)
         return torch.einsum("ncow,pw->ncop", t.float(), mx).to(x.dtype)
     if up_x > 1 or up_y > 1:   # zero-stuff to (h * up_y, w * up_x), trailing zeros included
@@ -63,7 +92,8 @@ def upfirdn2d_general(x: torch.Tensor, kernel, up_x: int, up_y: int, down_x: int
         stuffed[:, :, ::up_y, ::up_x] = x
         x = stuffed
     x = F.pad(x, (pad_x0, pad_x1, pad_y0, pad_y1))   # negative pads crop
-    weight = torch.as_tensor(np.ascontiguousarray(k[::-1, ::-1]), dtype=x.dtype, device=x.device)
+    weight = on_device(("taps",) + kid, lambda: np.ascontiguousarray(k[::-1, ::-1]), x.dtype,
+                       x.device)
     return F.conv2d(x, weight.expand(c, 1, *k.shape), stride=(down_y, down_x), groups=c)
 
 

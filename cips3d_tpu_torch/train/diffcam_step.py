@@ -32,8 +32,8 @@ from cips3d_tpu_torch.models.generator_diffcam import (DiffcamDraws, GeneratorDi
 from cips3d_tpu_torch.parallel.mesh import Mesh, all_reduce_mean_flat, shard_batch
 from cips3d_tpu_torch.train import losses
 from cips3d_tpu_torch.train.schedules import alpha_schedule, nerf_noise_schedule
-from cips3d_tpu_torch.train.state import (TrainConfig, TrainState, apply_grads, clip_and_guard,
-                                          make_optimizers)
+from cips3d_tpu_torch.train.state import (TrainConfig, TrainState, advance_step, apply_grads,
+                                          clip_and_guard, make_adam, make_optimizers)
 from cips3d_tpu_torch.train.step import _grads, check_mesh, reduce_metrics
 
 
@@ -90,7 +90,9 @@ def draw_diffcam_step(gen_cfg, diffaug: bool, cfg: DiffcamTrainConfig, nk: NerfK
 def make_diffcam_train_step(generator: GeneratorDiffcam, discriminator, camera: CamParams,
                             cfg: DiffcamTrainConfig, nerf_kwargs: NerfKwargs,
                             aux_reg: bool = False, mesh: Optional[Mesh] = None):
-    """``step(state, real_imgs, draws=None, rng=None) -> (state, metrics)``;
+    """``step(state, real_imgs, draws=None, rng=None) -> (state, metrics)``
+    (the metrics 0-d float32 tensors on the device; the counter and the schedules
+    there too, as in `train/step.py`);
     the state's modules and optimizers are updated in place.  With ``mesh``
     the step is one rank's and ``draws`` those of the global batch."""
     H = W = cfg.img_size
@@ -115,9 +117,12 @@ def make_diffcam_train_step(generator: GeneratorDiffcam, discriminator, camera: 
 
     def step_fn(state: DiffcamTrainState, real_imgs: torch.Tensor,
                 draws: Optional[DiffcamStepDraws] = None, rng: Optional[torch.Generator] = None):
+        # the default (NCHW) layout whatever the batch's strides: a stack of HWC images
+        # is channels-last, which the convolutions would round otherwise
+        real_imgs = real_imgs.contiguous()
         if real_imgs.dtype == torch.uint8:
             real_imgs = real_imgs.float() / 127.5 - 1.0
-        step = state.step
+        step = state.step_t
         alpha = alpha_schedule(step, cfg.warmup_d, cfg.fade_steps)
         nk = dataclasses.replace(nerf_kwargs,
                                  raw_noise_std=nerf_noise_schedule(step, cfg.nerf_noise_disable))
@@ -169,18 +174,19 @@ def make_diffcam_train_step(generator: GeneratorDiffcam, discriminator, camera: 
                                                              cfg.grad_clip)
             apply_grads(state.cam_opt, cam_params, cam_grads)
         else:
-            cam_norm, cam_finite = torch.zeros((), device=dev), torch.ones((), dtype=torch.bool)
+            cam_norm = torch.zeros((), device=dev)
+            cam_finite = torch.ones((), dtype=torch.bool, device=dev)
 
         ema_update(state.ema, G, step, cfg.ema_decay, cfg.ema_start_itr)
-        state.step = step + 1
+        advance_step(state)
         with torch.no_grad():
             metrics = {"d_loss": d_loss, "grad_penalty": penalty.mean(), "g_loss": g_loss}
             if mesh is not None:
                 metrics = reduce_metrics(metrics, mesh)
             metrics.update({"d_total_norm": d_norm, "g_total_norm": g_norm,
                             "cam_total_norm": cam_norm, "d_finite": d_finite.float(),
-                            "g_finite": (g_finite & cam_finite.to(g_finite.device)).float()})
-        return state, {k: float(v.detach()) for k, v in metrics.items()}
+                            "g_finite": (g_finite & cam_finite).float()})
+        return state, {k: v.detach().float() for k, v in metrics.items()}
 
     return step_fn
 
@@ -191,8 +197,7 @@ def init_diffcam_state(generator: GeneratorDiffcam, discriminator, camera: CamPa
     Adam states (the camera's with ``cam_lr``)."""
     g_opt, d_opt = make_optimizers(cfg, generator, discriminator)
     cam_params = list(camera.parameters())
-    cam_opt = (torch.optim.Adam(cam_params, lr=cfg.cam_lr, betas=(cfg.beta1, cfg.beta2), eps=1e-8)
-               if cam_params else None)
+    cam_opt = make_adam(cam_params, cfg.cam_lr, cfg) if cam_params else None
     return DiffcamTrainState(step=0, generator=generator, discriminator=discriminator,
                              ema=ema_copy(generator), g_opt=g_opt, d_opt=d_opt, camera=camera,
                              cam_opt=cam_opt)

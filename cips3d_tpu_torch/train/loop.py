@@ -10,20 +10,30 @@ eval images and the monitors.  The flagship binds it here
 
   * builds the state from seeded inits, or resumes / finetunes from
     snapshots in the JAX package's layout;
-  * per step: the step variant the schedule asks for (aux every
-    ``update_aux_every`` steps, lazy R1 every ``d_reg_every``); the loop
-    steps one at a time (the JAX loop's ``dispatch_chunk``, a device
-    program of several steps for its remote TPU, has no counterpart: a
-    config's value is not read);
-  * every ``log_every`` steps (each step under ``debug``): the metrics to
-    the text logs and one printed line;
+  * per dispatch: the step variant the schedule asks for (aux every
+    ``update_aux_every`` steps, lazy R1 every ``d_reg_every``), one step at
+    a time or, as the JAX loop dispatches them, ``dispatch_chunk`` steps
+    (default 10) as one chunk (`train/chunk.py`: K replays of a CUDA graph
+    of the step on the card, K eager steps on the CPU and in a gloo group).
+    JAX's rules: chunks only while the variant is the same every step
+    (``d_reg_every`` 1, aux every step or never; `Pipeline.constant_schedule`)
+    and neither ``debug`` nor ``profile_steps`` is set; step 0 runs alone
+    and a chunk never straddles an eval.  Where JAX runs the steps left
+    before an eval one at a time (a scan of another length is another
+    compile), the port runs them as a shorter chunk: a captured step
+    replays any number of times;
+  * the metrics of a dispatch are read while the next one runs (one
+    dispatch late, as in JAX), and before every eval; every ``log_every``
+    steps (each step under ``debug``): the metrics to the text logs and one
+    printed line, with images/s averaged over the dispatch;
   * eval after step 1, every ``eval_every`` steps and, under
     ``debug``, after each step: reals and EMA fakes to ``fid/``, the
     surrogate FID, ``best_fid/``, a numbered backup, ``resume/`` (with
     every Adam state), and fixed-z monitor grids; monitors that fail three
     evals in a row stop the run;
   * a step whose gradients were not finite (the step zeroes them) dumps a
-    ``D_crupted`` or ``G_crupted`` snapshot;
+    ``D_crupted`` or ``G_crupted`` snapshot, of the state when its metrics
+    are read (after its chunk, as in JAX);
   * ``profile_steps`` traces that many steps with `torch.profiler` into
     ``<outdir>/profile``.
 ``debug_shapes`` prints the shapes of the generator's and the
@@ -58,6 +68,7 @@ from cips3d_tpu_torch.models.discriminator import DiscriminatorMultiScaleAux
 from cips3d_tpu_torch.models.generator import (GeneratorConfig, GeneratorNerfINR, RenderOptions,
                                                sample_zs)
 from cips3d_tpu_torch.parallel.mesh import Mesh, broadcast_modules, host_barrier, make_mesh
+from cips3d_tpu_torch.train.chunk import Metrics, make_chunk_fn
 from cips3d_tpu_torch.train.state import TrainConfig, TrainState
 from cips3d_tpu_torch.train.step import init_train_state, make_train_step
 from cips3d_tpu_torch.utils import convert, debug
@@ -86,6 +97,8 @@ class LoopConfig:
     debug: bool = False
     debug_shapes: bool = False
     profile_steps: int = 0
+    # steps a dispatch: a chunk of this many steps (train/chunk.py) when the schedule allows
+    dispatch_chunk: int = 10
     archive_eval_images: bool = False
     ray_shards: int = 1
     device: str = "cuda"
@@ -196,6 +209,14 @@ class Pipeline:
         """The step of ``state``'s modules (one rank's with ``mesh``):
         ``step(state, real, rng=rng) -> (state, metrics)``."""
         raise NotImplementedError
+
+    def constant_schedule(self) -> bool:
+        """Whether every step runs the same variant, so that steps can be
+        chunked (the JAX loop's ``schedule_const``): R1 every step, and aux
+        every step or never."""
+        cfg = self.train_cfg
+        aux_always = cfg.train_aux_img and cfg.update_aux_every == 1
+        return cfg.d_reg_every == 1 and (aux_always or not cfg.train_aux_img)
 
     def module_list(self, state) -> list:
         """Every module whose weights a snapshot holds (rank 0's are
@@ -357,54 +378,105 @@ def run_pipeline(pipeline: Pipeline, loop_cfg: LoopConfig, resume: bool = False,
             step_fns[k] = pipeline.make_step(state, aux_reg, d_regularize, mesh=mesh)
         return step_fns[k]
 
+    aux_always = bool(train_cfg.train_aux_img and train_cfg.update_aux_every == 1)
+    chunk_k = max(1, int(loop_cfg.dispatch_chunk))
+    use_chunks = (chunk_k > 1 and pipeline.constant_schedule() and not loop_cfg.debug
+                  and not loop_cfg.profile_steps)
+    chunk = None   # the chunk of the one variant that runs: built at its first use
+
+    def get_chunk_fn(real_shape):
+        nonlocal chunk
+        if chunk is None:
+            label = f"the step (aux_reg={aux_always}, d_regularize=True)"
+            chunk = make_chunk_fn(get_step_fn(aux_always, True), state, real_shape, rng, mesh,
+                                  label=label)
+            if lead:
+                print(f"dispatch: chunks of up to {chunk_k} steps, "
+                      + (f"replays of {label} captured into a CUDA graph" if chunk.captured
+                         else "eager steps read once a chunk"), flush=True)
+        return chunk
+
     def dump_crupted(name):
         ckpt_mgr.save_snapshot(name, pipeline.modules(state), state=dict(start_state),
                                info_msg=f"non-finite gradients at step {start_state['step']}")
 
+    def process_pending(p):
+        """Read a dispatch's metrics: dumps, logs and printed lines."""
+        nonlocal t_last
+        if p is None:
+            return
+        base, k, metrics = p
+        rows = metrics.read()
+        # one wall-clock sample a dispatch, from the previous one's end to its own: every
+        # log line inside it reports that rate
+        imgs_per_sec = global_batch * k / max(metrics.ready_at - t_last, 1e-9)
+        t_last = metrics.ready_at
+        if not lead:
+            return
+        for j, m in enumerate(rows):
+            if not m["d_finite"] > 0:
+                dump_crupted("D_crupted")
+            if not m["g_finite"] > 0:
+                dump_crupted("G_crupted")
+            at = base + j + 1
+            if at % loop_cfg.log_every == 0 or loop_cfg.debug:
+                summary = {name: {name: v} for name, v in m.items()}
+                summary["lr"] = {"G_lr": train_cfg.gen_lr, "D_lr": train_cfg.disc_lr}
+                summary["speed"] = {"imgs_per_sec": imgs_per_sec}
+                textlogger.log_dict(summary, prefix="train", step=at)
+                print(f"step {at}: d_loss={m['d_loss']:.4f} g_loss={m['g_loss']:.4f} "
+                      f"gp={m['grad_penalty']:.4f} {imgs_per_sec:.1f} img/s", flush=True)
+
     total = 2 if loop_cfg.debug else train_cfg.total_iters
     profile_start = start + 2 if total - start > loop_cfg.profile_steps + 2 else start
     profiler = None
+    pending = None   # (first step, steps, Metrics) of the last dispatch, not read yet
     t_last = time.time()
     step = start
     try:
         while step < total:
-            real = torch.from_numpy(next(loader)[0]).to(dev)
-            if lead and loop_cfg.profile_steps and step == profile_start:
-                from torch.profiler import ProfilerActivity, profile
+            # a chunk must not straddle an eval (after step s when (s + 1) % eval_every ==
+            # 0) or the step-0 eval
+            next_eval = ((step + loop_cfg.eval_every) // loop_cfg.eval_every
+                         * loop_cfg.eval_every - 1)
+            k_max = 1 if step == 0 else min(next_eval - step + 1, total - step)
+            # a captured step replays any number of times: the steps before an eval are
+            # a shorter chunk, not eager steps (JAX's scan would compile anew for them)
+            k = min(chunk_k, k_max) if use_chunks else 1
+            if use_chunks:
+                batches = [next(loader)[0] for _ in range(k)]
+                metrics = get_chunk_fn(batches[0].shape)(batches)
+            else:
+                real = torch.from_numpy(next(loader)[0]).to(dev)
+                if lead and loop_cfg.profile_steps and step == profile_start:
+                    from torch.profiler import ProfilerActivity, profile
 
-                acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
-                                                 if dev.type == "cuda" else [])
-                profiler = profile(activities=acts)
-                profiler.__enter__()
-            aux_reg = train_cfg.train_aux_img and step % train_cfg.update_aux_every == 0
-            d_reg = step % train_cfg.d_reg_every == 0
-            state, m = get_step_fn(aux_reg, d_reg)(state, real, rng=rng)
-            if profiler is not None and step >= profile_start + loop_cfg.profile_steps - 1:
-                profiler.__exit__(None, None, None)
-                os.makedirs(os.path.join(outdir, "profile"), exist_ok=True)
-                profiler.export_chrome_trace(os.path.join(outdir, "profile", "trace.json"))
-                profiler = None
-                print(f"profiler trace written to {outdir}/profile", flush=True)
-            step += 1
+                    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                                     if dev.type == "cuda" else [])
+                    profiler = profile(activities=acts)
+                    profiler.__enter__()
+                aux_reg = train_cfg.train_aux_img and step % train_cfg.update_aux_every == 0
+                d_reg = step % train_cfg.d_reg_every == 0
+                state, m = get_step_fn(aux_reg, d_reg)(state, real, rng=rng)
+                metrics = Metrics.of_step(m)
+                if profiler is not None and step >= profile_start + loop_cfg.profile_steps - 1:
+                    profiler.__exit__(None, None, None)
+                    os.makedirs(os.path.join(outdir, "profile"), exist_ok=True)
+                    profiler.export_chrome_trace(os.path.join(outdir, "profile", "trace.json"))
+                    profiler = None
+                    print(f"profiler trace written to {outdir}/profile", flush=True)
+            process_pending(pending)
+            pending = (step, k, metrics)
+            step += k
             start_state["step"] = step
-            now = time.time()
-            imgs_per_sec = global_batch / max(now - t_last, 1e-9)
-            t_last = now
-            if lead and not m["d_finite"] > 0:
-                dump_crupted("D_crupted")
-            if lead and not m["g_finite"] > 0:
-                dump_crupted("G_crupted")
-            if lead and (step % loop_cfg.log_every == 0 or loop_cfg.debug):
-                summary = {name: {name: v} for name, v in m.items()}
-                summary["lr"] = {"G_lr": train_cfg.gen_lr, "D_lr": train_cfg.disc_lr}
-                summary["speed"] = {"imgs_per_sec": imgs_per_sec}
-                textlogger.log_dict(summary, prefix="train", step=step)
-                print(f"step {step}: d_loss={m['d_loss']:.4f} g_loss={m['g_loss']:.4f} "
-                      f"gp={m['grad_penalty']:.4f} {imgs_per_sec:.1f} img/s", flush=True)
-            if step == 1 or step % loop_cfg.eval_every == 0 or loop_cfg.debug:
+            if step - k == 0 or step % loop_cfg.eval_every == 0 or loop_cfg.debug:
+                process_pending(pending)
+                pending = None
                 _run_eval_and_checkpoint(pipeline, state, loop_cfg, dataset, ckpt_mgr,
                                          textlogger, start_state, mesh)
                 t_last = time.time()   # keep eval time out of the next speed sample
+        process_pending(pending)
+        pending = None
         if profiler is not None:
             profiler.__exit__(None, None, None)
         # a last eval and checkpoint when total_iters is not a multiple of eval_every
@@ -414,6 +486,8 @@ def run_pipeline(pipeline: Pipeline, loop_cfg: LoopConfig, resume: bool = False,
                                      start_state, mesh)
     finally:
         loader.close()
+        if chunk is not None:
+            chunk.close()
         if textlogger is not None:
             textlogger.close()
     if mesh is not None:   # no rank goes on (to a next stage's finetune) before rank 0 wrote

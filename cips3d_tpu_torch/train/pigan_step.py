@@ -19,6 +19,7 @@ of the global batch.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -30,9 +31,16 @@ from cips3d_tpu_torch.models.pigan import PiGANDraws, draw_pigan
 from cips3d_tpu_torch.parallel.mesh import Mesh, all_reduce_mean_flat, gather_rows, shard_batch
 from cips3d_tpu_torch.train import losses
 from cips3d_tpu_torch.train.schedules import alpha_schedule, nerf_noise_schedule
-from cips3d_tpu_torch.train.state import (TrainConfig, TrainState, apply_grads, clip_and_guard,
-                                          make_optimizers)
+from cips3d_tpu_torch.train.state import (TrainConfig, TrainState, advance_step, apply_grads,
+                                          clip_and_guard, make_optimizers)
 from cips3d_tpu_torch.train.step import _grads, check_mesh, reduce_metrics
+
+
+@functools.lru_cache(maxsize=None)
+def _const(value: float, device: torch.device) -> torch.Tensor:
+    """A float32 scalar on ``device``, made once (the first step, before any
+    capture) rather than copied from the host every step."""
+    return torch.full((), value, dtype=torch.float32, device=device)
 
 
 def topk_logit_loss(logits: torch.Tensor, step, topk_interval: int,
@@ -40,9 +48,9 @@ def topk_logit_loss(logits: torch.Tensor, step, topk_interval: int,
     """mean of softplus(-logit) over the top k = ceil(max(0.99^(step /
     interval), topk_v) * n) logits (n, 1), in float32."""
     n = logits.shape[0]
-    f32 = dict(dtype=torch.float32, device=logits.device)
-    ratio = torch.as_tensor(step, dtype=torch.int32, device=logits.device) / topk_interval
-    frac = torch.maximum(torch.pow(torch.tensor(0.99, **f32), ratio), torch.tensor(topk_v, **f32))
+    ratio = torch.as_tensor(step, device=logits.device).to(torch.int32) / topk_interval
+    frac = torch.maximum(torch.pow(_const(0.99, logits.device), ratio),
+                         _const(topk_v, logits.device))
     k = torch.ceil(frac * n)
     sorted_desc = torch.sort(logits, dim=0, descending=True).values
     mask = (torch.arange(n, device=logits.device)[:, None] < k).to(logits.dtype)
@@ -95,7 +103,9 @@ def make_pigan_train_step(generator, discriminator, cfg: PiGANTrainConfig, opts:
                           mesh: Optional[Mesh] = None):
     """One D + G + EMA step of `ImplicitGenerator3d` against
     `ProgressiveDiscriminator`: ``step(state, real_imgs, draws=None,
-    rng=None) -> (state, metrics)``, updating the state in place.  With
+    rng=None) -> (state, metrics)``, updating the state in place (the
+    metrics 0-d float32 tensors on the device, the counter and the schedules too, as
+    in `train/step.py`).  With
     ``mesh`` the step is one rank's and ``draws`` those of the global
     batch."""
     check_mesh(mesh, discriminator)
@@ -111,9 +121,12 @@ def make_pigan_train_step(generator, discriminator, cfg: PiGANTrainConfig, opts:
 
     def step_fn(state: TrainState, real_imgs: torch.Tensor,
                 draws: Optional[PiGANStepDraws] = None, rng: Optional[torch.Generator] = None):
+        # the default (NCHW) layout whatever the batch's strides: a stack of HWC images
+        # is channels-last, which the convolutions would round otherwise
+        real_imgs = real_imgs.contiguous()
         if real_imgs.dtype == torch.uint8:
             real_imgs = real_imgs.float() / 127.5 - 1.0
-        step = state.step
+        step = state.step_t
         alpha = alpha_schedule(step, cfg.warmup_d, cfg.fade_steps)
         ropts = render_opts(step)
         b, dev = real_imgs.shape[0], real_imgs.device
@@ -166,15 +179,16 @@ def make_pigan_train_step(generator, discriminator, cfg: PiGANTrainConfig, opts:
         apply_grads(state.g_opt, g_params, g_grads)
 
         ema_update(state.ema, G, step, cfg.ema_decay, cfg.ema_start_itr)
-        state.step = step + 1
+        advance_step(state)
         with torch.no_grad():
             metrics = {"d_loss": d_loss, "grad_penalty": penalty.mean(),
-                       "identity_penalty": torch.as_tensor(d_id, device=dev), "g_loss": g_loss}
+                       "identity_penalty": d_id if torch.is_tensor(d_id)
+                       else torch.zeros((), device=dev), "g_loss": g_loss}
             if mesh is not None:
                 metrics = reduce_metrics(metrics, mesh)
             metrics.update({"d_total_norm": d_norm, "g_total_norm": g_norm,
                             "d_finite": d_finite.float(), "g_finite": g_finite.float()})
-        return state, {k: float(v.detach()) for k, v in metrics.items()}
+        return state, {k: v.detach().float() for k, v in metrics.items()}
 
     return step_fn
 

@@ -18,6 +18,13 @@ draws of their own, and the fakes of the G phase with a third set, where
 the JAX step splits k_da1, k_da2 and k_da.  Under ``fused_ray: false`` the
 G phase is autograd through the unfused NeRF stage (`core/volume.py`).
 
+The step reads its counter from the device (``state.step_t``): the density
+noise, D's fade-in and the EMA gate are computed there, as the JAX step
+traces them, and it returns its metrics as 0-d tensors on the device
+without reading them back.  So one call can be recorded into a CUDA graph
+and replayed step after step (`train/chunk.py`); the host loop reads the
+metrics.
+
 ``batch_split`` is a Python loop over microbatches whose gradients and
 metrics are averaged.  Every random number of a step can be passed in as
 one `StepDraws`; without it the step draws from a `torch.Generator`.
@@ -47,12 +54,12 @@ from cips3d_tpu_torch.core.rays import draw_camera
 from cips3d_tpu_torch.models.discriminator import draw_disc_diffaug
 from cips3d_tpu_torch.models.generator import (ForwardDraws, GeneratorNerfINR, RenderOptions,
                                                sample_zs)
-from cips3d_tpu_torch.ops.ray_tile import draw_ray_randoms
+from cips3d_tpu_torch.ops.ray_tile import draw_ray_randoms, uses_noise
 from cips3d_tpu_torch.parallel.mesh import Mesh, all_reduce_mean_flat, shard_batch
 from cips3d_tpu_torch.train import losses
 from cips3d_tpu_torch.train.schedules import alpha_schedule, nerf_noise_schedule
-from cips3d_tpu_torch.train.state import (TrainConfig, TrainState, apply_grads, clip_and_guard,
-                                          make_optimizers)
+from cips3d_tpu_torch.train.state import (TrainConfig, TrainState, advance_step, apply_grads,
+                                          clip_and_guard, make_optimizers)
 
 
 class PhaseDraws(NamedTuple):
@@ -86,7 +93,7 @@ def draw_step(gen_cfg, diffaug: bool, cfg: TrainConfig, opts: RenderOptions, aux
     microbatches a phase (``opts`` with the step's density noise; D's
     DiffAug draws when ``diffaug``)."""
     mb, n, steps = batch // cfg.batch_split, cfg.img_size ** 2, opts.num_steps
-    noise = float(opts.nerf_noise) != 0
+    noise = uses_noise(opts.nerf_noise)
 
     def rays(m):
         return draw_ray_randoms(mb, m, steps, noise, rng, device,
@@ -157,9 +164,10 @@ def make_train_step(generator: GeneratorNerfINR, discriminator, cfg: TrainConfig
                     opts: RenderOptions, aux_reg: bool, d_regularize: bool = True,
                     mesh: Optional[Mesh] = None):
     """The step for one (aux_reg, d_regularize) variant:
-    ``step(state, real_imgs, draws=None, rng=None) -> (state, metrics)``.
-    The state's modules and optimizers are updated in place.  With ``mesh``
-    the step is one rank's (the module docstring)."""
+    ``step(state, real_imgs, draws=None, rng=None) -> (state, metrics)``,
+    the metrics 0-d float32 tensors on the device.  The state's modules, optimizers
+    and counter are updated in place.  With ``mesh`` the step is one rank's
+    (the module docstring)."""
     num_points = cfg.img_size ** 2
     grad_points = cfg.grad_points ** 2 if cfg.grad_points else None
     if grad_points is not None and grad_points >= num_points:
@@ -260,9 +268,12 @@ def make_train_step(generator: GeneratorNerfINR, discriminator, cfg: TrainConfig
 
     def step_fn(state: TrainState, real_imgs: torch.Tensor,
                 draws: Optional[StepDraws] = None, rng: Optional[torch.Generator] = None):
+        # the default (NCHW) layout whatever the batch's strides: a stack of HWC images
+        # is channels-last, which the convolutions would round otherwise
+        real_imgs = real_imgs.contiguous()
         if real_imgs.dtype == torch.uint8:
             real_imgs = real_imgs.float() / 127.5 - 1.0
-        step = state.step
+        step = state.step_t
         alpha = alpha_schedule(step, cfg.warmup_d, cfg.fade_steps)
         ropts = render_opts(step)
         n_split = cfg.batch_split
@@ -302,7 +313,7 @@ def make_train_step(generator: GeneratorNerfINR, discriminator, cfg: TrainConfig
 
         # ---------------- EMA ----------------
         ema_update(state.ema, G, step, cfg.ema_decay, cfg.ema_start_itr)
-        state.step = step + 1
+        advance_step(state)
 
         with torch.no_grad():
             metrics = dict(d_metrics)
@@ -316,11 +327,10 @@ def make_train_step(generator: GeneratorNerfINR, discriminator, cfg: TrainConfig
                 "d_w_norm": torch.sqrt(sum((p.float() ** 2).sum() for p in d_params)),
                 "d_finite": d_finite.float(),
                 "g_finite": g_finite.float(),
+                "alpha": alpha,
+                "nerf_noise": ropts.nerf_noise,
             })
-            metrics = {k: float(v) for k, v in metrics.items()}
-        metrics["alpha"] = float(alpha)
-        metrics["nerf_noise"] = ropts.nerf_noise
-        return state, metrics
+        return state, {k: v.detach().float() for k, v in metrics.items()}
 
     return step_fn
 

@@ -9,9 +9,10 @@ tree) and `PiGANPipeline` (`ImplicitGenerator3d` against the encoder
 whole host protocol: the sealed-outdir guard, text logs, ``best_fid/``,
 backups and ``resume/``, the ``*_crupted`` dumps, the surrogate FID and the
 monitors.  Their steps regularise D every step, as the JAX steps do (the
-loop's lazy-R1 flag is not read); pi-GAN has no aux branch.  In a process
-group they are data-parallel only (1-D), as in the JAX package.  Not ported,
-as for the flagship: ``dispatch_chunk``.
+loop's lazy-R1 flag is not read); pi-GAN has no aux branch.  So they chunk
+steps (``dispatch_chunk``, `train/chunk.py`) whenever aux runs every step or
+never, the JAX variant loop's rule (`constant_schedule`).  In a process
+group they are data-parallel only (1-D), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -59,7 +60,14 @@ def _grid(imgs: torch.Tensor, path: str) -> None:
     save_image_grid(imgs.float().cpu().numpy(), path, max(1, int(math.sqrt(imgs.shape[0]))))
 
 
-class DiffcamPipeline(Pipeline):
+class _VariantPipeline(Pipeline):
+    def constant_schedule(self) -> bool:
+        """Their steps regularise every step: only the aux schedule counts."""
+        cfg = self.train_cfg
+        return (cfg.train_aux_img and cfg.update_aux_every == 1) or not cfg.train_aux_img
+
+
+class DiffcamPipeline(_VariantPipeline):
     """`GeneratorDiffcam`, `DiscriminatorMultiScaleAux` and a learnable
     `CamParams` with a third Adam."""
 
@@ -143,7 +151,7 @@ class DiffcamPipeline(Pipeline):
                   f"{out_dir}/{name}.jpg")
 
 
-class PiGANPipeline(Pipeline):
+class PiGANPipeline(_VariantPipeline):
     """`ImplicitGenerator3d` and `ProgressiveDiscriminator` with the top-k
     GAN and identity-penalty step."""
 

@@ -347,22 +347,34 @@ def load_optax_adam_state(opt, module, state: dict, sd_fn) -> None:
     """optax's Adam state (as `optax_adam_state` returns it, or as read
     from a snapshot's ``g_opt.npz``/``d_opt.npz``) → ``opt``'s per-parameter
     state; ``sd_fn`` maps a JAX tree to a state dict (`state_dict_from_jax`
-    for G).  Parameters the JAX model lacks restart at zero moments."""
+    for G).  Parameters the JAX model lacks restart at zero moments.  State
+    tensors the optimizer already holds are written in place (a captured
+    step keeps reading them); new ones follow the optimizer's placement (a
+    capturable Adam's step count on the device)."""
     import torch
 
     st = state["0"]
     count = int(np.asarray(st["count"]))
     mu, nu = sd_fn(st["mu"]), sd_fn(st["nu"])
-    opt.state.clear()
-    if count == 0:
+    capturable = any(g.get("capturable", False) for g in opt.param_groups)
+    if count == 0 and not any(opt.state.values()):
         return
     for name, p in module.named_parameters():
+        moments = [torch.from_numpy(np.asarray(src[name], np.float32))
+                   if name in src and count else torch.zeros_like(p, device="cpu")
+                   for src in (mu, nu)]
+        cur = opt.state.get(p)
+        if cur:   # into the tensors the optimizer (and a captured step) already holds
+            cur["step"].fill_(float(count))
+            cur["exp_avg"].copy_(moments[0])
+            cur["exp_avg_sq"].copy_(moments[1])
+            continue
+        # a capturable Adam keeps its step count on the parameter's device
         opt.state[p] = {
-            "step": torch.tensor(float(count)),
-            "exp_avg": torch.from_numpy(np.asarray(mu[name], np.float32)).to(p.device).clone()
-            if name in mu else torch.zeros_like(p),
-            "exp_avg_sq": torch.from_numpy(np.asarray(nu[name], np.float32)).to(p.device).clone()
-            if name in nu else torch.zeros_like(p),
+            "step": (torch.full((), float(count), device=p.device) if capturable
+                     else torch.tensor(float(count))),
+            "exp_avg": moments[0].to(p.device).clone(),
+            "exp_avg_sq": moments[1].to(p.device).clone(),
         }
 
 
