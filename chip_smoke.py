@@ -166,7 +166,32 @@ Phases, each printing one line (plus detail lines):
      printed without a threshold.  In (a) the bench legs' last
      WITNESS_STEPS replays run under the profiler: the port's kernels that
      the trace shows on the device must equal the launches counted through
-     those replays.
+     those replays.  (c) also renders train_r256's eval (the loop's
+     `gen_images` of the G_ema, b = 16, one captured program a batch shape)
+     after releasing the chunk's graph, as the loop does before an eval:
+     its peak at most CHUNK_PEAK_GIB beside the chunk's;
+ 17. the render side as one program a call (`cips3d_tpu_torch/utils/
+     graphs.py`: a CUDA graph captured at a call's first use and replayed),
+     deterministic algorithms on: (a) `RenderService` with two models at
+     r128 x 24 and r256 x 12 sharing one pool, 4 seeds x 3 cameras each,
+     replayed frames against eager frames, image and depth bit for bit
+     (else phase 4's frame rule; the line says which held), #1 and #2
+     counted through the replays; (b) `bench.inference`'s call of 16
+     replays of one captured frame against 16 eager frames from the same
+     generator seed, the checksum bit for bit; (c) the inversion on the
+     exact-sine config with the percept term, 5 captured steps against 5
+     eager ones, every style tensor and loss bit for bit, #2r and #3 once a
+     step through the replays; (d) trajectory frames and the n = 64 sigma
+     volume, captured against eager; (e) eager and captured times of the
+     serving frames (r128 x 24, r256 x 12), the trajectory frame, the
+     inversion step, the sigma volume (n = 128) and the bench's frames/s,
+     each with a profiled call's idle share, and the memory of the service's
+     graphs, without a threshold.
+Phases 4, 5, 11, 14 and 15 go through the same captured programs (a frame,
+the inversion step, the sigma chunk, the bench's frame; the eval CLI's
+renders in its subprocesses): their launch counts include each program's
+warm-up, which runs its kernels once before the capture.  The graphs and
+their pools are released after phases 5, 11, 14, 15 and 16.
 Phase 4 also fetches /render and /render?depth=1 and checks the JPEGs.
 The second-to-last line is a JSON summary of the kernels (with each one's
 bound on the card: the larger of its multiply-adds over the 67 TFLOP/s f32
@@ -1725,8 +1750,8 @@ def apps_phase(dev, smi, log, tmp, data, gen, cpu_gen):
         times = timed(frame, 20)
         add(kernel_counts())
         frame_ms[size] = statistics.median(times)
-        log(f"phase 11 time: trajectory frame r{size} x{steps} (translate_rotate, host clock, "
-            f"image and depth on the host): {median_line(times)} [{smi}]")
+        log(f"phase 11 time: trajectory frame r{size} x{steps} (translate_rotate, captured, "
+            f"host clock, image and depth on the host): {median_line(times)} [{smi}]")
 
     # ---- inversion on the exact-sine config, r64 x 12, 5 steps, card vs CPU
     exact = GeneratorConfig(fast_sin=False, fused_ray=True, fused_ray_vjp="pallas_residual")
@@ -1746,40 +1771,44 @@ def apps_phase(dev, smi, log, tmp, data, gen, cpu_gen):
         inv_cpu, target, num_steps_opt=1, draws=d_cpu._replace(rays=d_cpu.rays[:1]),
         percept_fn=inversion.make_disc_percept_fn(disc_cpu), **kw)
     cpu_secs = time.perf_counter() - t1
-    starts = []
-    forward = inv_dev.points_forward
-
-    def stamped(*a, **k):   # one points_forward a step: its start closes the previous step
-        torch.cuda.synchronize()
-        starts.append(time.perf_counter())
-        return forward(*a, **k)
-
-    inv_dev.points_forward = stamped
+    # each step timed on the host clock; step 0 warms up, captures and replays
+    proj = inversion.Projector(inv_dev, target, 5, draws=d_dev,
+                               percept_fn=inversion.make_disc_percept_fn(disc_dev), **kw)
+    steps_ms = []
     zero_kernel_counts()
-    _, img, hist = inversion.project_image(inv_dev, target, num_steps_opt=5, draws=d_dev,
-                                           percept_fn=inversion.make_disc_percept_fn(disc_dev),
-                                           **kw)
-    torch.cuda.synchronize()
-    starts.append(time.perf_counter())
+    for i in range(5):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        proj.step()
+        torch.cuda.synchronize()
+        steps_ms.append((time.perf_counter() - t1) * 1e3)
+        if i == 0:
+            c0 = kernel_counts()
+            zero_kernel_counts()
     c = kernel_counts()
+    _, img, hist = proj.result()
+    proj.close()
+    add(c0)
     add(c)
-    steps_ms = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
     rel = abs(hist[0] - hist_cpu[0]) / abs(hist_cpu[0])
     log(f"phase 11 inversion: exact sine (#2r + #3 residual), full width, r64 x12, D percept, "
-        f"5 Adam steps on the card: loss {' -> '.join(f'{v:.6f}' for v in hist)}; step 0 "
-        f"CPU {hist_cpu[0]:.6f} (rel diff {rel:.2e}, CPU step {cpu_secs:.1f} s); launches {c}")
-    log(f"phase 11 time: inversion step r64 x12 (host clock, steps 0-4, step 0 includes "
-        f"warm-up): {median_line(steps_ms)} [{smi}]")
+        f"5 Adam steps on the card (one captured step, replayed): loss "
+        f"{' -> '.join(f'{v:.6f}' for v in hist)}; step 0 CPU {hist_cpu[0]:.6f} (rel diff "
+        f"{rel:.2e}, CPU step {cpu_secs:.1f} s); launches of step 0 (warm-up and replay) {c0}, "
+        f"of steps 1-4 (replays) {c}")
+    log(f"phase 11 time: inversion step r64 x12 (captured; host clock, steps 0-4, step 0 "
+        f"includes the warm-up and the capture): {median_line(steps_ms)} [{smi}]")
     if rel > STEP_TOL["loss_rtol"] or not hist[-1] < hist[0] or not np.isfinite(img).all() \
-            or c["ray_tile_residuals"] != 5 or c["ray_tile_bwd_residual"] != 5 \
-            or c["ray_tile"] or c["inr_tile"]:
+            or c0["ray_tile_residuals"] != 2 or c0["ray_tile_bwd_residual"] != 2 \
+            or c["ray_tile_residuals"] != 4 or c["ray_tile_bwd_residual"] != 4 \
+            or c["ray_tile"] or c["inr_tile"] or c0["ray_tile"] or c0["inr_tile"]:
         raise AssertionError("inversion: the card's loss disagrees with the CPU's, did not "
                              "fall, or the step did not run #2r and #3 once each")
-    inv_dev.points_forward = forward
     profile_step(lambda *a, **k: inversion.project_image(
         inv_dev, target, num_steps_opt=3, draws=d_dev._replace(rays=d_dev.rays[:3]),
-        percept_fn=inversion.make_disc_percept_fn(disc_dev), **kw), None, None, None, log,
-        "inversion, 3 steps with the set-up (mean style of 2000 draws)", smi, phase=11)
+        percept_fn=inversion.make_disc_percept_fn(disc_dev), dispatch="eager", **kw), None,
+        None, None, log, "inversion, 3 eager steps with the set-up (mean style of 2000 draws; "
+        "phase 17(e) profiles a captured step)", smi, phase=11)
 
     # ---- the sigma volume: n = 64 card vs CPU, the MRC, n = 128 timed
     with torch.no_grad():
@@ -1795,10 +1824,10 @@ def apps_phase(dev, smi, log, tmp, data, gen, cpu_gen):
     if err > 1e-4 or not np.array_equal(back, vol_g):
         raise AssertionError("sigma volume: card vs CPU or the MRC round trip failed")
     times = timed(lambda: shapes.sample_sigma_volume(gen, n=128, styles=st_g), 3)
-    log(f"phase 11 time: sigma volume n=128 (2.1 M points in 64 k chunks, to the host): "
-        f"{median_line(times)} [{smi}]")
+    log(f"phase 11 time: sigma volume n=128 (2.1 M points in 64 k chunks, one captured chunk "
+        f"replayed, to the host once): {median_line(times)} [{smi}]")
     profile_step(lambda *a, **k: shapes.sample_sigma_volume(gen, n=128, styles=st_g), None, None,
-                 None, log, "sigma volume n=128", smi, phase=11)
+                 None, log, "sigma volume n=128, captured", smi, phase=11)
 
     # ---- every eval CLI mode, from phase 9's r64 snapshot
     check_eval_cli(eval_cli_runs(tmp, data), log, smi)
@@ -2473,6 +2502,8 @@ def checkpoint_phase(dev, smi, log, tmp, gen):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t1
         counts = kernel_counts()
+        svc.close()
+        svc256.close()
     launches = {"ray_tile": counts["ray_tile"], "inr_tile": counts["inr_tile"]}
     exact = all(torch.equal(a, b) for a, b in zip(frames["loaded"], frames["source"]))
     diff = max((a - b).abs().max().item() for a, b in zip(frames["loaded"], frames["source"]))
@@ -3035,12 +3066,14 @@ def chunk_vs_eager(dev, log, smi, kind, K, start=0, witness=False):
     return cc
 
 
-def chunk_phase(dev, smi, log):
+def chunk_phase(dev, smi, log, tmp):
     """Phase 16: chunked dispatch on the card.  (a) 10 eager steps against a
     chunk of 10 replays for both bench legs (bf16) and 4 for diffcam and
     pi-GAN, deterministic algorithms on; (b) the shipped leg at steps
     4998-5002 (the density noise to 0, the EMA on at 5000); (c) one chunk at
-    train_r256's settings, its peak memory; (d) phase 13(a) with chunks of 2
+    train_r256's settings, its peak memory, then the loop's eval render of
+    that G_ema after the chunk's graph is released (`eval.images.gen_images`,
+    a captured program a batch), its peak; (d) phase 13(a) with chunks of 2
     through a one-rank NCCL group; (e) the shipped bench leg eager and
     chunked, images/s and a profiled chunk's idle share (no threshold).
     Returns the launches of the chunks of (a)-(d) by kernel."""
@@ -3082,7 +3115,6 @@ def chunk_phase(dev, smi, log):
         rows = chunk(reals).read()
         secs = time.perf_counter() - t1
         peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-        chunk.close()
         totals.update(kernel_counts())
         if not all(math.isfinite(v) for r in rows for v in r.values()):
             raise AssertionError(f"phase 16(c): non-finite metrics {rows}")
@@ -3092,6 +3124,27 @@ def chunk_phase(dev, smi, log):
             f"[{smi}]")
         if peak > CHUNK_PEAK_GIB:
             raise AssertionError(f"phase 16(c): peak {peak:.2f} GiB over {CHUNK_PEAK_GIB} GiB")
+        # the loop's FID render of this G_ema at train_r256's eval settings (b = 16,
+        # forward_points 256^2), as the loop runs it: the chunk's graph released first
+        # (beside its pool the eval did not fit on the card), then one captured program a
+        # batch shape, released at the end of the call
+        from cips3d_tpu_torch.eval.images import gen_images
+
+        chunk.close()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t1 = time.perf_counter()
+        n = gen_images(state.ema, os.path.join(tmp, "eval_r256"), 32, 256, batch_size=16,
+                       num_steps=12, opts=RenderOptions(), forward_points=256 ** 2)
+        secs = time.perf_counter() - t1
+        ev_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        log(f"phase 16 chunk: {label}: the loop's eval render of its G_ema (r256 x12, 2 "
+            f"batches of 16, one captured program), after the chunk's graph is released as "
+            f"the loop releases it: {n} PNGs in {secs:.1f} s, peak max_memory_allocated "
+            f"{ev_peak:.2f} GiB beside the chunk's {peak:.2f} GiB (bound {CHUNK_PEAK_GIB:g} "
+            f"each) [{smi}]")
+        if n != 32 or ev_peak > CHUNK_PEAK_GIB:
+            raise AssertionError(f"phase 16(c): the eval render: {n} images, peak "
+                                 f"{ev_peak:.2f} GiB")
         del state, fn, chunk
         torch.cuda.empty_cache()
 
@@ -3162,6 +3215,275 @@ def chunk_phase(dev, smi, log):
     return totals
 
 
+# ---- phase 17: the render side as captured programs ---------------------------
+
+def frames_agree(got, ref):
+    """(bit for bit, phase 4's frame rule holds, the share of pixels
+    outside FRAME_ATOL, the largest depth error) for lists of (image,
+    depth) pairs."""
+    import torch
+
+    exact = all(torch.equal(a, b) for g, r in zip(got, ref) for a, b in zip(g, r))
+    share = max((g[0] - r[0]).abs().gt(FRAME_ATOL).any(1).float().mean().item()
+                for g, r in zip(got, ref))
+    dep = max((g[1] - r[1]).abs().max().item() for g, r in zip(got, ref))
+    return exact, share <= MAX_OUTSIDE and dep <= FRAME_ATOL, share, dep
+
+
+def held_line(exact, rule_ok):
+    return "bit for bit" if exact else ("phase 4's frame rule" if rule_ok else "NEITHER")
+
+
+def idle_of(fn):
+    """One call of ``fn`` under the profiler: (host ms, device busy ms,
+    idle %)."""
+    from cips3d_tpu_torch.bench import report
+
+    p = report.profile_call(fn)
+    return p["wall_ms"], p["busy_ms"], p["idle_pct"]
+
+
+def render_phase(dev, smi, log, tmp, gen):
+    """Phase 17: the render side as one program a call (`utils/graphs.py`),
+    with deterministic algorithms on.  (a) `RenderService` with two models
+    at r128 x 24 and r256 x 12 (one pool): 4 seeds x 3 cameras replayed
+    against eager frames, image and depth bit for bit (else phase 4's frame
+    rule, and the line says which held), #1 and #2 counted through the
+    replays; (b) `bench.inference`'s call of 16 replays against 16 eager
+    frames from the same generator seed, the checksum bit for bit; (c) the
+    inversion on the exact-sine config with the percept term, 5 captured
+    steps against 5 eager ones, every style tensor and loss bit for bit, #2r
+    and #3 once a step through the replays; (d) a trajectory frame and the
+    n = 64 sigma volume, captured against eager; (e) eager and captured
+    times of each with the idle share of a profiled call, the service's
+    graphs' memory.  Returns the launches of the replays of (a)-(d)."""
+    import numpy as np
+    import torch
+
+    from cips3d_tpu_torch.apps import inversion, render, shapes
+    from cips3d_tpu_torch.apps.serve import RenderService
+    from cips3d_tpu_torch.bench import inference
+    from cips3d_tpu_torch.eval.cli import serving_config
+    from cips3d_tpu_torch.models.discriminator import DiscriminatorMultiScaleAux
+    from cips3d_tpu_torch.models.generator import (GeneratorConfig, GeneratorNerfINR,
+                                                   RenderOptions, sample_zs)
+    from cips3d_tpu_torch.utils import graphs
+
+    totals = collections.Counter()
+    times = {}
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    t0 = time.perf_counter()
+    try:
+        # ---- (a) serving: two models, r128 x 24 and r256 x 12, one pool
+        gen_b = GeneratorNerfINR(serving_config(fast_sin=True),
+                                 generator=torch.Generator().manual_seed(80)).to(dev).eval()
+        models = {"a": gen, "b": gen_b}
+        cache = graphs.ProgramCache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        services = {"r128 x24": RenderService(models, 128, SERVING_STEPS, programs=cache),
+                    "r256 x12": RenderService(models, 256, 12, programs=cache)}
+        reqs = [(m, seed, yaw) for m in models for seed in (0, 1, 2, 3)
+                for yaw in (math.pi / 2 - 0.3, math.pi / 2, math.pi / 2 + 0.25)]
+        for svc in services.values():   # the first request of each key captures
+            for m in models:
+                svc.render(seed=9, model=m)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
+        held = (torch.cuda.memory_allocated(dev) - base) / 2 ** 30
+        for name, svc in services.items():
+            runs = {}
+            for dispatch in ("eager", "program"):
+                zero_kernel_counts()
+                runs[dispatch] = ([svc.render(s, y, model=m, dispatch=dispatch)
+                                   for m, s, y in reqs], kernel_counts())
+            torch.cuda.synchronize()
+            exact, ok, share, dep = frames_agree(runs["program"][0], runs["eager"][0])
+            ce, cp = runs["eager"][1], runs["program"][1]
+            log(f"phase 17 serve: RenderService {name}, models a and b, {len(reqs)} requests "
+                f"(4 seeds x 3 cameras each), replays vs eager: {held_line(exact, ok)} (pixels "
+                f"outside {share:.2e}, depth {dep:.3e}); launches through the replays {cp}, "
+                f"eager {ce} [{smi}]")
+            if not ok or cp != ce or cp["ray_tile"] != len(reqs) or cp["inr_tile"] != len(reqs):
+                raise AssertionError(f"phase 17(a) {name}: the replayed frames or launches "
+                                     "differ from the eager ones")
+            totals.update(cp)
+        log(f"phase 17 serve: the service's 4 graphs (2 models x 2 sizes, one pool): peak "
+            f"{peak:.2f} GiB over the models while capturing, {held:.2f} GiB held after [{smi}]")
+        times["graphs GiB"] = (peak, held)
+        log(f"phase 17(a) done in {time.perf_counter() - t0:.1f} s")
+
+        # ---- (b) the render bench: 16 replays vs 16 eager frames, one generator seed
+        legs = {}
+        for dispatch in ("eager", "program"):
+            g_b, _, run = inference.build_renderer(256, 12, 16, True, True, True, device=dev,
+                                                   dispatch=dispatch)
+            zs = sample_zs(1, g_b.cfg, torch.Generator(dev).manual_seed(0), device=dev)
+            with torch.no_grad():
+                st = g_b.mapping(zs["z_nerf"], zs["z_inr"])
+            run(st, torch.Generator(dev).manual_seed(81))   # warm-up; the program captures
+            zero_kernel_counts()
+            rng = torch.Generator(dev).manual_seed(82)
+            s = run(st, rng)
+            legs[dispatch] = (s, kernel_counts(), rng.get_state(), run, st)
+        (se, ce, ge, run_e, st), (sp, cp, gp, run_p, _) = legs["eager"], legs["program"]
+        log(f"phase 17 bench: bench.inference r256 x12 bf16, one call of 16 frames from "
+            f"generator seed 82: checksum replayed {sp!r}, eager {se!r}: "
+            f"{'bit for bit' if sp == se else 'DIFFERENT'}; generator left alike "
+            f"{torch.equal(ge, gp)}; launches through the replays {cp}, eager {ce} [{smi}]")
+        if sp != se or not torch.equal(ge, gp) or cp != ce or min(cp.get(k, 0) for k in (
+                "ray_tile", "inr_tile")) != 16:
+            raise AssertionError("phase 17(b): the bench's replays differ from its eager frames")
+        totals.update(cp)
+        bench_runs, bench_styles = {"eager": run_e, "program": run_p}, st
+        del legs
+        log(f"phase 17(b) done in {time.perf_counter() - t0:.1f} s")
+
+        # ---- (c) inversion, exact sine with the percept term: 5 captured vs 5 eager steps
+        exact_cfg = GeneratorConfig(fast_sin=False, fused_ray=True, fused_ray_vjp="pallas_residual")
+        inv = GeneratorNerfINR(exact_cfg, generator=torch.Generator().manual_seed(30)).to(dev)
+        disc = DiscriminatorMultiScaleAux(max_size=1024,
+                                          generator=torch.Generator().manual_seed(31)).to(dev)
+        yy, xx = np.mgrid[0:64, 0:64] / 63.0
+        target = (np.stack([np.sin(3 * xx), np.cos(2 * yy), xx * yy * 2 - 1]) * 0.8).astype(
+            np.float32)
+        d_inv = inversion.draw_inversion(inv, 6, 64, 12, avg_samples=2000, seed=0)
+
+        def projector(dispatch):
+            return inversion.Projector(inv, target, 6, img_size=64, num_steps=12, log_every=1,
+                                       percept_fn=inversion.make_disc_percept_fn(disc),
+                                       draws=d_inv, dispatch=dispatch)
+
+        runs = {}
+        for dispatch in ("eager", "program"):
+            proj = projector(dispatch)
+            counts = collections.Counter()
+            for i in range(5):
+                zero_kernel_counts()
+                proj.step()
+                if i:   # step 0 of the program also warms up and captures
+                    counts.update(kernel_counts())
+            styles, img, hist = proj.result()
+            runs[dispatch] = ([v.clone() for v in styles.values()], img, hist, counts)
+            proj.close()
+            del proj
+        (se, ie, he, ce), (sp, ip, hp, cp) = runs["eager"], runs["program"]
+        exact = he == hp and np.array_equal(ie, ip) and all(
+            torch.equal(a, b) for a, b in zip(se, sp))
+        log(f"phase 17 inversion: exact sine (#2r + #3 residual), D percept, r64 x12, 5 steps "
+            f"captured vs eager: styles, render and losses {'bit for bit' if exact else 'DIFFERENT'} "
+            f"(losses {hp}); launches of steps 1-4 through the replays {dict(cp)}, eager "
+            f"{dict(ce)} [{smi}]")
+        if not exact or cp != ce or cp["ray_tile_residuals"] != 4 or \
+                cp["ray_tile_bwd_residual"] != 4 or cp["ray_tile"] or cp["inr_tile"]:
+            raise AssertionError("phase 17(c): the captured inversion steps differ from the "
+                                 "eager ones, or missed #2r or #3")
+        totals.update(cp)
+        log(f"phase 17(c) done in {time.perf_counter() - t0:.1f} s")
+
+        # ---- (d) a trajectory frame and the n = 64 sigma volume, captured vs eager
+        xyz, lookup, up = render.build_trajectory("translate_rotate", 30)
+        zs = sample_zs(1, gen.cfg, torch.Generator(dev).manual_seed(84), device=dev)
+        with torch.no_grad():
+            st = gen.mapping(zs["z_nerf"], zs["z_inr"])
+        o = RenderOptions(img_size=128, num_steps=SERVING_STEPS, h_stddev=0.0, v_stddev=0.0)
+
+        def traj(j, dispatch):
+            img, dep = render.render_frame(gen, st, o, j, render.Draws(dev), 256 ** 2,
+                                           xyz[j:j + 1], lookup[j:j + 1], up[j:j + 1],
+                                           return_depth=True, dispatch=dispatch)
+            return render.depth_to_uint8(dep[0, 0].float().cpu().numpy(), o), img, dep
+
+        traj(0, "program")   # captures
+        frames = {}
+        for dispatch in ("eager", "program"):
+            zero_kernel_counts()
+            frames[dispatch] = ([traj(j, dispatch)[1:] for j in (3, 17, 23)], kernel_counts())
+        exact, ok, share, dep = frames_agree(frames["program"][0], frames["eager"][0])
+        log(f"phase 17 trajectory: translate_rotate frames 3, 17, 23 r128 x{SERVING_STEPS} "
+            f"(rolled up vector), replays vs eager: {held_line(exact, ok)} (pixels outside "
+            f"{share:.2e}, depth {dep:.3e}); launches {frames['program'][1]} [{smi}]")
+        if not ok or frames["program"][1] != frames["eager"][1]:
+            raise AssertionError("phase 17(d): the replayed trajectory frames differ")
+        totals.update(frames["program"][1])
+        vols = {d: shapes.sample_sigma_volume(gen, n=64, styles=st, dispatch=d)
+                for d in ("eager", "program")}
+        err = np.abs(vols["program"] - vols["eager"]).max() / (np.abs(vols["eager"]).max() + 1)
+        same = np.array_equal(vols["program"], vols["eager"])
+        log(f"phase 17 shapes: sigma volume n=64, 4 replays of one captured 65536-point chunk vs "
+            f"eager: {'bit for bit' if same else f'max|a-b|/(max|b|+1) {err:.2e}'} [{smi}]")
+        if not same and err > 1e-4:
+            raise AssertionError("phase 17(d): the captured sigma volume differs")
+        log(f"phase 17(d) done in {time.perf_counter() - t0:.1f} s")
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
+        torch.use_deterministic_algorithms(False)
+
+    # ---- (e) times, eager vs captured, each with a profiled call's idle share (deterministic
+    # algorithms off again, as the apps and the benches run)
+    for dispatch, run in bench_runs.items():
+        rates = []
+        for i in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            run(bench_styles, torch.Generator(dev).manual_seed(83 + i))
+            rates.append(16 / (time.perf_counter() - t1))
+        times["bench", dispatch] = (rates, idle_of(
+            lambda: run(bench_styles, torch.Generator(dev).manual_seed(90))))
+    for dispatch in ("eager", "program"):
+        proj = projector(dispatch)
+        proj.step()   # the program's warm-up and capture
+        step_ms = timed(proj.step, 4)
+        times["inversion", dispatch] = (step_ms, idle_of(proj.step))   # step 5
+        proj.close()
+    del bench_runs, proj, inv, disc
+    torch.cuda.empty_cache()
+    for name, svc in services.items():
+        for dispatch in ("eager", "program"):
+            svc.frame(seed=9, dispatch=dispatch)
+            ts = []
+            for i in range(21):
+                t1 = time.perf_counter()
+                svc.frame(seed=9, yaw=math.pi / 2 + 0.01 * i, dispatch=dispatch)
+                ts.append((time.perf_counter() - t1) * 1e3)
+            times["frame " + name, dispatch] = (ts, idle_of(
+                lambda: svc.frame(seed=9, dispatch=dispatch)))
+    for dispatch in ("eager", "program"):
+        times["trajectory r128", dispatch] = (timed(lambda: traj(5, dispatch), 21),
+                                             idle_of(lambda: traj(6, dispatch)))
+        shapes.sample_sigma_volume(gen, n=128, styles=st, dispatch=dispatch)
+        times["sigma n=128", dispatch] = (
+            timed(lambda: shapes.sample_sigma_volume(gen, n=128, styles=st, dispatch=dispatch),
+                  3),
+            idle_of(lambda: shapes.sample_sigma_volume(gen, n=128, styles=st,
+                                                       dispatch=dispatch)))
+    for key in ("frame r128 x24", "frame r256 x12", "trajectory r128", "inversion",
+                "sigma n=128", "bench"):
+        parts = []
+        for dispatch in ("eager", "program"):
+            vals, prof = times[key, dispatch]   # ms, or frames/s for the bench
+            stat = (f"{statistics.median(vals):.2f} frames/s (calls "
+                    f"{', '.join(f'{v:.2f}' for v in vals)})" if key == "bench"
+                    else f"median {statistics.median(vals):.2f} ms (min {min(vals):.2f}, max "
+                         f"{max(vals):.2f}, {len(vals)} calls)")
+            idle = (f"; profiled call {prof[0]:.1f} ms host, device busy {prof[1]:.1f} ms, idle "
+                    f"{prof[2]:.1f} %")
+            parts.append(f"{'captured' if dispatch == 'program' else 'eager'} {stat}{idle}")
+        log(f"phase 17 time: {key}: " + " | ".join(parts) + f" [{smi}]")
+    peak, held = times["graphs GiB"]
+    log(f"phase 17 time: the service's graphs: {held:.2f} GiB held, capture peak {peak:.2f} "
+        f"GiB [{smi}]")
+    for svc in services.values():
+        svc.close()
+    graphs.release()
+    torch.cuda.empty_cache()
+    log(f"phase 17 done in {time.perf_counter() - t0:.1f} s")
+    return totals
+
+
 def main():
     import torch
 
@@ -3172,6 +3494,7 @@ def main():
     from cips3d_tpu_torch.eval.cli import serving_config
     from cips3d_tpu_torch.models.generator import GeneratorNerfINR, RenderOptions, sample_zs
     from cips3d_tpu_torch.ops import build, inr_tile, ray_tile
+    from cips3d_tpu_torch.utils import graphs
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -3395,9 +3718,12 @@ def main():
             ts.append((time.perf_counter() - t0) * 1e3)
         lat[name] = statistics.median(ts)
         q = statistics.quantiles(ts, n=4)
-        log(f"phase 5 time: frame latency {name} (host clock, to uint8 on host): "
-            f"median {lat[name]:.2f} ms over {reps} (quartiles {q[0]:.2f}..{q[2]:.2f}, "
-            f"min {min(ts):.2f}, max {max(ts):.2f}) [{smi}]")
+        log(f"phase 5 time: frame latency {name} (captured: a CUDA-graph replay a frame; host "
+            f"clock, to uint8 on host): median {lat[name]:.2f} ms over {reps} (quartiles "
+            f"{q[0]:.2f}..{q[2]:.2f}, min {min(ts):.2f}, max {max(ts):.2f}) [{smi}]")
+    for svc in (service, service_r256):   # the frames' graphs and pools, before later phases
+        svc.close()
+    graphs.release()
 
     log(f"phase 5 done in {time.perf_counter() - t_phase:.1f} s")
 
@@ -3433,6 +3759,7 @@ def main():
         log(f"phase 10 done in {time.perf_counter() - t_phase:.1f} s")
         t_phase = time.perf_counter()
         apps = apps_phase(dev, smi, log, tmp, data, gen, cpu_gen)
+        graphs.release()
         log(f"phase 11 done in {time.perf_counter() - t_phase:.1f} s")
         t_phase = time.perf_counter()
         data_counts = data_phase(dev, smi, log, tmp, step_ms[SHIPPED])
@@ -3442,23 +3769,29 @@ def main():
         log(f"phase 13 done in {time.perf_counter() - t_phase:.1f} s")
         t_phase = time.perf_counter()
         ckpt_counts = checkpoint_phase(dev, smi, log, tmp, gen)
+        graphs.release()
         log(f"phase 14 done in {time.perf_counter() - t_phase:.1f} s [{smi}]")
         t_phase = time.perf_counter()
         bench_counts, bf16_times = bench_phase(dev, smi, log, tmp, gen)
+        graphs.release()
         log(f"phase 15 done in {time.perf_counter() - t_phase:.1f} s [{smi}]")
-        chunk_counts = chunk_phase(dev, smi, log)
+        chunk_counts = chunk_phase(dev, smi, log, tmp)
+        graphs.release()
+        render_counts = render_phase(dev, smi, log, tmp, gen)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     # launches on the main paths: serving (phase 4), training (phase 7), apps (phase 11),
     # training from the dataset tool's zip (phase 12), training on several processes (13),
     # a loaded reference checkpoint served (14), the bf16 step, frame and benches (15), the
-    # chunks' replays (16)
+    # chunks' replays (16), the render side's replays (17); a program's launches are counted
+    # through its replays (and its warm-up's, which runs the kernels once before the capture)
     for k in ("ray_tile", "inr_tile"):
         launches[k] += (apps[k] + data_counts[k] + dist_counts[k] + ckpt_counts[k]
-                        + bench_counts.get(k, 0) + chunk_counts[k])
+                        + bench_counts.get(k, 0) + chunk_counts[k] + render_counts[k])
     for e in train:
-        e["launches"] += apps[e["name"]] + bench_counts.get(e["name"], 0) + chunk_counts[e["name"]]
+        e["launches"] += (apps[e["name"]] + bench_counts.get(e["name"], 0)
+                          + chunk_counts[e["name"]] + render_counts[e["name"]])
     kernels = [
         {"name": "ray_tile", "route": "cuda", "source": "cips3d_tpu_torch/csrc/ray_tile.cu",
          "replaces": "cips3d_tpu/ops/pallas/ray_tile.py:137", "launches": launches["ray_tile"],

@@ -33,7 +33,7 @@ from cips3d_tpu_torch.models.generator import (
     truncate_styles,
 )
 from cips3d_tpu_torch.ops.ray_tile import RayDraws, draw_ray_randoms
-from cips3d_tpu_torch.utils import image_io
+from cips3d_tpu_torch.utils import graphs, image_io
 from cips3d_tpu_torch.utils.video import write_video
 
 
@@ -46,21 +46,13 @@ def chunk_size(num_points: int, forward_points: int) -> int:
 
 
 @torch.no_grad()
-def render_chunked(model: GeneratorNerfINR, style_dict, opts: RenderOptions,
-                   generator: Optional[torch.Generator] = None,
-                   forward_points: int = 256 ** 2, camera_pos=None, camera_lookup=None,
-                   up_vector=None, return_depth: bool = False, perturb_uniform=None,
-                   chunk_draws: Optional[Sequence[RayDraws]] = None):
-    """Render one batch at ``opts.img_size`` in pixel chunks.
-
-    Returns (b, 3, H, W) images in [-1, 1]; with ``return_depth`` also the
-    expected ray depth (b, 1, H, W).  ``camera_lookup`` is a view DIRECTION,
-    not a look-at point.  Random draws come from ``generator``, or as
-    tensors: ``perturb_uniform`` (b, HW, S, 1) for the depth jitter and
-    ``chunk_draws`` (one `RayDraws` per chunk) for the ray-tile stage."""
+def _render(model: GeneratorNerfINR, style_dict, opts: RenderOptions, generator, chunk: int,
+            camera_pos=None, camera_lookup=None, up_vector=None, return_depth: bool = False,
+            perturb_uniform=None, chunk_draws: Optional[Sequence[RayDraws]] = None):
+    """The body of `render_chunked`, in pixel chunks of ``chunk`` rays, on
+    device tensors."""
     h = w = opts.img_size
     num_points = h * w
-    chunk = chunk_size(num_points, forward_points)
     b = next(iter(style_dict.values())).shape[0]
     world = model.sample_world(b, opts, generator, camera_pos, camera_lookup, up_vector,
                                perturb_uniform)
@@ -79,6 +71,64 @@ def render_chunked(model: GeneratorNerfINR, style_dict, opts: RenderOptions,
     if not return_depth:
         return img
     return img, torch.cat(depths, 1).transpose(1, 2).reshape(b, 1, h, w)
+
+
+def _on(x, device):
+    """A camera vector (a tensor, or a numpy (b, 3) array) as a tensor on
+    ``device`` (float32 from numpy)."""
+    if x is None:
+        return None
+    if torch.is_tensor(x):
+        return x.to(device)
+    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+
+@torch.no_grad()
+def render_chunked(model: GeneratorNerfINR, style_dict, opts: RenderOptions,
+                   generator: Optional[torch.Generator] = None,
+                   forward_points: int = 256 ** 2, camera_pos=None, camera_lookup=None,
+                   up_vector=None, return_depth: bool = False, perturb_uniform=None,
+                   chunk_draws: Optional[Sequence[RayDraws]] = None, *,
+                   dispatch: str = "program",
+                   programs: Optional[graphs.ProgramCache] = None):
+    """Render one batch at ``opts.img_size`` in pixel chunks.
+
+    Returns (b, 3, H, W) images in [-1, 1]; with ``return_depth`` also the
+    expected ray depth (b, 1, H, W).  ``camera_lookup`` is a view DIRECTION,
+    not a look-at point; camera vectors are (b, 3) tensors or numpy arrays.
+    Random draws come from ``generator``, or as tensors: ``perturb_uniform``
+    (b, HW, S, 1) for the depth jitter and ``chunk_draws`` (one `RayDraws`
+    per chunk) for the ray-tile stage.
+
+    The call is one program, as the JAX package jits `render_chunked_traced`:
+    on the card a CUDA graph keyed by the model, ``opts``, the batch, the
+    chunk, ``return_depth`` and which inputs are given (`graphs.program_for`,
+    in ``programs`` or the shared `graphs.PROGRAMS`), captured at its first call
+    and replayed after, its inputs copied into its buffers and its outputs
+    copied out; with ``generator`` it draws what the eager call would and
+    leaves ``generator`` where the eager call leaves it.  On the CPU the same
+    program runs op by op.  ``dispatch="eager"`` runs `_render` directly."""
+    chunk = chunk_size(opts.img_size ** 2, forward_points)
+    if dispatch == "eager":
+        dev = model.device
+        return _render(model, style_dict, opts, generator, chunk, _on(camera_pos, dev),
+                       _on(camera_lookup, dev), _on(up_vector, dev), return_depth,
+                       perturb_uniform, chunk_draws)
+    if dispatch != "program":
+        raise ValueError(f"dispatch must be 'program' or 'eager', got {dispatch!r}")
+    inputs = {"styles": dict(style_dict), "camera": (camera_pos, camera_lookup, up_vector),
+              "perturb": perturb_uniform,
+              "draws": None if chunk_draws is None else list(chunk_draws)}
+
+    def body(m, x, rng):
+        return _render(m, x["styles"], opts, rng, chunk, *x["camera"], return_depth,
+                       x["perturb"], x["draws"])
+
+    b = next(iter(style_dict.values())).shape[0]
+    prog = graphs.program_for(model, ("render_chunked", opts, chunk, return_depth), inputs,
+                              body, f"render_chunked r{opts.img_size} x{opts.num_steps} b={b}",
+                              uses_generator=generator is not None, programs=programs)
+    return prog(inputs, generator)
 
 
 @torch.no_grad()
@@ -128,16 +178,16 @@ def seed_styles(model: GeneratorNerfINR, seed: int, psi: float, draws: Draws,
 
 def render_frame(model: GeneratorNerfINR, styles, opts: RenderOptions, key: int, draws: Draws,
                  forward_points: int = 256 ** 2, camera_pos=None, camera_lookup=None,
-                 up_vector=None, return_depth: bool = False):
+                 up_vector=None, return_depth: bool = False, **kwargs):
     """`render_chunked` of one batch with the draws of ``key``; the camera,
-    if given, as numpy (b, 3) arrays."""
+    if given, as numpy (b, 3) arrays (copied into the program's buffers
+    through pinned memory).  ``kwargs`` go to `render_chunked`
+    (``dispatch``, ``programs``)."""
     b = next(iter(styles.values())).shape[0]
-    cam = [None if v is None else torch.as_tensor(np.asarray(v, np.float32), device=model.device)
-           for v in (camera_pos, camera_lookup, up_vector)]
     chunk = chunk_size(opts.img_size ** 2, forward_points)
     return render_chunked(model, styles, opts, forward_points=forward_points,
-                          camera_pos=cam[0], camera_lookup=cam[1], up_vector=cam[2],
-                          return_depth=return_depth, **draws.render(key, b, opts, chunk))
+                          camera_pos=camera_pos, camera_lookup=camera_lookup, up_vector=up_vector,
+                          return_depth=return_depth, **draws.render(key, b, opts, chunk), **kwargs)
 
 
 @torch.no_grad()

@@ -41,6 +41,7 @@ import torch
 from cips3d_tpu_torch.apps.render import compute_styles, depth_to_uint8, render_chunked
 from cips3d_tpu_torch.eval.images import to_uint8
 from cips3d_tpu_torch.models.generator import GeneratorNerfINR, RenderOptions, sample_zs
+from cips3d_tpu_torch.utils import graphs
 from cips3d_tpu_torch.utils.video import encode_jpeg
 
 _INDEX = """<!doctype html>
@@ -116,11 +117,17 @@ class RenderService:
 
     ``models`` is one `GeneratorNerfINR` (served as "default") or a dict
     ``{name: GeneratorNerfINR}``; styles are cached per (model, seed, psi).
+    A frame is one program, as the JAX server jits its render
+    (`apps/render.py::render_chunked`): on the card a CUDA graph per model
+    and size, captured by the first request of its key (under the lock) and
+    replayed after; all of them share the service's memory pool
+    (``programs``), since the lock serialises frames.
     """
 
     def __init__(self, models: Union[GeneratorNerfINR, Dict[str, GeneratorNerfINR]],
                  img_size: int = 128, num_steps: int = 24, fov: float = 12.0,
-                 forward_points: int = 256 ** 2, radius: float = 1.0):
+                 forward_points: int = 256 ** 2, radius: float = 1.0,
+                 programs: Optional[graphs.ProgramCache] = None):
         self.models = dict(models) if isinstance(models, dict) else {"default": models}
         if not self.models:
             raise ValueError("need at least one model")
@@ -129,6 +136,7 @@ class RenderService:
                                   h_stddev=0.0, v_stddev=0.0)
         self.forward_points = forward_points
         self.radius = radius
+        self.programs = programs if programs is not None else graphs.ProgramCache()
         self._styles_cache = {}
         self._lock = threading.Lock()   # one device; serialize renders
 
@@ -143,27 +151,37 @@ class RenderService:
         return self._styles_cache[k]
 
     def render(self, seed: int = 0, yaw: float = math.pi / 2, pitch: float = math.pi / 2,
-               psi: float = 0.7, model: Optional[str] = None):
+               psi: float = 0.7, model: Optional[str] = None, dispatch: str = "program"):
         """One frame as device tensors: image (1, 3, H, W) in [-1, 1] and
-        depth (1, 1, H, W)."""
+        depth (1, 1, H, W).  Seeded per request, as the JAX server keys it
+        with ``PRNGKey(seed)``: a seed gives the same frame, replayed or
+        eager (``dispatch="eager"``)."""
         model = model or self.default_model
         if model not in self.models:
             raise KeyError(f"unknown model {model!r}; available: {sorted(self.models)}")
         gen = self.models[model]
+        # on the host: the program copies it in through pinned memory
         pos = self.radius * torch.tensor(
             [[math.sin(pitch) * math.cos(yaw), math.cos(pitch),
-              math.sin(pitch) * math.sin(yaw)]], device=gen.device)
+              math.sin(pitch) * math.sin(yaw)]])
         with self._lock:
             styles = self.styles(seed, psi, model)
             # camera_lookup is a view DIRECTION: -pos looks at the scene origin
             return render_chunked(gen, styles, self.opts,
                                   torch.Generator(gen.device).manual_seed(int(seed)),
-                                  self.forward_points, pos, -pos, None, return_depth=True)
+                                  self.forward_points, pos, -pos, None, return_depth=True,
+                                  dispatch=dispatch, programs=self.programs)
+
+    def close(self) -> None:
+        """Release the frames' graphs and their pool."""
+        with self._lock:
+            self.programs.close()
 
     def frame(self, seed: int = 0, yaw: float = math.pi / 2, pitch: float = math.pi / 2,
-              psi: float = 0.7, depth: bool = False, model: Optional[str] = None) -> np.ndarray:
+              psi: float = 0.7, depth: bool = False, model: Optional[str] = None,
+              dispatch: str = "program") -> np.ndarray:
         """Render one (H, W, 3) uint8 frame."""
-        img, dmap = self.render(seed, yaw, pitch, psi, model)
+        img, dmap = self.render(seed, yaw, pitch, psi, model, dispatch)
         if depth:
             return depth_to_uint8(dmap[0, 0].float().cpu().numpy(), self.opts)
         return to_uint8(img[0].float().cpu().numpy())
@@ -266,7 +284,8 @@ def main(argv=None):
             name = f"{name}_{i}"
         models[name] = load_generator(path, gen_cfg, args.module, device="cuda")
     service = RenderService(models, img_size=args.img_size, num_steps=args.num_steps)
-    print("warming up (first frame builds the kernels)...", flush=True)
+    print("warming up (the first frame builds the kernels and captures the frame)...",
+          flush=True)
     service.frame()
     httpd = serve(service, args.host, args.port)
     print(f"serving on http://{args.host}:{args.port}", flush=True)

@@ -7,6 +7,7 @@ marching cubes, with numpy only: the bytes are the JAX writer's.
 
 The SIREN runs as `NeRFNetwork.forward` (plain PyTorch, as the JAX package
 runs it through XLA): the ray-tile kernel renders rays, not free points.
+A chunk is one program (on the card a CUDA graph, replayed each chunk).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from cips3d_tpu_torch.models.generator import GeneratorNerfINR
+from cips3d_tpu_torch.utils import graphs
 
 
 def create_voxel_grid(n: int = 256, sidelength: float = 0.24) -> np.ndarray:
@@ -27,21 +29,48 @@ def create_voxel_grid(n: int = 256, sidelength: float = 0.24) -> np.ndarray:
     return np.stack([x.ravel(), y.ravel(), z.ravel()], axis=-1)
 
 
+def _sigma(model: GeneratorNerfINR, pts: torch.Tensor, styles) -> torch.Tensor:
+    """The SIREN's sigma at (m, 3) points: (m,) float32."""
+    return model.siren(pts[None], styles)[1][0, :, 0].float()
+
+
 @torch.no_grad()
 def sample_sigma_volume(model: GeneratorNerfINR, seed: int = 0, n: int = 128,
                         sidelength: float = 0.24, chunk: int = 65536, psi: float = 0.7,
-                        styles: Optional[dict] = None, draws=None) -> np.ndarray:
+                        styles: Optional[dict] = None, draws=None,
+                        dispatch: str = "program") -> np.ndarray:
     """Sigma on an n^3 grid (`extract_shapes.py:38-63`), ``chunk`` points a
-    SIREN call; the styles are seed ``seed``'s (`apps/render.py::seed_styles`)
-    unless given.  Returns (n, n, n) float32."""
+    SIREN call (the grid padded to whole chunks, as the JAX package pads
+    it); the styles are seed ``seed``'s (`apps/render.py::seed_styles`)
+    unless given.  The sigmas are gathered on the device and copied to the
+    host once.  A chunk is one program, as the JAX package jits it
+    (`utils/graphs.py::program_for`: a CUDA graph on the card, replayed
+    each chunk); ``dispatch="eager"`` runs the chunks op by op.  Returns
+    (n, n, n) float32."""
     from cips3d_tpu_torch.apps.render import Draws, seed_styles
 
+    if dispatch not in ("program", "eager"):
+        raise ValueError(f"dispatch must be 'program' or 'eager', got {dispatch!r}")
     if styles is None:
         styles = seed_styles(model, seed, psi, draws or Draws(model.device))
-    grid = torch.as_tensor(create_voxel_grid(n, sidelength), device=model.device)
-    sigmas = [model.siren(grid[lo:lo + chunk][None], styles)[1][0, :, 0].float().cpu()
-              for lo in range(0, grid.shape[0], chunk)]
-    return torch.cat(sigmas).numpy().reshape(n, n, n)
+    grid = create_voxel_grid(n, sidelength)
+    num = grid.shape[0]
+    pad = (-num) % chunk
+    if pad:
+        grid = np.concatenate([grid, np.zeros((pad, 3), np.float32)])
+    grid = torch.as_tensor(grid, device=model.device)
+    vol = torch.empty(grid.shape[0], dtype=torch.float32, device=model.device)
+    prog = None
+    if dispatch == "program":
+        inputs = {"pts": grid[:chunk], "styles": dict(styles)}
+        prog = graphs.program_for(model, ("sigma", chunk), inputs,
+                                  lambda m, x, rng: _sigma(m, x["pts"], x["styles"]),
+                                  f"sigma volume chunk of {chunk} points")
+    for lo in range(0, grid.shape[0], chunk):
+        pts = grid[lo:lo + chunk]
+        vol[lo:lo + chunk] = (_sigma(model, pts, styles) if prog is None
+                              else prog({"pts": pts, "styles": styles}))
+    return vol[:num].cpu().numpy().reshape(n, n, n)
 
 
 def write_mrc(path: str, volume: np.ndarray, voxel_size: float = 1.0) -> None:

@@ -17,9 +17,13 @@ of the timed calls is timed on its own.  ``value`` is all timed frames over
 all timed seconds; each call's rate and their median go to stderr and to
 ``--report``.
 
+A call is one program, as `bench_inference.py`'s call is one ``lax.scan``:
+one captured frame replayed ``frames`` times (`build_renderer`); its
+launches are counted through the replays.
+
 ``BENCH_AB=1`` also times the plain leg (both kernels off, the same sine
-and weights) in the same process: ``xla_fps`` (the name of `bench_inference.py`'s
-key for its XLA leg) and ``same_session``.  Prints one JSON line: ``metric``
+and weights, captured the same way) in the same process: ``xla_fps`` (the
+name of `bench_inference.py`'s key for its XLA leg) and ``same_session``.  Prints one JSON line: ``metric``
 (``novel_view_fps_per_chip_r{img_size}``), ``value``, ``unit``,
 ``vs_baseline`` (over 30 frames/s).  A failing leg raises: exit non-zero.
 """
@@ -43,12 +47,20 @@ BASELINE_FPS = 30.0
 
 def build_renderer(img_size: int, num_steps: int, frames: int, fast_sin: bool, fused_ray: bool,
                    fused_inr: bool, *, gen_widths=None, device="cuda", seed: int = 0,
-                   weights: Optional[dict] = None):
+                   weights: Optional[dict] = None, dispatch: str = "program"):
     """(generator, options, run_frames): ``run_frames(styles, rng)`` renders
     ``frames`` frames and returns the sum of their absolute values (a
     float, read back once).  ``weights`` (a state dict) replaces the seeded
-    init, so that two legs share their parameters."""
+    init, so that two legs share their parameters.
+
+    A call is one program, as `bench_inference.py`'s is one ``lax.scan``:
+    one frame (`sample_world`, `forward_with_rays`, its absolute sum added
+    to a device scalar) captured as a CUDA graph at the first call and
+    replayed ``frames`` times a call, drawing from ``rng`` as the eager
+    frames would; on the CPU the same frame runs op by op.
+    ``dispatch="eager"`` runs the frames op by op on the card too."""
     from cips3d_tpu_torch.models.generator import GeneratorConfig, GeneratorNerfINR, RenderOptions
+    from cips3d_tpu_torch.utils import graphs
 
     cfg = GeneratorConfig(**(gen_widths or {}), fast_sin=fast_sin, fused_ray=fused_ray,
                           fused_inr=fused_inr)
@@ -57,16 +69,30 @@ def build_renderer(img_size: int, num_steps: int, frames: int, fast_sin: bool, f
         gen.load_state_dict(weights)
     gen = gen.to(device).eval()
     opts = RenderOptions(img_size=img_size, num_steps=num_steps, h_stddev=0.0, v_stddev=0.0)
+    total = torch.zeros((), device=device)
+    program = []
+
+    def frame(styles, rng):
+        world = gen.sample_world(1, opts, rng)
+        img, _ = gen.forward_with_rays(styles, world, opts, rng)
+        total.add_(img.float().abs().sum())
+        return total
 
     @torch.no_grad()
     def run_frames(styles, rng):
-        total = torch.zeros((), device=device)
-        for _ in range(frames):
-            world = gen.sample_world(1, opts, rng)
-            img, _ = gen.forward_with_rays(styles, world, opts, rng)
-            total += img.float().abs().sum()
-        return float(total)
+        total.zero_()
+        if dispatch == "eager":
+            for _ in range(frames):
+                frame(styles, rng)
+            return float(total)
+        if not program:
+            program.append(graphs.Program(lambda x, g: frame(x, g), styles, device,
+                                          f"bench.inference frame r{img_size} x{num_steps}",
+                                          uses_generator=True, state=[total], copy_out=False))
+        program[0].fill(styles)
+        return float(program[0].run(frames, rng))
 
+    run_frames.program = program
     return gen, opts, run_frames
 
 

@@ -29,17 +29,15 @@ read between them.  On CUDA without a group, or with NCCL (whose
 all-reduces are captured with the step), a capture or replay that fails
 raises, naming the step variant: there is no eager fallback.
 
-Launch counts: `ops/build.py` counts a kernel where its wrapper launches it,
-in Python, which a replay does not run.  The capture records what one step
-launches (kernels and `parallel.mesh.COLLECTIVES`), does not count itself,
-and each replay adds that record.
+Launch counts are counted through the replays: the capture records what one
+step launches (kernels and `parallel.mesh.COLLECTIVES`) and each replay adds
+that record.  The warm-up, the capture and the counts are the shared core of
+`utils/graphs.py`, which the render side uses too.
 """
 
 from __future__ import annotations
 
-import collections
 import dataclasses
-import gc
 import time
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -48,6 +46,7 @@ import torch
 from torch import nn
 
 from cips3d_tpu_torch.train.state import init_opt_state
+from cips3d_tpu_torch.utils.graphs import Graph, put_back
 
 
 class Metrics:
@@ -114,33 +113,6 @@ def _optimizers(state) -> List[torch.optim.Optimizer]:
             if isinstance(getattr(state, f.name), torch.optim.Optimizer)]
 
 
-def _counts():
-    from cips3d_tpu_torch.ops import build
-    from cips3d_tpu_torch.parallel.mesh import COLLECTIVES
-
-    return dict(build.LAUNCHES), collections.Counter(COLLECTIVES)
-
-
-def _set_counts(counts) -> None:
-    from cips3d_tpu_torch.ops import build
-    from cips3d_tpu_torch.parallel.mesh import COLLECTIVES
-
-    build.LAUNCHES.clear()
-    build.LAUNCHES.update(counts[0])
-    COLLECTIVES.clear()
-    COLLECTIVES.update(counts[1])
-
-
-def _add_counts(per_step, k: int) -> None:
-    from cips3d_tpu_torch.ops import build
-    from cips3d_tpu_torch.parallel.mesh import COLLECTIVES
-
-    for key, n in per_step[0].items():
-        build.LAUNCHES[key] = build.LAUNCHES.get(key, 0) + n * k
-    for key, n in per_step[1].items():
-        COLLECTIVES[key] += n * k
-
-
 def _host_step(state, n: int) -> None:
     """The host mirror of the counter only (replays advanced the device's)."""
     object.__setattr__(state, "step", n)
@@ -159,14 +131,9 @@ def warm_up(step_fn: Callable, state, real: torch.Tensor,
     afterwards, and nothing has trained."""
     for opt in _optimizers(state):
         init_opt_state(opt)
-    tensors = state_tensors(state)
-    saved = [t.detach().clone() for t in tensors]
-    rng_state, host_step = rng.get_state(), state.step
-    step_fn(state, real, rng=rng)
-    with torch.no_grad():
-        for t, s in zip(tensors, saved):
-            t.copy_(s)
-    rng.set_state(rng_state)
+    host_step = state.step
+    with put_back(state_tensors(state), [rng]):
+        step_fn(state, real, rng=rng)
     _host_step(state, host_step)
 
 
@@ -212,38 +179,22 @@ class GraphChunk:
     def capture(self) -> None:
         """Warm up on a side stream, put the state back, capture one step."""
         self.close()
-        state, dev = self.state, self.device
+        state = self.state
         host_step = state.step
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        try:
-            with torch.cuda.stream(side):
-                warm_up(self.step_fn, state, self.static_real, self.rng)
-        except Exception as e:
-            raise RuntimeError(f"warm-up of {self.label} before its capture failed: {e}") from e
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
-        gc.collect()
-        torch.cuda.empty_cache()   # the warm-up's blocks, for the graph's pool to take
+        names = []
 
-        graph = torch.cuda.CUDAGraph()
-        before = _counts()
+        def step():
+            _, m = self.step_fn(state, self.static_real, rng=self.rng)
+            names[:] = list(m)
+            return _row(m)
+
         try:
-            graph.register_generator_state(self.rng)
-            with torch.cuda.graph(graph, stream=side):
-                _, m = self.step_fn(state, self.static_real, rng=self.rng)
-                self.names = list(m)
-                self.static_out = _row(m)
-        except Exception as e:
-            raise RuntimeError(f"CUDA-graph capture of {self.label} failed: {e}") from e
+            self.graph = Graph(step, self.device, self.label, generators=[self.rng],
+                               warm_up=lambda: warm_up(self.step_fn, state, self.static_real,
+                                                       self.rng))
         finally:
-            after = _counts()
-            _set_counts(before)
             _host_step(state, host_step)
-        self.per_step = ({k: n - before[0].get(k, 0) for k, n in after[0].items()
-                          if n != before[0].get(k, 0)},
-                         after[1] - before[1])
-        self.graph = graph
+        self.names, self.static_out = names, self.graph.outputs
         self.bindings = [t.data_ptr() for t in state_tensors(state)]
 
     def __call__(self, reals, draws: Optional[Sequence] = None) -> Metrics:
@@ -258,24 +209,17 @@ class GraphChunk:
                              f"{tuple(self.static_real.shape)}")
         k = staged.shape[0]
         rows = torch.empty((k, len(self.names)), dtype=torch.float32, device=self.device)
-        try:
-            for j in range(k):
-                self.static_real.copy_(staged[j], non_blocking=True)
-                self.graph.replay()
-                rows[j].copy_(self.static_out)
-        except Exception as e:
-            raise RuntimeError(f"replay of {self.label} failed: {e}") from e
-        _add_counts(self.per_step, k)
+        for j in range(k):
+            self.static_real.copy_(staged[j], non_blocking=True)
+            rows[j].copy_(self.graph.replay())
         _host_step(self.state, self.state.step + k)
         return Metrics(self.names, rows)
 
     def close(self) -> None:
         """Release the graph and its memory pool."""
         if self.graph is not None:
-            self.graph.reset()
+            self.graph.close()
             self.graph, self.static_out = None, None
-            gc.collect()
-            torch.cuda.empty_cache()
 
 
 def make_chunk_fn(step_fn: Callable, state, real_shape, rng: Optional[torch.Generator],

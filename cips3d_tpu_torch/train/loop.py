@@ -396,6 +396,14 @@ def run_pipeline(pipeline: Pipeline, loop_cfg: LoopConfig, resume: bool = False,
                          else "eager steps read once a chunk"), flush=True)
         return chunk
 
+    def release_chunk():
+        """Free the chunk's graph and its memory pool before an eval: the eval
+        render at train_r256's settings (b = 16 at r256) does not fit on the
+        card beside the step's pool.  The next chunk captures again (a
+        warm-up that is undone, then the capture), so the steps are the same."""
+        if chunk is not None:
+            chunk.close()
+
     def dump_crupted(name):
         ckpt_mgr.save_snapshot(name, pipeline.modules(state), state=dict(start_state),
                                info_msg=f"non-finite gradients at step {start_state['step']}")
@@ -472,6 +480,7 @@ def run_pipeline(pipeline: Pipeline, loop_cfg: LoopConfig, resume: bool = False,
             if step - k == 0 or step % loop_cfg.eval_every == 0 or loop_cfg.debug:
                 process_pending(pending)
                 pending = None
+                release_chunk()
                 _run_eval_and_checkpoint(pipeline, state, loop_cfg, dataset, ckpt_mgr,
                                          textlogger, start_state, mesh)
                 t_last = time.time()   # keep eval time out of the next speed sample
@@ -482,6 +491,7 @@ def run_pipeline(pipeline: Pipeline, loop_cfg: LoopConfig, resume: bool = False,
         # a last eval and checkpoint when total_iters is not a multiple of eval_every
         if total > start and total % loop_cfg.eval_every != 0 and not loop_cfg.debug:
             start_state["step"] = total
+            release_chunk()
             _run_eval_and_checkpoint(pipeline, state, loop_cfg, dataset, ckpt_mgr, textlogger,
                                      start_state, mesh)
     finally:
