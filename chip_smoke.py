@@ -186,7 +186,27 @@ Phases, each printing one line (plus detail lines):
      serving frames (r128 x 24, r256 x 12), the trajectory frame, the
      inversion step, the sigma volume (n = 128) and the bench's frames/s,
      each with a profiled call's idle share, and the memory of the service's
-     graphs, without a threshold.
+     graphs, without a threshold;
+ 18. the last slice of the port: (a) the training loop at train_r256's
+     settings for 2 steps with an eval and its monitors (16 fixed latents
+     at r256) after each, the chunk released before each eval and captured
+     again after it, the peak memory at most CHUNK_PEAK_GIB, and the last
+     eval's monitor grids (one program a model and pose) against eager
+     calls, bit for bit with deterministic algorithms on; (b) diffcam's and
+     pi-GAN's r64 eval fakes and monitors, captured against eager, bit for
+     bit, equal launches; (c) `render_sharded` of the serving generator at
+     r128 x 24 through a one-rank NCCL group, replays against eager calls
+     bit for bit, #1, #2 and the all-gather counted through the replays;
+     (e) configs/finetune.yaml's finetune_afhq through the training CLI in
+     a subprocess at full width (``python3 chip_smoke.py --finetune-run
+     <cli args>``), started after (a)'s loop and run beside (b) and (c): 5
+     steps from a seeded snapshot the port writes on a 64-image r256 zip,
+     exit 0, the snapshot loaded, G's NeRF equal to the source EMA's bit
+     for bit after the run, its INR moved, #1 launched, the step time and
+     the peak memory; (d) alone, after it: the surrogate FID on the card,
+     the features of 2048 + 2048 r64 images against the CPU extractor's at
+     FID_TOL (TF32 off) and the FID within 1e-4 relative, an eval of those
+     images (fakes written, features, FID) timed with each extractor.
 Phases 4, 5, 11, 14 and 15 go through the same captured programs (a frame,
 the inversion step, the sigma chunk, the bench's frame; the eval CLI's
 renders in its subprocesses): their launch counts include each program's
@@ -3484,6 +3504,378 @@ def render_phase(dev, smi, log, tmp, gen):
     return totals
 
 
+# ---- phase 18: the last slice ---------------------------------------------------
+
+# phase 18(a, e): configs/finetune.yaml's finetune_afhq, 5 steps (step 0 alone, then chunks
+# of 2: steps 3-4 are replays only) with evals after steps 1 and 5 of 16 + 16 images (the
+# recipe's 2048 + 2048 cut for time; its eval_batch_size 16 and fixed_z_bs 16 kept)
+FINETUNE_OPTS = ("total_iters", "5", "eval_every", "5", "log_every", "1", "dispatch_chunk", "2",
+                 "num_images_real_eval", "16", "num_images_gen_eval", "16", "num_workers", "2")
+FID_TOL = dict(rtol=1e-4, atol=1e-5)   # phase 18(d): card features vs the CPU's, TF32 off
+
+
+def finetune_run(argv):
+    """One run of the training CLI (`cips3d_tpu_torch.train.cli.main` on
+    ``argv``) in a subprocess of phase 18(a, e); then a line with the
+    kernels' launches (through the chunks' replays), the peak device
+    memory, the chunk's captures and releases and the monitors in the
+    order they came, and each eval's monitors' seconds."""
+    import torch
+
+    import cips3d_tpu_torch.train.chunk as chunk_mod
+    import cips3d_tpu_torch.train.loop as loop_mod
+    from cips3d_tpu_torch.train import cli
+
+    events, mon_secs = [], []
+    capture, close, monitors = (chunk_mod.GraphChunk.capture, chunk_mod.GraphChunk.close,
+                                loop_mod.save_monitor_images)
+
+    def spy_capture(self):
+        events.append("capture")
+        return capture(self)
+
+    def spy_close(self):
+        if self.graph is not None:
+            events.append("release")
+        return close(self)
+
+    def spy_monitors(*a, **kw):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        monitors(*a, **kw)
+        torch.cuda.synchronize()
+        mon_secs.append(time.perf_counter() - t1)
+        events.append("monitors")
+
+    chunk_mod.GraphChunk.capture, chunk_mod.GraphChunk.close = spy_capture, spy_close
+    loop_mod.save_monitor_images = spy_monitors
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    print("finetune run: " + json.dumps({"launches": kernel_counts(),
+                                         "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                                         "events": events, "monitor_secs": mon_secs}),
+          flush=True)
+    return rc
+
+
+def variant_evals():
+    """``python3 chip_smoke.py --variant-evals``: diffcam's and pi-GAN's eval
+    fakes as configs/{diffcam,pigan}.yaml write them (train_r64 at full
+    width, 2048 fakes in batches of 16 as PNGs, `variant_loop._dump_fakes`),
+    each batch rendered eagerly, as the pipelines do, or as one captured
+    program a batch shape (`graphs.program_for`, the renders drawn inside
+    from the batch's generator), in turns: eager, program, program, eager.
+    One line a run on the host clock, one a variant with the sums, and
+    whether the program's PNGs equal the eager ones byte for byte.  The
+    measurement behind the pipelines' eager eval renders."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from cips3d_tpu_torch.models.generator import sample_zs
+    from cips3d_tpu_torch.train.loop import LoopConfig
+    from cips3d_tpu_torch.train.variant_loop import _dump_fakes
+    from cips3d_tpu_torch.utils import graphs
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA GPU")
+    dev, smi = torch.device("cuda"), nvidia_smi()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_evals_")
+
+    def files(d):
+        return {n: open(os.path.join(d, n), "rb").read() for n in sorted(os.listdir(d))}
+
+    try:
+        for name in ("diffcam", "pigan"):
+            pipe = variant_pipeline(name, "train_r64")
+            state = pipe.init_state(LoopConfig(device=str(dev), seed=110))
+            if name == "diffcam":
+                def draw(m, b, g):
+                    zs = sample_zs(b, pipe.gen_cfg, g, device=dev)
+                    return pipe.render(m, state.camera, zs, g)
+            else:
+                opts = pipe.eval_opts()
+
+                def draw(m, b, g):
+                    return m(torch.randn((b, m.z_dim), generator=g, device=dev), opts, g)[0]
+            secs, kept = collections.defaultdict(list), {}
+            for i, d in enumerate(("eager", "program", "program", "eager")):
+                out = os.path.join(tmp, f"{name}_{i}")
+                cache = graphs.ProgramCache()
+
+                def render(b, g):
+                    if d == "eager":
+                        return draw(state.ema, b, g)
+                    return graphs.program_for(state.ema, (name, b), None,
+                                              lambda m, _, gg: draw(m, b, gg),
+                                              f"{name} eval render b={b}", uses_generator=True,
+                                              programs=cache)(None, g)
+
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                try:
+                    _dump_fakes(render, out, 2048, 16, dev)
+                    torch.cuda.synchronize()
+                finally:
+                    cache.close()
+                secs[d].append(time.perf_counter() - t1)
+                log(f"variant eval: {name} train_r64, {len(os.listdir(out))} fakes (128 batches "
+                    f"of 16), {d}: {secs[d][-1]:.2f} s [{smi}]")
+                if d in kept:
+                    shutil.rmtree(out)
+                else:
+                    kept[d] = out
+            same = files(kept["eager"]) == files(kept["program"])
+            log(f"variant eval: {name}: eager {sum(secs['eager']):.2f} s over 2 runs, program "
+                f"{sum(secs['program']):.2f} s over 2 runs; the program's PNGs "
+                f"{'equal' if same else 'DIFFER FROM'} the eager ones [{smi}]")
+            if not same:
+                raise AssertionError(f"{name}: the program's fakes differ from the eager ones")
+            for out in kept.values():
+                shutil.rmtree(out)
+            del pipe, state
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return 0
+
+
+def nerf_leaves(tree, prefix=""):
+    import numpy as np
+
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from nerf_leaves(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, np.asarray(v)
+
+
+def finetune_phase(tmp, log, smi):
+    """Phase 18(a, e): a seeded full-width G, G_ema and D of
+    configs/finetune.yaml written as a snapshot by the port, a 64-image r256
+    zip, and `finetune_run` on them in a subprocess, alone on the card;
+    then its exit, load line, launches, step time and peak memory, and G's
+    NeRF (siren, NeRF mapping, aux head) against the source G_ema's.  The
+    recipe trains at train_r256's settings (r256, b = 4, freeze-NeRF, aux
+    off, evals of b = 16 and monitors of 16 fixed latents) but for the D
+    warm-up, so the run is also (a): the chunk released before each eval
+    and captured again after it, the eval with its monitors (op by op,
+    timed) at most CHUNK_PEAK_GIB."""
+    import numpy as np
+    import torch
+
+    from cips3d_tpu_torch.config.config import resolve_command
+    from cips3d_tpu_torch.data.synthetic import make_blob_dataset
+    from cips3d_tpu_torch.models.discriminator import DiscriminatorMultiScaleAux
+    from cips3d_tpu_torch.models.generator import GeneratorNerfINR
+    from cips3d_tpu_torch.train import cli
+    from cips3d_tpu_torch.utils import convert
+    from cips3d_tpu_torch.utils.checkpoint import CheckpointManager
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = resolve_command(os.path.join(root, "configs", "finetune.yaml"), "finetune_afhq")
+    gen_cfg = cli.config_to_dataclasses(cfg)[0]
+    trees = {k: convert.jax_tree_from_state_dict(GeneratorNerfINR(
+        gen_cfg, generator=torch.Generator().manual_seed(seed)).state_dict())
+        for k, seed in (("generator", 140), ("G_ema", 141))}
+    trees["discriminator"] = convert.jax_d_tree_from_state_dict(DiscriminatorMultiScaleAux(
+        **cfg.discriminator.to_dict(), generator=torch.Generator().manual_seed(142)).state_dict())
+    snap = CheckpointManager(os.path.join(tmp, "ft_src", "ckptdir"))
+    snap.save_snapshot("best_fid", trees)
+    snap_dir = os.path.join(snap.ckpt_dir, "best_fid")
+    data = make_blob_dataset(os.path.join(tmp, "afhq_256.zip"), 64, img_size=256, seed=143)
+    out = os.path.join(tmp, "ft18")
+    os.makedirs(out)
+    t1 = time.perf_counter()
+    with open(os.path.join(out, "stdout.txt"), "w") as fo, \
+            open(os.path.join(out, "stderr.txt"), "w") as fe:
+        rc = subprocess.run([sys.executable, os.path.abspath(__file__), "--finetune-run",
+                             "--config", "configs/finetune.yaml", "--command", "finetune_afhq",
+                             "--opts", "data_path", data, "finetune_dir", snap_dir, "outdir",
+                             out, *FINETUNE_OPTS], cwd=root, stdout=fo, stderr=fe,
+                            timeout=600).returncode
+    secs = time.perf_counter() - t1
+    stdout = open(os.path.join(out, "stdout.txt")).read()
+    if rc != 0:
+        log(stdout[-3000:] + open(os.path.join(out, "stderr.txt")).read()[-3000:])
+        raise AssertionError(f"phase 18(e): the finetune CLI exited {rc}")
+    run = json.loads(next(ln for ln in stdout.splitlines()
+                          if ln.startswith("finetune run: "))[len("finetune run: "):])
+    rate = [float(m.group(1)) for m in re.finditer(r"^step 4: .* ([0-9.]+) img/s$", stdout,
+                                                   re.M)]
+    got = CheckpointManager(os.path.join(out, "finetune_afhq", "ckptdir")).load_snapshot(
+        "resume", ("generator",))["generator"]["params"]
+    nerf = ("siren", "mapping_network_nerf", "aux_to_rgb")
+    src = {mod: dict(nerf_leaves(trees["G_ema"]["params"][mod])) for mod in nerf}
+    now = {mod: dict(nerf_leaves(got[mod])) for mod in nerf}
+    frozen = all(now[m] and now[m].keys() == src[m].keys()
+                 and all(np.array_equal(v, src[m][k]) for k, v in now[m].items()) for m in nerf)
+    src_inr = dict(nerf_leaves(trees["generator"]["params"]["inr_net"]))
+    moved = sum(not np.array_equal(v, src_inr[k]) for k, v in nerf_leaves(got["inr_net"]))
+    loaded = f"loading finetune weights from {snap_dir}" in stdout
+    step_ms = 4 / rate[0] * 1e3 if rate else float("nan")
+    resume = os.path.join(out, "finetune_afhq", "ckptdir", "resume")
+    log(f"phase 18 loop: finetune_afhq at train_r256's settings, an eval after steps 1 and 5 "
+        f"(16 + 16 images, FID_surrogate on the card, snapshots, the monitors of 16 latents op "
+        f"by op): events {run['events']}; the monitors (5 grids, 10 renders of b=8) "
+        f"{', '.join(f'{x:.2f}' for x in run['monitor_secs'])} s an eval; peak "
+        f"max_memory_allocated {run['peak_gib']:.2f} GiB (bound {CHUNK_PEAK_GIB:g}) [{smi}]")
+    if (run["events"] != ["capture", "release", "monitors", "capture", "release", "monitors"]
+            or not os.path.exists(os.path.join(resume, "0G_flip_ema.jpg"))):
+        raise AssertionError(f"phase 18(a): the loop's chunk and eval with monitors: events "
+                             f"{run['events']}")
+    log(f"phase 18 finetune: finetune_afhq (freeze-NeRF, no D warm-up, aux off, load_nerf_ema, "
+        f"r256 b=4) through the training CLI at full width, alone on the card, 5 steps on a "
+        f"64-image r256 zip from a seeded snapshot the port wrote: exit {rc} in {secs:.1f} s; "
+        f"the snapshot loaded {loaded}; G's NeRF ({sum(map(len, now.values()))} tensors) equals "
+        f"the source G_ema's {frozen}; INR tensors moved {moved} of {len(src_inr)}; launches "
+        f"{run['launches']}; step 4 (a replay of a chunk of 2) {step_ms:.1f} ms "
+        f"({rate[0] if rate else float('nan'):.2f} images/s); peak max_memory_allocated "
+        f"{run['peak_gib']:.2f} GiB [{smi}]")
+    if not (loaded and frozen and moved and run["launches"]["inr_tile"] > 0 and rate
+            and run["peak_gib"] <= CHUNK_PEAK_GIB):
+        raise AssertionError("phase 18(e): the finetune did not load, freeze, move or launch "
+                             "as it should")
+
+
+def last_slice_phase(dev, smi, log, tmp, gen):
+    """Phase 18: what the port finished last, one part after another, none
+    beside another process on the card.  (c) `render_sharded` of the
+    serving generator at r128 x 24 through a one-rank NCCL group, with
+    deterministic algorithms on, 3 replays against 3 eager calls, bit for
+    bit, #1, #2 and one all-gather a call counted through the replays; (d)
+    the surrogate FID of 2048 + 2048 r64 images: the G_ema's fakes written
+    once, both directories' features with the CPU extractor and with the
+    card's (real: CPU first, fake: card first), the card's features against
+    the CPU's at FID_TOL and the FIDs within 1e-4 relative, an eval's time
+    with each extractor; (a, e) configs/finetune.yaml's finetune_afhq
+    through the training CLI in a subprocess at full width
+    (`finetune_phase`): the loop at train_r256's settings, its chunk
+    released and captured again around an eval with its monitors, the peak
+    at most CHUNK_PEAK_GIB, and the frozen NeRF.  The variants' evals,
+    eager against captured at their configs' size, are ``--variant-evals``
+    (`variant_evals`), not part of this run.  Returns the launches counted
+    in (c)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from cips3d_tpu_torch.apps import render
+    from cips3d_tpu_torch.eval import fid
+    from cips3d_tpu_torch.eval.images import gen_images
+    from cips3d_tpu_torch.models.generator import (GeneratorConfig, GeneratorNerfINR,
+                                                   RenderOptions, sample_zs)
+    from cips3d_tpu_torch.parallel.mesh import COLLECTIVES, make_mesh
+    from cips3d_tpu_torch.utils import graphs, image_io
+
+    totals = collections.Counter()
+    t0 = time.perf_counter()
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        # ---- (c) render_sharded through a one-rank NCCL group, captured vs eager
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                                world_size=1, rank=0)
+        cache = graphs.ProgramCache()
+        try:
+            mesh = make_mesh(1)
+            zs = sample_zs(1, gen.cfg, torch.Generator(dev).manual_seed(120), device=dev)
+            with torch.no_grad():
+                st = gen.mapping(zs["z_nerf"], zs["z_inr"])
+            o = RenderOptions(img_size=128, num_steps=SERVING_STEPS, h_stddev=0.0, v_stddev=0.0)
+            draws = render.Draws(dev)
+            render.render_sharded(gen, st, o, 0, draws, mesh, return_depth=True,
+                                  programs=cache)   # warm-up and capture
+            runs = {}
+            for d in ("eager", "program"):
+                zero_kernel_counts()
+                COLLECTIVES.clear()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                outs = [render.render_sharded(gen, st, o, key, draws, mesh, return_depth=True,
+                                              dispatch=d, programs=cache) for key in (1, 2, 3)]
+                torch.cuda.synchronize()
+                runs[d] = (outs, kernel_counts(), dict(COLLECTIVES),
+                           (time.perf_counter() - t1) / 3 * 1e3)
+        finally:
+            cache.close()
+            dist.destroy_process_group()
+        (oe, ce, le, te), (op, cp, lp, tp) = runs["eager"], runs["program"]
+        exact = all(torch.equal(a, b) for x, y in zip(oe, op) for a, b in zip(x, y))
+        log(f"phase 18 render_sharded: serving generator r128 x{SERVING_STEPS}, one NCCL rank, "
+            f"keys 1-3, replays vs eager: {'bit for bit' if exact else 'DIFFERENT'}; launches "
+            f"through the replays {cp}, collectives {lp}; eager {ce}, {le}; {tp:.2f} ms a "
+            f"replayed call, {te:.2f} ms eager [{smi}]")
+        if (not exact or cp != ce or lp != le or cp["ray_tile"] != 3 or cp["inr_tile"] != 3
+                or lp.get("all_gather") != 3):
+            raise AssertionError("phase 18(c): render_sharded's replays differ from its eager "
+                                 "calls or miss #1, #2 or the all-gather")
+        totals.update(cp)
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
+        torch.use_deterministic_algorithms(False)
+    log(f"phase 18(c) done in {time.perf_counter() - t0:.1f} s")
+
+    # ---- (d) the surrogate FID: an eval of 2048 + 2048 r64 images, CPU vs card extractor
+    rng = np.random.default_rng(130)
+    real_dir, fake_dir = os.path.join(tmp, "fid18", "real"), os.path.join(tmp, "fid18", "fake")
+    os.makedirs(real_dir)
+    low = rng.integers(0, 256, (2048, 8, 8, 3)).astype(np.float32)
+    reals = np.clip(np.repeat(np.repeat(low, 8, 1), 8, 2)
+                    + rng.normal(0, 12, (2048, 64, 64, 3)), 0, 255).astype(np.uint8)
+    for i, img in enumerate(reals):
+        image_io.write_png(os.path.join(real_dir, f"real_{i:06d}.png"), img)
+    g64 = GeneratorNerfINR(GeneratorConfig(fast_sin=True),
+                           generator=torch.Generator().manual_seed(131)).to(dev).eval()
+    ex = {"cpu": fid.surrogate_extractor(device="cpu"), "card": fid.surrogate_extractor(device=dev)}
+    for e in ex.values():   # built and called once before the timed eval, as after a loop's first
+        e(reals[:16])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    n = gen_images(g64, fake_dir, 2048, 64, batch_size=16)
+    t_gen = time.perf_counter() - t1
+    feats = {k: {} for k in ex}
+    t_feat, t_fid, value = collections.Counter(), {}, {}
+    for d, order in ((real_dir, ("cpu", "card")), (fake_dir, ("card", "cpu"))):
+        for name in order:
+            t1 = time.perf_counter()
+            feats[name][d] = fid.extract_dir_features(d, ex[name])
+            t_feat[name] += time.perf_counter() - t1
+    for name in ex:
+        t1 = time.perf_counter()
+        value[name] = fid.frechet_distance(*fid.activation_statistics(feats[name][real_dir]),
+                                           *fid.activation_statistics(feats[name][fake_dir]))
+        t_fid[name] = time.perf_counter() - t1
+    pairs = [(feats["card"][d], feats["cpu"][d]) for d in (real_dir, fake_dir)]
+    bad = [np.abs(x - y).max() for x, y in pairs]
+    outside = sum(int((np.abs(x - y) > FID_TOL["atol"] + FID_TOL["rtol"] * np.abs(y)).sum())
+                  for x, y in pairs)
+    rel = abs(value["card"] - value["cpu"]) / abs(value["cpu"])
+    log(f"phase 18 fid: FID_surrogate of 2048 + 2048 r64 images: card {value['card']:.6f}, "
+        f"CPU {value['cpu']:.6f} (relative {rel:.2e}, bound 1e-4); card features vs CPU: max "
+        f"abs error real {bad[0]:.3e}, fake {bad[1]:.3e}, {outside} elements outside rtol "
+        f"{FID_TOL['rtol']:g} / atol {FID_TOL['atol']:g} (TF32 off) [{smi}]")
+    for name in ex:
+        log(f"phase 18 fid time: an eval of 2048 + 2048 r64 images with the {name} extractor: "
+            f"{t_gen + t_feat[name] + t_fid[name]:.2f} s ({n} fakes written in {t_gen:.2f} s, "
+            f"once for both; features of both directories {t_feat[name]:.2f} s; the FID "
+            f"{t_fid[name]:.2f} s) [{smi}]")
+    if outside or rel > 1e-4 or not all(np.isfinite(v) for v in value.values()):
+        raise AssertionError("phase 18(d): the card's surrogate features or FID differ from "
+                             "the CPU's")
+    del g64
+    torch.cuda.empty_cache()
+    log(f"phase 18(d) done in {time.perf_counter() - t0:.1f} s")
+
+    # ---- (a, e) finetune_afhq through the training CLI at full width, alone on the card
+    finetune_phase(tmp, log, smi)
+    log(f"phase 18(a, e) done in {time.perf_counter() - t0:.1f} s")
+    log(f"phase 18 done in {time.perf_counter() - t0:.1f} s")
+    return totals
+
+
 def main():
     import torch
 
@@ -3778,17 +4170,21 @@ def main():
         chunk_counts = chunk_phase(dev, smi, log, tmp)
         graphs.release()
         render_counts = render_phase(dev, smi, log, tmp, gen)
+        slice_counts = last_slice_phase(dev, smi, log, tmp, gen)
+        graphs.release()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     # launches on the main paths: serving (phase 4), training (phase 7), apps (phase 11),
     # training from the dataset tool's zip (phase 12), training on several processes (13),
     # a loaded reference checkpoint served (14), the bf16 step, frame and benches (15), the
-    # chunks' replays (16), the render side's replays (17); a program's launches are counted
+    # chunks' replays (16), the render side's replays (17), render_sharded's replays through
+    # one NCCL rank (18); a program's launches are counted
     # through its replays (and its warm-up's, which runs the kernels once before the capture)
     for k in ("ray_tile", "inr_tile"):
         launches[k] += (apps[k] + data_counts[k] + dist_counts[k] + ckpt_counts[k]
-                        + bench_counts.get(k, 0) + chunk_counts[k] + render_counts[k])
+                        + bench_counts.get(k, 0) + chunk_counts[k] + render_counts[k]
+                        + slice_counts[k])
     for e in train:
         e["launches"] += (apps[e["name"]] + bench_counts.get(e["name"], 0)
                           + chunk_counts[e["name"]] + render_counts[e["name"]])
@@ -3828,4 +4224,8 @@ if __name__ == "__main__":
         sys.exit(phase13_rank(sys.argv[2]))
     if sys.argv[1:2] == ["--loop-run"]:   # one training-CLI run of phase 10(d), started by main
         sys.exit(loop_run(sys.argv[2:]))
+    if sys.argv[1:2] == ["--finetune-run"]:   # phase 18(a, e)'s CLI run, started by main
+        sys.exit(finetune_run(sys.argv[2:]))
+    if sys.argv[1:2] == ["--variant-evals"]:   # the variants' 2048-image evals, timed
+        sys.exit(variant_evals())
     sys.exit(main())

@@ -103,8 +103,7 @@ class Projector:
                  draws: Optional[InversionDraws] = None, dispatch: str = "program"):
         from cips3d_tpu_torch.train.state import init_opt_state
 
-        if dispatch not in ("program", "eager"):
-            raise ValueError(f"dispatch must be 'program' or 'eager', got {dispatch!r}")
+        captured = not graphs.eager(dispatch)
         dev = model.device
         if draws is None:
             draws = draw_inversion(model, num_steps_opt, img_size, num_steps, avg_samples, seed)
@@ -130,7 +129,7 @@ class Projector:
         self.losses = torch.zeros(num_steps_opt // log_every, device=dev)
         self.img, self.done = None, 0
         self.program = None
-        if dispatch == "program":
+        if captured:
             init_opt_state(self.opt)   # no step allocates Adam's state inside the capture
             adam = [t for st in self.opt.state.values() for t in st.values()]
             self.program = graphs.Program(

@@ -10,7 +10,8 @@ seeded with the integer the JAX package gives `jax.random.PRNGKey` at the
 same place, so a seed picks the same kind of draw in both packages (the
 values differ).  Frames are PNGs from the port's own encoder; videos are
 MJPEG-AVI (`utils/video.py`).  `render_sharded` renders one image with its
-pixels split over the ranks of a process group.
+pixels split over the ranks of a process group, one program a call in an
+NCCL group.
 """
 
 from __future__ import annotations
@@ -109,13 +110,11 @@ def render_chunked(model: GeneratorNerfINR, style_dict, opts: RenderOptions,
     leaves ``generator`` where the eager call leaves it.  On the CPU the same
     program runs op by op.  ``dispatch="eager"`` runs `_render` directly."""
     chunk = chunk_size(opts.img_size ** 2, forward_points)
-    if dispatch == "eager":
+    if graphs.eager(dispatch):
         dev = model.device
         return _render(model, style_dict, opts, generator, chunk, _on(camera_pos, dev),
                        _on(camera_lookup, dev), _on(up_vector, dev), return_depth,
                        perturb_uniform, chunk_draws)
-    if dispatch != "program":
-        raise ValueError(f"dispatch must be 'program' or 'eager', got {dispatch!r}")
     inputs = {"styles": dict(style_dict), "camera": (camera_pos, camera_lookup, up_vector),
               "perturb": perturb_uniform,
               "draws": None if chunk_draws is None else list(chunk_draws)}
@@ -193,42 +192,66 @@ def render_frame(model: GeneratorNerfINR, styles, opts: RenderOptions, key: int,
 @torch.no_grad()
 def render_sharded(model: GeneratorNerfINR, styles, opts: RenderOptions, key: int, draws: Draws,
                    mesh, camera_pos=None, camera_lookup=None, up_vector=None,
-                   return_depth: bool = False):
+                   return_depth: bool = False, *, dispatch: str = "program",
+                   programs: Optional[graphs.ProgramCache] = None):
     """Whole-image render with the pixel axis split over the ranks of
     ``mesh`` (its ray groups, or every rank when ``ray_shards`` is 1): the
     counterpart of the JAX package's ``render_sharded``.  Every rank draws
     the draws of `render_frame`'s one-chunk render of ``key``, renders its
     slice of the H x W pixels with them, and the slices are all-gathered.
     Returns (b, 3, H, W) images (with ``return_depth`` also (b, 1, H, W)) on
-    every rank.  Raises when H x W does not divide by the shard count."""
+    every rank.  Raises when H x W does not divide by the shard count.
+
+    The call is one program, as the JAX package jits it over the
+    pixel-sharded mesh: in an NCCL group a CUDA graph with the all-gather
+    inside (keyed by the model, ``opts``, the mesh and which inputs are
+    given, in ``programs`` or the shared `graphs.PROGRAMS`); on the CPU the
+    same program op by op.  In a gloo group on the card, and with
+    ``dispatch="eager"``, it runs op by op: gloo's collectives go through
+    host memory and cannot be captured, as the training chunks find."""
     from cips3d_tpu_torch.parallel.mesh import gather_pixels
 
     h = w = opts.img_size
     n = h * w
     lo, hi = mesh.pixel_range(n)
     b = next(iter(styles.values())).shape[0]
-    cam = [None if v is None else torch.as_tensor(np.asarray(v, np.float32), device=model.device)
-           for v in (camera_pos, camera_lookup, up_vector)]
     kw = draws.render(key, b, opts, n)
-    gen = kw.get("generator")
-    world = model.sample_world(b, opts, gen, *cam, kw.get("perturb_uniform"))
-    if kw.get("chunk_draws") is not None:
-        rd = kw["chunk_draws"][0]
-    else:   # as `points_forward` draws them for one chunk of every pixel
-        rd = draw_ray_randoms(b, n, opts.num_steps, float(opts.nerf_noise) != 0, gen,
-                              model.device, hierarchical=opts.hierarchical_sample)
-    sl = slice(lo, hi)
-    sub = rays_lib.WorldRays(world.points[:, sl], world.dirs_expanded[:, sl],
-                             world.origins[:, sl], world.dirs[:, sl], world.z_vals[:, sl],
-                             world.pitch, world.yaw)
-    img, _, depth = model.points_forward(styles, sub, opts, gen,
+    chunk_draws = kw.get("chunk_draws")
+    inputs = {"styles": dict(styles), "camera": (camera_pos, camera_lookup, up_vector),
+              "perturb": kw.get("perturb_uniform"),
+              "draws": None if chunk_draws is None else chunk_draws[0]}
+
+    def body(m, x, g):
+        world = m.sample_world(b, opts, g, *x["camera"], x["perturb"])
+        rd = x["draws"]
+        if rd is None:   # as `points_forward` draws them for one chunk of every pixel
+            rd = draw_ray_randoms(b, n, opts.num_steps, float(opts.nerf_noise) != 0, g,
+                                  m.device, hierarchical=opts.hierarchical_sample)
+        sl = slice(lo, hi)
+        sub = rays_lib.WorldRays(world.points[:, sl], world.dirs_expanded[:, sl],
+                                 world.origins[:, sl], world.dirs[:, sl], world.z_vals[:, sl],
+                                 world.pitch, world.yaw)
+        img, _, depth = m.points_forward(x["styles"], sub, opts, g,
                                          draws=RayDraws(*(t[:, sl].contiguous() for t in rd)),
                                          return_depth=True)
-    full = gather_pixels(torch.cat([img, depth.to(img.dtype)], -1), mesh)
-    img = full[..., :3].transpose(1, 2).reshape(b, 3, h, w)
-    if not return_depth:
-        return img
-    return img, full[..., 3:].transpose(1, 2).reshape(b, 1, h, w)
+        full = gather_pixels(torch.cat([img, depth.to(img.dtype)], -1), mesh)
+        return (full[..., :3].transpose(1, 2).reshape(b, 3, h, w),
+                full[..., 3:].transpose(1, 2).reshape(b, 1, h, w))
+
+    gen = kw.get("generator")
+    group = mesh.pixel_shards[2]
+    if graphs.eager(dispatch) or (model.device.type == "cuda"
+                                  and torch.distributed.get_backend(group) != "nccl"):
+        dev = model.device
+        inputs["camera"] = tuple(_on(v, dev) for v in inputs["camera"])
+        img, depth = body(model, inputs, gen)
+    else:
+        prog = graphs.program_for(model, ("render_sharded", opts, mesh), inputs, body,
+                                  f"render_sharded r{h} x{opts.num_steps} b={b} "
+                                  f"pixels {lo}:{hi}", uses_generator=gen is not None,
+                                  programs=programs)
+        img, depth = prog(inputs, gen)
+    return (img, depth) if return_depth else img
 
 
 def depth_to_uint8(dmap, opts: RenderOptions) -> np.ndarray:

@@ -49,8 +49,7 @@ def sample_sigma_volume(model: GeneratorNerfINR, seed: int = 0, n: int = 128,
     (n, n, n) float32."""
     from cips3d_tpu_torch.apps.render import Draws, seed_styles
 
-    if dispatch not in ("program", "eager"):
-        raise ValueError(f"dispatch must be 'program' or 'eager', got {dispatch!r}")
+    captured = not graphs.eager(dispatch)
     if styles is None:
         styles = seed_styles(model, seed, psi, draws or Draws(model.device))
     grid = create_voxel_grid(n, sidelength)
@@ -61,7 +60,7 @@ def sample_sigma_volume(model: GeneratorNerfINR, seed: int = 0, n: int = 128,
     grid = torch.as_tensor(grid, device=model.device)
     vol = torch.empty(grid.shape[0], dtype=torch.float32, device=model.device)
     prog = None
-    if dispatch == "program":
+    if captured:
         inputs = {"pts": grid[:chunk], "styles": dict(styles)}
         prog = graphs.program_for(model, ("sigma", chunk), inputs,
                                   lambda m, x, rng: _sigma(m, x["pts"], x["styles"]),

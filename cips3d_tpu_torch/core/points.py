@@ -1,5 +1,6 @@
 """Pixel-axis gather/scatter for partial-gradient rendering: counterpart of
-`cips3d_tpu/core/points.py` (`gather_points`, `scatter_points`).
+`cips3d_tpu/core/points.py` (`gather_points`, `scatter_points` and their
+per-sample `batch_*` forms).
 
 Gradients flow through a random subset of pixels; the rest are rendered
 without gradient and scattered back into the full image (`grad_points`).
@@ -25,3 +26,29 @@ def scatter_points(idx_grad: torch.Tensor, points_grad: torch.Tensor,
     out = points_grad.new_zeros((b, num_points, c))
     out = out.index_copy(1, idx_grad, points_grad)
     return out.index_copy(1, idx_no_grad, points_no_grad)
+
+
+def batch_gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Per-sample gather along the pixel axis of (b, n, c) or (b, n, s, c);
+    ``idx`` is (b, k)."""
+    if points.dim() not in (3, 4):
+        raise ValueError(f"points must be rank 3 or 4, got {points.dim()}")
+    idx_e = idx.reshape(idx.shape + (1,) * (points.dim() - 2))
+    return torch.gather(points, 1, idx_e.expand(idx.shape + points.shape[2:]))
+
+
+def batch_scatter_points(idx_grad: torch.Tensor, points_grad: torch.Tensor,
+                         idx_no_grad: torch.Tensor, points_no_grad: torch.Tensor,
+                         num_points: int) -> torch.Tensor:
+    """Per-sample merge of the two pixel subsets (``idx_*`` (b, k)) into a
+    dense (b, num_points, c) tensor, or (b, num_points) for (b, k) points;
+    differentiable with respect to ``points_grad``."""
+    squeeze = points_grad.dim() == 2
+    if squeeze:
+        points_grad, points_no_grad = points_grad[..., None], points_no_grad[..., None]
+    b, _, c = points_grad.shape
+    bidx = torch.arange(b, device=idx_grad.device)[:, None]
+    out = points_grad.new_zeros((b, num_points, c))
+    out = out.index_put((bidx, idx_grad), points_grad)
+    out = out.index_put((bidx, idx_no_grad), points_no_grad.to(out.dtype))
+    return out[..., 0] if squeeze else out

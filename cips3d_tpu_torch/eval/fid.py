@@ -8,7 +8,10 @@ surrogate written in torch: the same numpy-seeded random filters and
 projection over 64 x 64 images (resized as `jax.image.resize(...,
 "bilinear")` resizes, antialiased when it shrinks), so both packages score
 the same images alike; its metric is labelled ``FID_surrogate``, never FID,
-and a reference-comparable FID is refused without the checkpoint.
+and a reference-comparable FID is refused without the checkpoint.  Both
+extractors compute on the device they are given (the card unless the
+caller asks for the CPU), as JAX jits the surrogate's features on its
+default device; only the (b, dim) features come back to the host.
 """
 
 from __future__ import annotations
@@ -120,7 +123,7 @@ def default_extractor(require_reference: bool = False, device="cuda") -> Callabl
         return inception.InceptionV3Features(weights, device=device)
     if require_reference:
         raise RuntimeError(NO_REFERENCE)
-    return surrogate_extractor()
+    return surrogate_extractor(device=device)
 
 
 def _same_pad(n: int, k: int = 3, stride: int = 2) -> Tuple[int, int]:
@@ -129,14 +132,25 @@ def _same_pad(n: int, k: int = 3, stride: int = 2) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
-@functools.lru_cache(maxsize=4)
-def surrogate_extractor(dim: int = 256, seed: int = 0) -> Callable:
+def surrogate_extractor(dim: int = 256, seed: int = 0, device="cuda") -> Callable:
     """Random-CNN texture statistics (relative tracking only): 64 x 64
     images through 4 fixed random 3x3 stride-2 convs ('SAME' padding, leaky
     ReLU 0.2), the per-channel mean and std at every scale, projected to
     ``dim`` features.  The filters and the projection come from
-    ``np.random.default_rng(seed)`` in the JAX package's order.  Runs on
-    the CPU in f32."""
+    ``np.random.default_rng(seed)`` in the JAX package's order and live on
+    ``device``, where the resize, the convs, the statistics and the product
+    run in f32 (TF32 off); the features return to the host as numpy.  One
+    extractor a (dim, seed, device)."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return _surrogate_extractor(int(dim), int(seed), dev)
+
+
+@functools.lru_cache(maxsize=8)
+def _surrogate_extractor(dim: int, seed: int, dev) -> Callable:
     import torch
     import torch.nn.functional as F
 
@@ -148,23 +162,30 @@ def surrogate_extractor(dim: int = 256, seed: int = 0) -> Callable:
     for w in widths:
         f = rng.standard_normal((3, 3, cin, w)).astype(np.float32) * np.sqrt(2.0 / (9 * cin))
         filters.append(torch.from_numpy(np.ascontiguousarray(  # HWIO -> OIHW
-            f.astype(np.float32).transpose(3, 2, 0, 1))))
+            f.astype(np.float32).transpose(3, 2, 0, 1))).to(dev))
         cin = w
     raw_dim = 2 * sum(widths)
     proj = torch.from_numpy((rng.standard_normal((raw_dim, dim)).astype(np.float32)
-                             / np.sqrt(raw_dim)).astype(np.float32))
+                             / np.sqrt(raw_dim)).astype(np.float32)).to(dev)
 
     @torch.no_grad()
     def extract(batch_u8: np.ndarray) -> np.ndarray:
-        x = torch.from_numpy(batch_u8.astype(np.float32) / 255.0).permute(0, 3, 1, 2)
-        h = resize_bilinear(x, 64)
-        stats = []
-        for f in filters:
-            h = F.conv2d(F.pad(h, _same_pad(h.shape[3]) + _same_pad(h.shape[2])), f, stride=2)
-            h = F.leaky_relu(h, 0.2)
-            stats.append(h.mean((2, 3)))
-            stats.append(h.std((2, 3), unbiased=False))
-        return (torch.cat(stats, -1) @ proj).numpy()
+        tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            x = torch.from_numpy(np.ascontiguousarray(batch_u8)).to(dev)
+            h = resize_bilinear((x.float() / 255.0).permute(0, 3, 1, 2), 64)
+            stats = []
+            for f in filters:
+                h = F.conv2d(F.pad(h, _same_pad(h.shape[3]) + _same_pad(h.shape[2])), f,
+                             stride=2)
+                h = F.leaky_relu(h, 0.2)
+                stats.append(h.mean((2, 3)))
+                stats.append(h.std((2, 3), unbiased=False))
+            return (torch.cat(stats, -1) @ proj).cpu().numpy()
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
 
     extract.metric_name = "FID_surrogate"
+    extract.device = dev
     return extract

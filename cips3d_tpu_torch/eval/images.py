@@ -23,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from cips3d_tpu_torch.utils import image_io
+from cips3d_tpu_torch.utils import graphs, image_io
 from cips3d_tpu_torch.utils.graphs import ProgramCache, program_for
 from cips3d_tpu_torch.utils.image_io import save_image_grid, to_uint8  # noqa: F401
 
@@ -70,7 +70,7 @@ def _render(generator, zs, opts, rng, forward_points, dispatch="program", progra
         styles = m.mapping(x["z_nerf"], x["z_inr"])
         return render_body(m, styles, opts, g, chunk)
 
-    if dispatch == "eager":
+    if graphs.eager(dispatch):
         return body(generator, zs, rng)
     b = zs["z_nerf"].shape[0]
     prog = program_for(generator, ("eval images", opts, chunk), dict(zs), body,

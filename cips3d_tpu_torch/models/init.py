@@ -9,7 +9,9 @@ layout, so fan-in conventions read the same as there, and an explicit
   * `frequency_init(freq)`: U(-sqrt(6/fan_in)/freq, sqrt(6/fan_in)/freq);
   * kaiming-leaky: N(0, sqrt(2/(1+0.2^2))/sqrt(fan_in));
   * SinStyleMod weight: kaiming-leaky with the *out* dim as fan;
-  * `normal_kernel(std)`: N(0, std), the raw weights of equalized-lr layers.
+  * `normal_kernel(std)`: N(0, std), the raw weights of equalized-lr layers;
+  * `uniform_pm(bound_fn)`: U(-b, b), b from the shape;
+  * `presin_kernel`: U(-sqrt(9/fan_in), sqrt(9/fan_in)) (FiLMLayer_PreSin).
 """
 
 from __future__ import annotations
@@ -80,3 +82,18 @@ def normal_kernel(std: float = 1.0) -> Init:
         return torch.randn(tuple(shape), generator=generator) * std
 
     return init
+
+
+def uniform_pm(bound_fn: Callable[[Sequence[int]], float]) -> Init:
+    """U(-b, b) with b = ``bound_fn(shape)``."""
+
+    def init(shape, generator=None):
+        return _uniform(shape, bound_fn(shape), generator)
+
+    return init
+
+
+def presin_kernel(shape, generator=None) -> torch.Tensor:
+    """FiLMLayer_PreSin's linear init on an (in, out) kernel:
+    U(-sqrt(9/fan_in), sqrt(9/fan_in))."""
+    return _uniform(shape, math.sqrt(9.0 / shape[0]), generator)

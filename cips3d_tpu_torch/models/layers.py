@@ -100,6 +100,28 @@ class FiLMSineLayer(nn.Module):
         return torch.sin(arg)
 
 
+class FiLMLeakyLayer(nn.Module):
+    """FiLM layer, leaky-ReLU flavour: ``lrelu((gain + 1) * rms_norm(Wx) +
+    bias)`` with gain = gain_fc(style), bias = bias_fc(style), the RMS norm
+    over the last axis (eps 1e-8), every linear at torch's default init."""
+
+    def __init__(self, in_dim: int, out_dim: int, style_dim: int,
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.linear = TorchLinear(in_dim, out_dim, generator=generator, dtype=dtype)
+        self.gain_fc = TorchLinear(style_dim, out_dim, generator=generator, dtype=dtype)
+        self.bias_fc = TorchLinear(style_dim, out_dim, generator=generator, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
+        gain, bias = self.gain_fc(style), self.bias_fc(style)
+        if x.dim() == 3:
+            gain, bias = gain[:, None, :], bias[:, None, :]
+        h = self.linear(x)
+        h = h * torch.rsqrt(torch.mean(h * h, dim=-1, keepdim=True) + 1e-8)
+        return leaky_relu((gain + 1.0) * h + bias)
+
+
 class SinStyleMod(nn.Module):
     """Style-modulated FC: ``((x * s) @ W) * rsqrt((s^2) @ (W^2) + eps)``
     with ``s = modulation(style) + 1``; the per-sample weight is never

@@ -28,9 +28,9 @@ eval images and the monitors.  The flagship binds it here
     printed line, with images/s averaged over the dispatch;
   * eval after step 1, every ``eval_every`` steps and, under
     ``debug``, after each step: reals and EMA fakes to ``fid/``, the
-    surrogate FID, ``best_fid/``, a numbered backup, ``resume/`` (with
-    every Adam state), and fixed-z monitor grids; monitors that fail three
-    evals in a row stop the run;
+    surrogate FID (on the loop's device), ``best_fid/``, a numbered backup,
+    ``resume/`` (with every Adam state), and fixed-z monitor grids;
+    monitors that fail three evals in a row stop the run;
   * a step whose gradients were not finite (the step zeroes them) dumps a
     ``D_crupted`` or ``G_crupted`` snapshot, of the state when its metrics
     are read (after its chunk, as in JAX);

@@ -12,7 +12,9 @@ maps onto it key by key:
   * ``siren/film_{i}`` → ``siren.network.{i}``, ``siren/sigma`` →
     ``siren.final_layer``, ``color_film`` → ``color_layer_sine``,
     ``color_linear`` → ``color_layer_linear.0``;
-  * mapping ``base_{i}``/``base_norm_{i}``/``norm_out`` → ``base_net.{slot}``;
+  * mapping ``base_{i}``/``base_norm_{i}``/``norm_out`` → ``base_net.{slot}``
+    (the equalised-lr mapping: ``base_{i}`` → ``base.{i}``, ``head_{n}_{i}``
+    → ``heads.{n}.{i}``, `mapping_equal_lr_state_dict`);
   * ``inr_net/block_{res}`` → ``inr_net.network.{res}``, ``to_rgb_{res}`` →
     ``inr_net.to_rgbs.{res}`` (zero placeholders for the heads the JAX
     model never creates), ``out_linear`` → ``inr_net.tanh.0``;
@@ -92,6 +94,21 @@ def mapping_state_dict(tree: dict) -> Dict[str, np.ndarray]:
             slot += 1  # LeakyReLU
     if "norm_out" in tree:
         _layernorm(out, tree["norm_out"], f"base_net.{slot}")
+    return out
+
+
+def mapping_equal_lr_state_dict(tree: dict) -> Dict[str, np.ndarray]:
+    """A `MultiHeadMappingNetworkEqualLR` tree ({"params": {...}} or the
+    inner dict) → the port module's state dict: ``base_{i}`` →
+    ``base.{i}``, ``head_{name}_{i}`` → ``heads.{name}.{i}``, each
+    equalised-lr kernel (in, out) → weight (out, in)."""
+    out: Dict[str, np.ndarray] = {}
+    for k, v in tree.get("params", tree).items():
+        if k.startswith("head_"):
+            name, i = k[len("head_"):].rsplit("_", 1)
+            _linear(out, v, f"heads.{name}.{i}")
+        else:
+            _linear(out, v, f"base.{k[len('base_'):]}")
     return out
 
 

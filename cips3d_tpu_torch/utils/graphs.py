@@ -111,6 +111,22 @@ def driven_by(generator: Optional[torch.Generator], own: Optional[torch.Generato
     generator.set_state(own.get_state())
 
 
+_CAPTURE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def capture_stream(device) -> "torch.cuda.Stream":
+    """The one side stream of ``device`` on which every `Graph` warms up and
+    is captured.  The caching allocator hands a freed block only to
+    allocations on the stream it was made on, so graphs that share a memory
+    pool reuse each other's freed blocks only when they are captured on one
+    stream; a stream a graph would make each graph's pool its own."""
+    dev = torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[index] = torch.cuda.Stream(index)
+    return _CAPTURE_STREAMS[index]
+
+
 def fill(buf: torch.Tensor, value) -> None:
     """Copy ``value`` into the input buffer ``buf``: a tensor on ``buf``'s
     device by a device copy, anything else (a numpy array, a CPU tensor, a
@@ -134,7 +150,10 @@ class Graph:
     back after it.  ``outputs`` is what ``fn`` returned at the capture:
     buffers that every `replay` writes again.  ``pool`` is a
     `torch.cuda.graph_pool_handle()` shared with other graphs that never
-    replay at the same time.  ``label`` names the call in errors."""
+    replay at the same time: each may then take the blocks the others freed
+    (all are captured on `capture_stream`), so a caller copies a graph's
+    outputs out before another graph of the pool replays.  ``label`` names
+    the call in errors."""
 
     def __init__(self, fn: Callable[[], Any], device, label: str, *,
                  generators: Sequence[torch.Generator] = (),
@@ -145,7 +164,7 @@ class Graph:
         gens = [g for g in generators if g is not None]
         default = torch.cuda.default_generators[dev.index if dev.index is not None
                                                 else torch.cuda.current_device()]
-        side = torch.cuda.Stream(dev)
+        side = capture_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         try:
             # the default generator too: a call without its own draws from it
@@ -305,6 +324,14 @@ class Program:
 
 def _bindings(model) -> list:
     return [t.data_ptr() for t in list(model.parameters()) + list(model.buffers())]
+
+
+def eager(dispatch: str) -> bool:
+    """Whether a caller's ``dispatch`` asks for the op-by-op call
+    (``"eager"``) rather than its program (``"program"``)."""
+    if dispatch not in ("program", "eager"):
+        raise ValueError(f"dispatch must be 'program' or 'eager', got {dispatch!r}")
+    return dispatch == "eager"
 
 
 class ProgramCache:

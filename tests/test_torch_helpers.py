@@ -1,11 +1,16 @@
 """The port's counterparts of the JAX package's smaller helpers, each
 against its JAX function on seeded numpy inputs: `upfirdn2d_general` (up
 and down per axis, negative pads, a non-separable kernel),
-`LayerNormTorch` and `load_pytree_like`.
+`LayerNormTorch`, `load_pytree_like`, `FiLMLeakyLayer`,
+`MultiHeadMappingNetworkEqualLR` (its JAX parameters through
+`utils/convert.py`), `uniform_pm` and `presin_kernel` (by their bounds and
+shapes: torch cannot reproduce `jax.random`), `batch_gather_points` and
+`batch_scatter_points` (bit for bit).
 
 Tolerances: f32 rtol 1e-5 / atol 2e-6 for upfirdn2d (as
 `tests/test_torch_discriminator.py`), rtol 1e-4 / atol 1e-5 for the
-LayerNorm; bf16 within one bf16 rounding (2^-8 relative) of JAX's.
+LayerNorm, rtol 1e-5 / atol 1e-6 for the FiLM layer and the mapping; bf16
+within one bf16 rounding (2^-8 relative) of JAX's.
 """
 
 import jax
@@ -158,3 +163,105 @@ def test_load_pytree_like_matches_jax_and_refuses_a_missing_key(tmp_path):
         load_pytree_like(path, {"params": {"siren": {"film_1": {"kernel": np.zeros((3, 4))}}}})
     with pytest.raises(ValueError, match="shape mismatch"):
         load_pytree_like(path, {"params.step": np.zeros(4)})
+
+
+# ---------------------------------------------------------------- layers, mapping, inits, points
+
+FWD = dict(rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("rank", [2, 3])
+def test_film_leaky_layer_matches_jax(rank):
+    from cips3d_tpu.models.layers import FiLMLeakyLayer as JaxFiLMLeaky
+    from cips3d_tpu_torch.models.layers import FiLMLeakyLayer
+
+    x = _x((3, 7, 12) if rank == 3 else (3, 12), 11)
+    style = _x((3, 9), 12)
+    jl = JaxFiLMLeaky(out_dim=16)
+    params = jl.init(jax.random.PRNGKey(3), jnp.asarray(x), jnp.asarray(style))
+    port = FiLMLeakyLayer(12, 16, 9)
+    port.load_state_dict({k: t(v) for k, v in tree_state_dict(params).items()})
+    ref = jl.apply(params, jnp.asarray(x), jnp.asarray(style))
+    np.testing.assert_allclose(port(t(x), t(style)).detach().numpy(), np.asarray(ref), **FWD)
+
+
+@pytest.mark.parametrize("base_layers,head_layers,lr_mlp,scale", [
+    (3, 2, 0.01, 0.01), (2, 0, 1.0, 0.5), (0, 2, 0.1, 1.0)])
+def test_equal_lr_mapping_matches_jax(base_layers, head_layers, lr_mlp, scale):
+    """Base stack with heads, base stack alone (its last layer without an
+    activation), one z a head; parameters perturbed away from the init so
+    that the biases count."""
+    from cips3d_tpu.models.mapping import MultiHeadMappingNetworkEqualLR as JaxEqualLR
+    from cips3d_tpu_torch.models.mapping import MultiHeadMappingNetworkEqualLR
+    from cips3d_tpu_torch.utils.convert import mapping_equal_lr_state_dict
+
+    heads = {"w_0": 6, "w_rgb": 5} if head_layers else {"w_0": 8, "w_1": 8}
+    kw = dict(hidden_dim=8, base_layers=base_layers, head_layers=head_layers,
+              head_dim_dict=heads, lr_mlp=lr_mlp, scale=scale)
+    z = _x((len(heads), 4, 10) if base_layers == 0 else (4, 10), 13)
+    jm = JaxEqualLR(**kw)
+    params = jm.init(jax.random.PRNGKey(4), jnp.asarray(z))
+    params = jax.tree_util.tree_map(lambda a: a + 0.1 * jnp.asarray(_x(a.shape, a.size)),
+                                    params)
+    port = MultiHeadMappingNetworkEqualLR(z_dim=10, **kw)
+    port.load_state_dict({k: t(v) for k, v in mapping_equal_lr_state_dict(params).items()},
+                         strict=True)
+    ref = jm.apply(params, jnp.asarray(z))
+    got = port(t(z))
+    assert got.keys() == ref.keys()
+    for k in ref:
+        np.testing.assert_allclose(got[k].detach().numpy(), np.asarray(ref[k]), **FWD)
+
+
+def test_uniform_pm_and_presin_kernel_bounds_and_shapes():
+    """Both draw U(-b, b): the port's samples (b from the shape; sqrt(9/in)
+    for the pre-sine kernel) have the shapes and bounds of the JAX
+    package's, and both spread over the whole interval."""
+    from cips3d_tpu.models import init as jinit
+    from cips3d_tpu_torch.models import init as pinit
+
+    def bound(shape):
+        return 0.5 / shape[0]
+
+    for shape in ((64, 32), (9, 300)):
+        for jf, pf, b in ((jinit.uniform_pm(bound), pinit.uniform_pm(bound), bound(shape)),
+                          (jinit.presin_kernel, pinit.presin_kernel, (9.0 / shape[0]) ** 0.5)):
+            ref = np.asarray(jf(jax.random.PRNGKey(5), shape))
+            got = pf(shape, torch.Generator().manual_seed(5))
+            assert tuple(got.shape) == ref.shape == shape and got.dtype == torch.float32
+            for a in (got.numpy(), ref):
+                assert np.abs(a).max() <= b and np.abs(a).max() > 0.95 * b
+                assert abs(a.mean()) < 0.1 * b
+
+
+@pytest.mark.parametrize("trailing", [(3,), (4, 3), ()])
+def test_batch_gather_scatter_match_jax_bit_for_bit(trailing):
+    """`batch_gather_points` on (b, n, c) and (b, n, s, c), and
+    `batch_scatter_points` of two gathered subsets (as
+    `tests/test_volume.py` combines them) back to the input, (b, k) points
+    included: equal to JAX's bit for bit."""
+    from cips3d_tpu.core import points as jp
+    from cips3d_tpu_torch.core import points as pp
+
+    rng = np.random.default_rng(14)
+    x = rng.standard_normal((2, 8) + trailing).astype(np.float32)
+    perm = np.stack([rng.permutation(8) for _ in range(2)])
+    ig, ino = perm[:, :3], perm[:, 3:]
+    tig, tino = (torch.from_numpy(i.astype(np.int64)) for i in (ig, ino))
+    if len(trailing) >= 1:
+        for idx, tidx in ((ig, tig), (ino, tino)):
+            np.testing.assert_array_equal(pp.batch_gather_points(t(x), tidx).numpy(),
+                                          np.asarray(jp.batch_gather_points(jnp.asarray(x),
+                                                                            jnp.asarray(idx))))
+    if len(trailing) == 2:
+        return   # the scatter merges (b, k, c) or (b, k) points
+    pick = np.take_along_axis(x, ig.reshape(ig.shape + (1,) * len(trailing)), 1)
+    rest = np.take_along_axis(x, ino.reshape(ino.shape + (1,) * len(trailing)), 1)
+    ref = np.asarray(jp.batch_scatter_points(jnp.asarray(ig), jnp.asarray(pick),
+                                             jnp.asarray(ino), jnp.asarray(rest), 8))
+    grad_part = t(pick).requires_grad_()
+    got = pp.batch_scatter_points(tig, grad_part, tino, t(rest), 8)
+    np.testing.assert_array_equal(got.detach().numpy(), ref)
+    np.testing.assert_array_equal(ref, x)
+    (g,) = torch.autograd.grad((got * t(x)).sum(), grad_part)   # differentiable in points_grad
+    np.testing.assert_array_equal(g.numpy(), pick)

@@ -92,7 +92,7 @@ def test_default_extractor_without_weights(monkeypatch, tmp_path):
     monkeypatch.setenv("HOME", str(tmp_path))
     monkeypatch.chdir(tmp_path)
     assert pi.find_weights() is None
-    assert pf.default_extractor().metric_name == "FID_surrogate"
+    assert pf.default_extractor(device="cpu").metric_name == "FID_surrogate"
     with pytest.raises(RuntimeError, match=r"InceptionV3 weights are unavailable \(set "
                                            r"\$CIPS3D_INCEPTION_WEIGHTS\)"):
         pf.default_extractor(require_reference=True)

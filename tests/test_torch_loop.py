@@ -193,7 +193,9 @@ def _commands(name):
     return [(name, k) for k, v in doc.items() if isinstance(v, dict)]
 
 
-@pytest.mark.parametrize("name,command", _commands("ffhq.yaml") + _commands("synthetic.yaml"))
+@pytest.mark.parametrize("name,command", [
+    c for name in ("ffhq.yaml", "synthetic.yaml", "finetune.yaml", "synthetic_progressive.yaml",
+                   "diffcam.yaml", "pigan.yaml") for c in _commands(name)])
 def test_resolve_command_matches_jax(name, command):
     from cips3d_tpu.config.config import resolve_command as jax_resolve
     from cips3d_tpu_torch.config.config import resolve_command
@@ -455,8 +457,8 @@ def test_surrogate_features_match_jax(size):
     from cips3d_tpu_torch.eval import fid as pf
 
     x = np.random.default_rng(size).integers(0, 256, (3, size, size, 3), dtype=np.uint8)
-    np.testing.assert_allclose(pf.surrogate_extractor()(x), jf.surrogate_extractor()(x),
-                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(pf.surrogate_extractor(device="cpu")(x),
+                               jf.surrogate_extractor()(x), rtol=0, atol=1e-5)
 
 
 def test_eval_fid_over_directories_matches_jax(tmp_path):
@@ -469,14 +471,15 @@ def test_eval_fid_over_directories_matches_jax(tmp_path):
         for i in range(12):
             img = np.clip(rng.integers(0, 200, (16, 16, 3)) + shift, 0, 255).astype(np.uint8)
             image_io.write_png(str(tmp_path / name / f"{i:03d}.png"), img)
-    got = pf.eval_fid(str(tmp_path / "real"), str(tmp_path / "fake"), kid=True)
+    got = pf.eval_fid(str(tmp_path / "real"), str(tmp_path / "fake"), kid=True, device="cpu")
     ref = jf.eval_fid(str(tmp_path / "real"), str(tmp_path / "fake"),
                       extractor=jf.surrogate_extractor(), kid=True)
     assert got.keys() == ref.keys() == {"FID_surrogate", "KID_surrogate"}
     for k in got:
         assert abs(got[k] - ref[k]) <= 1e-4 * abs(ref[k]), (k, got[k], ref[k])
     with pytest.raises(RuntimeError, match="surrogate"):
-        pf.eval_fid(str(tmp_path / "real"), str(tmp_path / "fake"), require_reference=True)
+        pf.eval_fid(str(tmp_path / "real"), str(tmp_path / "fake"), require_reference=True,
+                    device="cpu")
 
 
 # ---------------------------------------------------------------- the CLI
@@ -525,6 +528,52 @@ def test_cli_trains_r32_then_finetunes_r64_on_the_cpu(tmp_path, capsys, monkeypa
     for tree in ("best_fid", "resume", "ckpt_00000000"):
         assert "['params']['fx_raw']" in np.load(ckpt / tree / "cam_param.npz").files
     assert "[0].mu['params']['fx_raw']" in np.load(ckpt / "resume" / "cam_opt.npz").files
+
+
+def test_cli_finetunes_afhq_from_an_r32_snapshot_on_the_cpu(tmp_path, capsys, monkeypatch):
+    """configs/finetune.yaml's `finetune_afhq` through the port's CLI at tiny
+    widths, as the JAX package's slow `test_finetune_end_to_end`: an r32
+    debug snapshot of configs/ffhq.yaml, then the finetune on another zip
+    from it.  It loads the snapshot, copies the EMA's NeRF into G
+    (`load_nerf_ema`) and keeps it frozen: G's siren, NeRF mapping and aux
+    head in the finetune's resume tree equal the source G_ema's bit for bit,
+    while G's INR has moved from the source G's."""
+    from cips3d_tpu_torch.data.synthetic import make_blob_dataset
+    from cips3d_tpu_torch.train import cli
+    from cips3d_tpu_torch.utils.checkpoint import CheckpointManager
+
+    monkeypatch.chdir(tmp_path)
+    make_blob_dataset("ffhq.zip", 4, img_size=8, seed=0)
+    make_blob_dataset("afhq.zip", 4, img_size=8, seed=1)
+    common = ["--debug", "--device", "cpu", "--opts", *TINY_OPTS, "img_size", "8"]
+    assert cli.main(["--config", os.path.join(ROOT, "configs", "ffhq.yaml"), "--command",
+                     "train_r32", *common, "data_path", "ffhq.zip"]) == 0
+    best = "results/ffhq/train_r32/ckptdir/best_fid"
+    capsys.readouterr()
+    assert cli.main(["--config", os.path.join(ROOT, "configs", "finetune.yaml"), "--command",
+                     "finetune_afhq", *common, "data_path", "afhq.zip", "finetune_dir",
+                     best]) == 0
+    out = capsys.readouterr().out
+    assert f"loading finetune weights from {best}" in out and "step 2: d_loss=" in out
+    src = CheckpointManager("results/ffhq/train_r32/ckptdir").load_snapshot(
+        "best_fid", ("generator", "G_ema"))
+    got = CheckpointManager("results/finetune/finetune_afhq/ckptdir").load_snapshot(
+        "resume", ("generator",))["generator"]["params"]
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}/")
+            else:
+                yield prefix + k, np.asarray(v)
+
+    for mod in ("siren", "mapping_network_nerf", "aux_to_rgb"):
+        ema = dict(leaves(src["G_ema"]["params"][mod]))
+        assert ema and all(np.array_equal(v, ema[k]) for k, v in leaves(got[mod])), mod
+    src_g = dict(leaves(src["generator"]["params"]["siren"]))   # the EMA's, not G's, NeRF
+    assert any(not np.array_equal(v, src_g[k]) for k, v in leaves(got["siren"]))
+    src_inr = dict(leaves(src["generator"]["params"]["inr_net"]))
+    assert any(not np.array_equal(v, src_inr[k]) for k, v in leaves(got["inr_net"]))
 
 
 def test_loop_resume_nerf_ema_guard_and_sealed_outdir(tmp_path):

@@ -10,7 +10,8 @@ env of the training CLI and import torch and the port only:
     snapshots and computes the FID, both ranks write their interleaved shard
     of the eval images;
   * `render_sharded` over both ranks (pixels over the world, and over a ray
-    group of two) against `render_frame` in one process on the same draws;
+    group of two) against `render_frame` in one process on the same draws,
+    its program route against its eager call bit for bit;
   * `host_barrier`: one both reach, one a peer never reaches, which fails
     within its timeout naming the barrier and the rank.
 
@@ -76,8 +77,9 @@ def render_worker(out):
     draws = Draws("cpu")
     styles = seed_styles(gen, 3, 1.0, draws)
     opts = RenderOptions(img_size=IMG, num_steps=4, h_stddev=0.0, v_stddev=0.0, nerf_noise=0.5)
-    res = {r: render_sharded(gen, styles, opts, 5, draws, make_mesh(r), return_depth=True)
-           for r in (1, 2)}
+    res = {(r, dispatch): render_sharded(gen, styles, opts, 5, draws, make_mesh(r),
+                                         return_depth=True, dispatch=dispatch)
+           for r in (1, 2) for dispatch in ("program", "eager")}
     torch.save(res, f"{out}.{torch.distributed.get_rank()}")
     torch.distributed.destroy_process_group()
     return 0
@@ -205,7 +207,8 @@ def test_one_process_refuses_ray_shards(tmp_path):
 def test_render_sharded_matches_render_frame(pairs):
     """Both ranks' `render_sharded` (over the world and over a ray group)
     against `render_frame` of the same seed, key and draws in one process,
-    to the frame's 1e-5; H x W not dividing by the shards raises."""
+    to the frame's 1e-5, and its program route (the default) against its
+    eager call bit for bit; H x W not dividing by the shards raises."""
     d, _ = pairs("render")
     gen = GeneratorNerfINR(GeneratorConfig(**GCFG, **SERVING),
                            generator=torch.Generator().manual_seed(0))
@@ -216,10 +219,12 @@ def test_render_sharded_matches_render_frame(pairs):
                               return_depth=True)
     for rank in range(2):
         res = torch.load(d / f"render.pt.{rank}", weights_only=False)
-        for r, (got, got_depth) in res.items():
+        for (r, dispatch), (got, got_depth) in res.items():
             assert got.shape == (1, 3, IMG, IMG) and got_depth.shape == (1, 1, IMG, IMG)
             np.testing.assert_allclose(got.numpy(), img.numpy(), atol=1e-5, rtol=0)
             np.testing.assert_allclose(got_depth.numpy(), depth.numpy(), atol=1e-5, rtol=0)
+            eager = res[r, "eager"]
+            assert torch.equal(got, eager[0]) and torch.equal(got_depth, eager[1])
     with pytest.raises(ValueError, match="64 pixels do not divide by 3"):
         render_sharded(gen, styles, opts, 5, draws, Mesh(3, 0, 1))
 
