@@ -7,10 +7,13 @@ Phases, each printing one line (plus detail lines):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from `cips3d_tpu_torch/csrc/` (nvcc, sm_90a);
   3. hold each kernel against its plain PyTorch version on the same inputs
-     at the serving shapes (the INR tile also at b = 2 with n ragged against
-     its 64-pixel tile), in f32 and bf16, and bound the share of rays or
-     pixels outside the stated tolerance; check that the bf16 kernels round
-     where the plain versions do, against a control that does not; beside
+     at the serving shapes (the ray tile at S = 12, 24, 48 and the cap
+     `ray_tile.MAX_STEPS`, past the 32 where each lane holds one sample; the
+     INR tile also at b = 2 with n ragged against its 64-pixel tile), in f32
+     and bf16, and bound the share of rays or pixels outside the stated
+     tolerance (past S = 24 with density noise, at the larger of that bound
+     and the float64-resample witness's share); check that the bf16 kernels
+     round where the plain versions do, against a control that does not; beside
      each density-noise case, print how far a float64 resample moves the
      plain version (the noisy f32 resample is ill-conditioned);
   4. build the flagship generator at the full width of `GeneratorConfig()`
@@ -18,10 +21,11 @@ Phases, each printing one line (plus detail lines):
      `RenderService.frame` and the HTTP server, check the outputs, check
      that both kernels were launched by that run, and hold a small frame
      against the plain path on the CPU;
-  5. median times (CUDA events) of each kernel and its plain version, and
-     frame latencies; beside the ray tile's and the INR tile's times their
-     resident warps per SM (CUDA occupancy API), shared memory and the
-     ptxas registers and spills;
+  5. median times (CUDA events) of each kernel and its plain version (the
+     ray tile also at r128 x 48 and x the cap), and frame latencies;
+     beside the ray tile's and the INR tile's times their resident warps per
+     SM (CUDA occupancy API), shared memory and the ptxas registers and
+     spills;
   6. the training kernels at r64, b = 4, S = 12 (16384 rays): the INR tile
      on the D phase's features (density noise 1.0) against its plain
      version, and both against a float64 decode; at density noise 0 and
@@ -33,7 +37,9 @@ Phases, each printing one line (plus detail lines):
      two runs bit for bit, bf16 against an f32-kernel control; without noise
      the f32 kernel at most F64_RATIO times as far from a float64 run of the
      plain backward as the f32 plain backward; beside each noise case a
-     float64-resample witness;
+     float64-resample witness; then at S = 48 and the cap, without noise,
+     #2r and #3 in both modes, f32 and bf16, the same checks (the plain
+     backward against autograd both in float64 there);
   7. training at the flagship's full width, r64, b = 4, aux on: 10 steps of
      the exact-sine config (ray tile with residuals + residual backward in
      the G phase), of the polynomial-sine config (recompute backward) and
@@ -53,9 +59,9 @@ Phases, each printing one line (plus detail lines):
   8. median step time and images/s of the r64 configs, each with a profiled
      step (device busy time summed over kernels, copies and sets; the
      record_function ranges listed apart), and the median CUDA event times
-     of the training kernels beside their plain versions, each with the
-     warps per SM, shared memory, registers and spills of the kernels it
-     launches;
+     of the training kernels beside their plain versions (also at S = 48 and
+     the cap), each with the warps per SM, shared memory, registers and
+     spills of the kernels it launches;
   9. the training CLI in subprocesses at full width on a synthetic blob zip:
      `train_r32 --debug`, then `train_r64 --debug` finetuning from it (step
      and FID lines, text logs, JAX-layout snapshots), and r64's G_ema
@@ -207,6 +213,13 @@ Phases, each printing one line (plus detail lines):
      the features of 2048 + 2048 r64 images against the CPU extractor's at
      FID_TOL (TF32 off) and the FID within 1e-4 relative, an eval of those
      images (fakes written, features, FID) timed with each extractor.
+ 19. the render path past 32 samples a ray (after 18, phase 9's snapshot):
+     `RenderService` at r128 x 48 from a zeroed count (#1 and #2 launched)
+     and the same generator's r128 x 48 frame on the card against the CPU;
+     ``eval.cli multiview --serving --num-steps 24`` (S = 48) in process on
+     phase 9's r64 snapshot, its launches counted, and its render (the
+     CLI's generator and arguments, draws made on the host) on the card
+     against the CPU; both by phase 4's frame rule.
 Phases 4, 5, 11, 14 and 15 go through the same captured programs (a frame,
 the inversion step, the sigma chunk, the bench's frame; the eval CLI's
 renders in its subprocesses): their launch counts include each program's
@@ -217,8 +230,11 @@ The second-to-last line is a JSON summary of the kernels (with each one's
 bound on the card: the larger of its multiply-adds over the 67 TFLOP/s f32
 FMA peak and its bytes over 3.35 TB/s), each also with bf16 products as
 the benches run it (``bf16_*``: phase 15's launches, the bf16 time, plain
-time and error, the bound at the 989 TFLOP/s bf16 peak); the last line
-the device summary.
+time and error, the bound at the 989 TFLOP/s bf16 peak) and the ray
+tile's at S = 48 and at the cap (``ms_s48``, ``plain_ms_s48``,
+``bound_ms_s48``, ``bound_by_s48``, ``max_abs_err_s48``, the same with
+``s64``: #2 at phase 5's frame, #2r and #3 at phase 8's shapes); the last
+line the device summary.
 Any failed check raises, so the exit code is not 0.
 Without CUDA (or without the package beside it) the script exits with an
 error before printing any result.
@@ -241,6 +257,8 @@ import time
 import urllib.request
 
 SERVING_STEPS = 24        # RenderService default: r128, 24 steps
+LONG_STEPS = 48           # past the 32 a warp's lanes hold one to one: `--num-steps 48` of
+                          # apps/serve.py, multiview's doubled 24 (apps/render.py:275)
 # per element: |kernel - plain| <= atol + rtol * |plain|
 TOL = {
     ("ray_tile", "float32"): dict(rtol=2e-4, atol=2e-5),    # the Pallas tests' kernel tolerance
@@ -363,14 +381,27 @@ def siren_macs(H, L, C, R):
     return 3 * H + (L - 1) * H * H + H * C + C * R + H
 
 
-def train_bounds(dn):
+def serve_bound(S, peak, n=128 * 128):
+    """#2's bound at a one-row frame of n rays and S coarse samples a ray
+    (phase 5's shapes): the multiply-adds of both passes at 2 FLOP each over
+    ``peak``; the points, rays, depths and draws read once, the weights
+    once, the features and depths written once (the bf16 calls take and
+    give the same f32 tensors: the same bytes)."""
+    H, L, C, R = 128, 2, 64, 32
+    macs = siren_macs(H, L, C, R)
+    fwd_in_bytes = 4 * n * (S * 3 + 6 + 3 * S + 2 * S)
+    return bound_ms(2 * n * 2 * S * macs, fwd_in_bytes + 4 * macs + 4 * n * (R + 1), peak)
+
+
+def train_bounds(dn, S=12):
     """Bounds of #2r, #3 residual and #3 recompute at the training shapes
-    timed in phases 8 and 15(c) (r64, b = 4, S = 12) with ``dn``
-    ("float32" or "bfloat16") products: the multiply-adds at 2 FLOP each
-    over that dtype's peak; each input read once and each output written
-    once.  With bf16 products the residuals h and hc are bf16 (a and ac stay
-    f32), and so is phase 15(c)'s #2r feature."""
-    b, S, n = 4, 12, 64 * 64
+    timed in phases 8 and 15(c) (r64, b = 4, S = 12; phase 8 also S = 48
+    and the cap) with ``dn`` ("float32" or "bfloat16") products: the
+    multiply-adds at 2 FLOP each over that dtype's peak; each input read
+    once and each output written once.  With bf16 products the residuals h
+    and hc are bf16 (a and ac stay f32), and so is phase 15(c)'s #2r
+    feature."""
+    b, n = 4, 64 * 64
     H, L, C, R = 128, 2, 64, 32
     half = dn == "bfloat16"
     peak = BF16_PEAK if half else F32_PEAK
@@ -389,10 +420,11 @@ def train_bounds(dn):
                                                in_bytes + bwd_in + grad_bytes, peak)}
 
 
-def frame_vs_cpu(gen, cpu_gen, dev, label):
-    """An r32 x 12 frame (explicit camera, seeded draws) of ``gen`` on the
-    card against ``cpu_gen``, the same weights on the plain CPU path; fails
-    beyond FRAME_ATOL on more than MAX_OUTSIDE of the pixels or on depth."""
+def frame_vs_cpu(gen, cpu_gen, dev, label, size=32, steps=12):
+    """An r32 x 12 frame (or ``size`` x ``steps``; explicit camera, seeded
+    draws) of ``gen`` on the card against ``cpu_gen``, the same weights on
+    the plain CPU path; fails beyond FRAME_ATOL on more than MAX_OUTSIDE of
+    the pixels or on depth."""
     import torch
 
     from cips3d_tpu_torch.apps.render import render_chunked
@@ -401,19 +433,20 @@ def frame_vs_cpu(gen, cpu_gen, dev, label):
 
     gc = torch.Generator().manual_seed(5)
     zs = sample_zs(1, gen.cfg, gc)
-    opts = RenderOptions(img_size=32, num_steps=12, h_stddev=0.0, v_stddev=0.0)
+    opts = RenderOptions(img_size=size, num_steps=steps, h_stddev=0.0, v_stddev=0.0)
     pos = torch.tensor([[0.2, 0.15, 0.968]])
     pos = pos / pos.norm()
-    uniform = torch.rand((1, 32 * 32, 12, 1), generator=gc)
-    draws = [ray_tile.draw_ray_randoms(1, 1024, 12, False, gc, "cpu")]
+    n = size * size
+    uniform = torch.rand((1, n, steps, 1), generator=gc)
+    draws = [ray_tile.draw_ray_randoms(1, n, steps, False, gc, "cpu")]
     with torch.no_grad():
         st_c = cpu_gen.mapping(zs["z_nerf"], zs["z_inr"])
         st_g = {k: v.to(dev) for k, v in st_c.items()}
-        ref_img, ref_dep = render_chunked(cpu_gen, st_c, opts, None, 1024, pos, -pos,
+        ref_img, ref_dep = render_chunked(cpu_gen, st_c, opts, None, n, pos, -pos,
                                           return_depth=True, perturb_uniform=uniform,
                                           chunk_draws=draws)
         got_img, got_dep = render_chunked(
-            gen, st_g, opts, None, 1024, pos.to(dev), -pos.to(dev), return_depth=True,
+            gen, st_g, opts, None, n, pos.to(dev), -pos.to(dev), return_depth=True,
             perturb_uniform=uniform.to(dev),
             chunk_draws=[ray_tile.RayDraws(*(t.to(dev) for t in draws[0]))])
     e_img = (got_img.cpu() - ref_img).abs()
@@ -519,112 +552,132 @@ def kernel_phase(dev, log):
         fea, _ = rt.ray_tile_cuda(wt, world.points, world.origins, world.dirs,
                                   world.z_vals[..., 0], *draws, 1.0)
         inr_check(f"r64 b={b} noise 1.0", gen.inr_net, st, fea)
-    for mode, fs in (("residual", False), ("recompute", True)):
-        for noise in (0.0, 0.5):
-            draws = rt.draw_ray_randoms(b, n, S, noise != 0, g, dev)
-            args = (wt, world.points, world.origins, world.dirs, world.z_vals[..., 0], *draws,
-                    noise)
-            d_fea = torch.randn((b, n, 32), generator=g, device=dev)
-            d_dep = torch.randn((b, n, 1), generator=g, device=dev)
-            tag = f"{mode} fast_sin={fs} noise={noise}"
-            witness = None
-            if noise:   # the plain backward with fine depths from a float64 resample
-                d64 = [t.double() for t in (world.points, world.z_vals[..., 0], draws.u, draws.nc)]
-                fz = rt.plain_fine_depths([w.double() for w in wt], *d64, noise, fast_sin=fs,
-                                          mm_dtype=torch.float64)
-                witness = rt.ray_tile_bwd_plain(*args, d_fea, d_dep, fast_sin=fs,
-                                                fine_z=fz.float())
-            out = {}
-            for mm in (f32, bf16):
-                dn = str(mm)[6:]
-                res = None
-                if mode == "residual":   # kernel #2r: outputs and residuals
-                    fa, da, res = rt.ray_tile_cuda(*args, fast_sin=fs, mm_dtype=mm,
-                                                   with_residuals=True)
-                    fb, db, rp = rt.ray_tile_plain(*args, fast_sin=fs, mm_dtype=mm,
-                                                   with_residuals=True)
-                    tol = TOL["ray_tile", dn]
-                    e, _, _ = compare(f"2r {tag} {dn} feature", fa, fb, tol)
-                    compare(f"2r {tag} {dn} depth", da, db, tol)
-                    # pre-activations reach |a| ~ 20: the tolerance's atol scaled to them
-                    rtol = dict(rtol=tol["rtol"], atol=tol["atol"] * 20)
-                    for name, x, y in zip(("rh", "ra", "rhc", "rac"), res, rp):
-                        if x.dtype != y.dtype or x.shape != y.shape:
-                            raise AssertionError(f"2r residual {name}: {x.dtype} {tuple(x.shape)}")
-                        compare(f"2r {tag} {dn} {name} (points)", x, y, rtol)
-                    if noise == 0:
-                        errs["ray_tile_residuals" + ("" if mm == f32 else " bfloat16")] = e
-                    out[mm, "fwd"] = (fa, fb)
-                ga, pa = rt.ray_tile_bwd_cuda(*args, d_fea, d_dep, residuals=res, fast_sin=fs,
-                                              mm_dtype=mm)
-                gb, pb = rt.ray_tile_bwd_plain(*args, d_fea, d_dep, residuals=res, fast_sin=fs,
-                                               mm_dtype=mm)
-                torch.cuda.synchronize()
-                out[mm] = (ga, gb)
-                ge = max_grad_err(ga, gb)
-                share = rays_outside(pa, pb, D_PTS_TOL[dn])
-                line = (f"  3 {tag} {dn}: grads normalised err {ge:.2e} (tol {BWD_TOL[dn]}); "
-                        f"d_pts rays outside {share:.2e} (bound {MAX_OUTSIDE}); max abs err "
-                        f"{max((a - b_).abs().max().item() for a, b_ in zip(ga, gb)):.3e}")
-                wit_ge = wit_share = None
-                if witness is not None and mm == f32:
-                    wit_ge = max_grad_err(witness[0], gb)
-                    wit_share = rays_outside(witness[1], pb, D_PTS_TOL[dn])
-                    line += (f"; float64-resample witness: grads {wit_ge:.2e}, d_pts rays "
-                             f"outside {wit_share:.2e}")
-                log(line)
-                if not all(torch.isfinite(t).all() for t in ga + [pa]):
-                    raise AssertionError(f"3 {tag} {dn}: non-finite grads")
-                # a miss under noise counts only if the witness does not part as well
-                if ge > BWD_TOL[dn] and not (wit_ge is not None and wit_ge >= BWD_TOL[dn]):
-                    raise AssertionError(f"3 {tag} {dn}: grads outside tolerance")
-                if share > MAX_OUTSIDE and not (wit_share is not None and wit_share >= MAX_OUTSIDE):
-                    raise AssertionError(f"3 {tag} {dn}: d_pts rays outside tolerance")
-                if mm == bf16 and noise == 0:
-                    errs[f"ray_tile_bwd_{mode} bfloat16"] = max(
-                        (a - b_).abs().max().item() for a, b_ in zip(ga, gb))
-                if mm == f32:
-                    if noise == 0:
-                        errs[f"ray_tile_bwd_{mode}"] = max(
+    # S = 12 as the training steps take it; then S = 48 and the cap (each lane of a ray's
+    # warp holding several samples), without density noise
+    for S in (12, LONG_STEPS, rt.MAX_STEPS):
+        at = "" if S == 12 else f" S={S}"
+        if S != 12:
+            log(f"phase 6 compare: training kernels at S={S}, r64 b={b}, without noise")
+            with torch.no_grad():
+                world = gen.sample_world(b, RenderOptions(img_size=64, num_steps=S), g)
+        for mode, fs in (("residual", False), ("recompute", True)):
+            for noise in ((0.0, 0.5) if S == 12 else (0.0,)):
+                draws = rt.draw_ray_randoms(b, n, S, noise != 0, g, dev)
+                args = (wt, world.points, world.origins, world.dirs, world.z_vals[..., 0], *draws,
+                        noise)
+                d_fea = torch.randn((b, n, 32), generator=g, device=dev)
+                d_dep = torch.randn((b, n, 1), generator=g, device=dev)
+                tag = f"{mode} fast_sin={fs} noise={noise}" + at
+                witness = None
+                if noise:   # the plain backward with fine depths from a float64 resample
+                    d64 = [t.double() for t in (world.points, world.z_vals[..., 0], draws.u,
+                                                draws.nc)]
+                    fz = rt.plain_fine_depths([w.double() for w in wt], *d64, noise, fast_sin=fs,
+                                              mm_dtype=torch.float64)
+                    witness = rt.ray_tile_bwd_plain(*args, d_fea, d_dep, fast_sin=fs,
+                                                    fine_z=fz.float())
+                out = {}
+                for mm in (f32, bf16):
+                    dn = str(mm)[6:]
+                    res = None
+                    if mode == "residual":   # kernel #2r: outputs and residuals
+                        fa, da, res = rt.ray_tile_cuda(*args, fast_sin=fs, mm_dtype=mm,
+                                                       with_residuals=True)
+                        fb, db, rp = rt.ray_tile_plain(*args, fast_sin=fs, mm_dtype=mm,
+                                                       with_residuals=True)
+                        tol = TOL["ray_tile", dn]
+                        e, _, _ = compare(f"2r {tag} {dn} feature", fa, fb, tol)
+                        compare(f"2r {tag} {dn} depth", da, db, tol)
+                        # pre-activations reach |a| ~ 20: the tolerance's atol scaled to them
+                        rtol = dict(rtol=tol["rtol"], atol=tol["atol"] * 20)
+                        for name, x, y in zip(("rh", "ra", "rhc", "rac"), res, rp):
+                            if x.dtype != y.dtype or x.shape != y.shape:
+                                raise AssertionError(f"2r residual {name}: {x.dtype} {tuple(x.shape)}")
+                            compare(f"2r {tag} {dn} {name} (points)", x, y, rtol)
+                        if noise == 0:
+                            errs["ray_tile_residuals" + ("" if mm == f32 else " bfloat16") + at] = e
+                        out[mm, "fwd"] = (fa, fb)
+                    ga, pa = rt.ray_tile_bwd_cuda(*args, d_fea, d_dep, residuals=res, fast_sin=fs,
+                                                  mm_dtype=mm)
+                    gb, pb = rt.ray_tile_bwd_plain(*args, d_fea, d_dep, residuals=res, fast_sin=fs,
+                                                   mm_dtype=mm)
+                    torch.cuda.synchronize()
+                    out[mm] = (ga, gb)
+                    ge = max_grad_err(ga, gb)
+                    share = rays_outside(pa, pb, D_PTS_TOL[dn])
+                    line = (f"  3 {tag} {dn}: grads normalised err {ge:.2e} (tol {BWD_TOL[dn]}); "
+                            f"d_pts rays outside {share:.2e} (bound {MAX_OUTSIDE}); max abs err "
+                            f"{max((a - b_).abs().max().item() for a, b_ in zip(ga, gb)):.3e}")
+                    wit_ge = wit_share = None
+                    if witness is not None and mm == f32:
+                        wit_ge = max_grad_err(witness[0], gb)
+                        wit_share = rays_outside(witness[1], pb, D_PTS_TOL[dn])
+                        line += (f"; float64-resample witness: grads {wit_ge:.2e}, d_pts rays "
+                                 f"outside {wit_share:.2e}")
+                    log(line)
+                    if not all(torch.isfinite(t).all() for t in ga + [pa]):
+                        raise AssertionError(f"3 {tag} {dn}: non-finite grads")
+                    # a miss under noise counts only if the witness does not part as well
+                    if ge > BWD_TOL[dn] and not (wit_ge is not None and wit_ge >= BWD_TOL[dn]):
+                        raise AssertionError(f"3 {tag} {dn}: grads outside tolerance")
+                    if share > MAX_OUTSIDE and not (wit_share is not None and wit_share >= MAX_OUTSIDE):
+                        raise AssertionError(f"3 {tag} {dn}: d_pts rays outside tolerance")
+                    if mm == bf16 and noise == 0:
+                        errs[f"ray_tile_bwd_{mode} bfloat16" + at] = max(
                             (a - b_).abs().max().item() for a, b_ in zip(ga, gb))
-                        # both against a float64 run of the plain backward
-                        g64, _ = rt.ray_tile_bwd_plain(
-                            [w.double() for w in wt], *[t.double() for t in args[1:8]], 0.0,
-                            d_fea.double(), d_dep.double(), residuals=res, fast_sin=fs,
-                            mm_dtype=torch.float64)
-                        ek, ep = max_grad_err(ga, g64), max_grad_err(gb, g64)
-                        log(f"  3 {tag} float32 vs a float64 plain backward: normalised grad "
-                            f"err kernel {ek:.2e}, plain {ep:.2e} ({ek / max(ep, 1e-30):.2f}x, "
-                            f"need <= {F64_RATIO})")
-                        del g64
-                        if ek > F64_RATIO * ep:
-                            raise AssertionError(f"3 {tag}: the kernel is further from float64 "
-                                                 f"than {F64_RATIO}x the plain backward")
-                    again = rt.ray_tile_bwd_cuda(*args, d_fea, d_dep, residuals=res,
-                                                 fast_sin=fs, mm_dtype=mm)
-                    same = all(torch.equal(x, y) for x, y in zip(ga + [pa], again[0] + [again[1]]))
-                    # the plain backward against autograd through the plain forward
-                    leaves = [w.clone().requires_grad_() for w in wt]
-                    with torch.enable_grad():
-                        fea, dep = rt.ray_tile_plain(leaves, *args[1:], fast_sin=fs)
-                        auto = torch.autograd.grad((fea, dep), leaves, (d_fea, d_dep))
-                    ae = max_grad_err(gb, auto)
-                    log(f"  3 {tag} float32: two runs bitwise equal: {same}; plain backward vs "
-                        f"autograd of the plain forward {ae:.2e}; kernel vs autograd "
-                        f"{max_grad_err(ga, auto):.2e}")
-                    if not same or ae > BWD_TOL["float32"]:
-                        raise AssertionError(f"3 {tag}: not deterministic, or plain vs autograd")
-            # bf16: the f32 kernel (no rounding) is the control and must fail the bf16 tolerance
-            ctrl = max_grad_err(out[f32][0], out[bf16][1])
-            log(f"  3 {tag} bfloat16 CONTROL (f32 kernel vs bf16 plain): {ctrl:.2e}, fails "
-                f"{BWD_TOL['bfloat16']}: {ctrl > BWD_TOL['bfloat16']}")
-            if ctrl <= BWD_TOL["bfloat16"]:
-                raise AssertionError(f"3 {tag}: the bf16 tolerance does not see the rounding")
-            if mode == "residual":
-                fa32, fb32 = out[f32, "fwd"]
-                fa16, fb16 = out[bf16, "fwd"]
-                check_bf16(f"2r {tag} bfloat16 feature", fa16, fb16, fb32, fa32,
-                           TOL["ray_tile", "bfloat16"])
+                    if mm == f32:
+                        if noise == 0:
+                            errs[f"ray_tile_bwd_{mode}" + at] = max(
+                                (a - b_).abs().max().item() for a, b_ in zip(ga, gb))
+                            # both against a float64 run of the plain backward
+                            g64, _ = rt.ray_tile_bwd_plain(
+                                [w.double() for w in wt], *[t.double() for t in args[1:8]], 0.0,
+                                d_fea.double(), d_dep.double(), residuals=res, fast_sin=fs,
+                                mm_dtype=torch.float64)
+                            ek, ep = max_grad_err(ga, g64), max_grad_err(gb, g64)
+                            log(f"  3 {tag} float32 vs a float64 plain backward: normalised grad "
+                                f"err kernel {ek:.2e}, plain {ep:.2e} ({ek / max(ep, 1e-30):.2f}x, "
+                                f"need <= {F64_RATIO})")
+                            del g64
+                            if ek > F64_RATIO * ep:
+                                raise AssertionError(f"3 {tag}: the kernel is further from float64 "
+                                                     f"than {F64_RATIO}x the plain backward")
+                        again = rt.ray_tile_bwd_cuda(*args, d_fea, d_dep, residuals=res,
+                                                     fast_sin=fs, mm_dtype=mm)
+                        same = all(torch.equal(x, y) for x, y in zip(ga + [pa], again[0] + [again[1]]))
+                        # the plain backward against autograd through the plain forward; past
+                        # S = 12 both in float64: f32 autograd through the 2S x 2S compositing
+                        # products rounds beyond the tolerance there (1.35e-4 at S = 48, where
+                        # both backwards lie 1.5e-5 from a float64 run)
+                        dt = torch.float32 if S == 12 else torch.float64
+                        leaves = [w.to(dt).clone().requires_grad_() for w in wt]
+                        targs = [t.to(dt) for t in args[1:8]]
+                        with torch.enable_grad():
+                            fea, dep = rt.ray_tile_plain(leaves, *targs, noise, fast_sin=fs,
+                                                         mm_dtype=dt)
+                            auto = torch.autograd.grad((fea, dep), leaves,
+                                                       (d_fea.to(dt), d_dep.to(dt)))
+                        ref = gb if S == 12 else rt.ray_tile_bwd_plain(
+                            [w.to(dt) for w in wt], *targs, noise, d_fea.to(dt), d_dep.to(dt),
+                            fast_sin=fs, mm_dtype=dt)[0]
+                        ae = max_grad_err(ref, auto)
+                        del leaves, targs, fea, dep, ref
+                        log(f"  3 {tag} float32: two runs bitwise equal: {same}; plain backward vs "
+                            f"autograd of the plain forward {ae:.2e} ({str(dt)[6:]}); kernel vs "
+                            f"autograd {max_grad_err(ga, auto):.2e}")
+                        if not same or ae > BWD_TOL["float32"]:
+                            raise AssertionError(f"3 {tag}: not deterministic, or plain vs autograd")
+                # bf16: the f32 kernel (no rounding) is the control and must fail the bf16 tolerance
+                ctrl = max_grad_err(out[f32][0], out[bf16][1])
+                log(f"  3 {tag} bfloat16 CONTROL (f32 kernel vs bf16 plain): {ctrl:.2e}, fails "
+                    f"{BWD_TOL['bfloat16']}: {ctrl > BWD_TOL['bfloat16']}")
+                if ctrl <= BWD_TOL["bfloat16"]:
+                    raise AssertionError(f"3 {tag}: the bf16 tolerance does not see the rounding")
+                if mode == "residual":
+                    fa32, fb32 = out[f32, "fwd"]
+                    fa16, fb16 = out[bf16, "fwd"]
+                    check_bf16(f"2r {tag} bfloat16 feature", fa16, fb16, fb32, fa32,
+                               TOL["ray_tile", "bfloat16"])
     return errs
 
 
@@ -1000,8 +1053,8 @@ def training_phases(dev, smi, log):
     log(f"phase 7 done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
 
-    # kernel times at the training shapes (r64, b = 4, S = 12, f32)
-    b, S, n = 4, 12, 64 * 64
+    # kernel times at the training shapes (r64, b = 4, S = 12, f32); then S = 48 and the cap
+    b, n = 4, 64 * 64
     H, L, C, R = 128, 2, 64, 32
     gen = GeneratorNerfINR(GeneratorConfig(fused_ray=True),
                            generator=torch.Generator().manual_seed(40)).to(dev)
@@ -1009,36 +1062,50 @@ def training_phases(dev, smi, log):
     with torch.no_grad():
         zs = sample_zs(b, gen.cfg, g, device=dev)
         wt = rt.flat_weights(gen.siren, gen.mapping(zs["z_nerf"], zs["z_inr"]))
-        world = gen.sample_world(b, RenderOptions(img_size=64, num_steps=S), g)
-        args = (wt, world.points, world.origins, world.dirs, world.z_vals[..., 0],
-                *rt.draw_ray_randoms(b, n, S, True, g, dev),
-                torch.full((), 0.5, device=dev))   # the noise as the step passes it
-        d_fea = torch.randn((b, n, R), generator=g, device=dev)
-        d_dep = torch.randn((b, n, 1), generator=g, device=dev)
-        res = rt.ray_tile_cuda(*args, with_residuals=True)[2]
-        t_res = cuda_ms([lambda: rt.ray_tile_plain(*args, with_residuals=True),
-                         lambda: rt.ray_tile_cuda(*args, with_residuals=True)], reps=10)
-        t_bres = cuda_ms([lambda: rt.ray_tile_bwd_plain(*args, d_fea, d_dep, residuals=res),
-                          lambda: rt.ray_tile_bwd_cuda(*args, d_fea, d_dep, residuals=res)],
-                         reps=10)
-        t_brec = cuda_ms([lambda: rt.ray_tile_bwd_plain(*args, d_fea, d_dep, fast_sin=True),
-                          lambda: rt.ray_tile_bwd_cuda(*args, d_fea, d_dep, fast_sin=True)],
-                         reps=10)
-    occ = rt.kernel_occupancy(S, L, H, C, R)
     ptxas = ptxas_resources(build.build().with_suffix(".log").read_text())
-    for name, key, (plain, kern) in (
-            ("2r ray tile with residuals (exact sine)", "ray_tile_residuals", t_res),
-            ("3 backward, residual mode (exact sine)", "ray_tile_bwd_residual", t_bres),
-            ("3 backward, recompute mode (fast_sin)", "ray_tile_bwd_recompute", t_brec)):
-        log(f"phase 8 time: {name} r64 b=4 S=12 noise 0.5 (a device operand) f32: kernel {kern:.3f} ms, plain "
-            f"{plain:.3f} ms [{smi}]; {resources_line(key, occ, ptxas)}")
+    times = {}
+    for S in (12, LONG_STEPS, rt.MAX_STEPS):
+        with torch.no_grad():
+            world = gen.sample_world(b, RenderOptions(img_size=64, num_steps=S), g)
+            args = (wt, world.points, world.origins, world.dirs, world.z_vals[..., 0],
+                    *rt.draw_ray_randoms(b, n, S, True, g, dev),
+                    torch.full((), 0.5, device=dev))   # the noise as the step passes it
+            d_fea = torch.randn((b, n, R), generator=g, device=dev)
+            d_dep = torch.randn((b, n, 1), generator=g, device=dev)
+            res = rt.ray_tile_cuda(*args, with_residuals=True)[2]
+            times[S] = {
+                "ray_tile_residuals": cuda_ms(
+                    [lambda: rt.ray_tile_plain(*args, with_residuals=True),
+                     lambda: rt.ray_tile_cuda(*args, with_residuals=True)], reps=10),
+                "ray_tile_bwd_residual": cuda_ms(
+                    [lambda: rt.ray_tile_bwd_plain(*args, d_fea, d_dep, residuals=res),
+                     lambda: rt.ray_tile_bwd_cuda(*args, d_fea, d_dep, residuals=res)], reps=10),
+                "ray_tile_bwd_recompute": cuda_ms(
+                    [lambda: rt.ray_tile_bwd_plain(*args, d_fea, d_dep, fast_sin=True),
+                     lambda: rt.ray_tile_bwd_cuda(*args, d_fea, d_dep, fast_sin=True)], reps=10)}
+            del world, args, res
+        occ = rt.kernel_occupancy(S, L, H, C, R)
+        for name, key in (("2r ray tile with residuals (exact sine)", "ray_tile_residuals"),
+                          ("3 backward, residual mode (exact sine)", "ray_tile_bwd_residual"),
+                          ("3 backward, recompute mode (fast_sin)", "ray_tile_bwd_recompute")):
+            plain, kern = times[S][key]
+            log(f"phase 8 time: {name} r64 b=4 S={S} noise 0.5 (a device operand) f32: kernel "
+                f"{kern:.3f} ms, plain {plain:.3f} ms [{smi}]; {resources_line(key, occ, ptxas)}")
+    t_res, t_bres, t_brec = (times[12][k] for k in ("ray_tile_residuals", "ray_tile_bwd_residual",
+                                                    "ray_tile_bwd_recompute"))
     log(f"phase 8 done in {time.perf_counter() - t0:.1f} s (step times in phase 7)")
     bnd = train_bounds("float32")
 
     def entry(name, source, replaces, count, err, t, bnd):
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": count, "max_abs_err": err, "ms": t[1], "plain_ms": t[0],
-                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+        e = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+             "launches": count, "max_abs_err": err, "ms": t[1], "plain_ms": t[0],
+             "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+        for S in (LONG_STEPS, rt.MAX_STEPS):   # the same row past 32 samples a ray
+            b_s = train_bounds("float32", S)[name]
+            e.update({f"ms_s{S}": times[S][name][1], f"plain_ms_s{S}": times[S][name][0],
+                      f"bound_ms_s{S}": b_s[0], f"bound_by_s{S}": b_s[1],
+                      f"max_abs_err_s{S}": errs[f"{name} S={S}"]})
+        return e
 
     return step_ms, errs, [
         entry("ray_tile_residuals", "cips3d_tpu_torch/csrc/ray_tile.cu",
@@ -3876,6 +3943,101 @@ def last_slice_phase(dev, smi, log, tmp, gen):
     return totals
 
 
+# ---- phase 19: the render path past 32 samples a ray ----------------------------
+
+def long_ray_phase(dev, smi, log, tmp, gen, cpu_gen):
+    """Phase 19: the entry points past 32 samples a ray, where each lane of
+    #2's warps holds several samples: (a) `RenderService` at r128 x 48
+    (`apps/serve.py --num-steps 48`), frames from a zeroed count, #1 and #2
+    launched, and the same generator's r128 x 48 frame on the card against
+    the CPU by phase 4's rule; (b) ``eval.cli multiview --serving
+    --num-steps 24`` (S = 48, multiview doubles the count) in process on
+    phase 9's r64 snapshot, its launches counted, and its render (the CLI's
+    generator and arguments, draws made on the host) on the card against
+    the CPU by the same rule.  Returns the launches of (a) and (b)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from cips3d_tpu_torch.apps import render as p_render
+    from cips3d_tpu_torch.apps.serve import RenderService
+    from cips3d_tpu_torch.eval import cli
+    from cips3d_tpu_torch.models.generator import sample_zs
+    from cips3d_tpu_torch.ops import build, ray_tile
+    from cips3d_tpu_torch.utils import graphs, image_io
+
+    t0 = time.perf_counter()
+    counts = collections.Counter()
+    service = RenderService(gen, img_size=128, num_steps=LONG_STEPS)
+    zero_kernel_counts()
+    frames = [service.frame(seed=0), service.frame(seed=1, yaw=math.pi / 2 + 0.3),
+              service.frame(seed=1, depth=True)]
+    torch.cuda.synchronize()
+    got = {k: build.launches(k) for k in ("ray_tile", "inr_tile")}
+    service.close()
+    if any(f.shape != (128, 128, 3) or f.dtype != np.uint8 for f in frames) or min(got.values()) <= 0:
+        raise AssertionError(f"RenderService r128 x{LONG_STEPS}: {[f.shape for f in frames]}, "
+                             f"launches {got}")
+    counts.update(got)
+    log(f"phase 19 serve: RenderService r128 x{LONG_STEPS}, {len(frames)} frames, launches {got}")
+    frame_vs_cpu(gen, cpu_gen, dev, f"  frame r128 x{LONG_STEPS} vs plain CPU path", size=128,
+                 steps=LONG_STEPS)
+
+    class HostDraws(p_render.Draws):
+        """The apps' draws made on the host from each seed and key, then
+        moved to the device: the same numbers on the card and the CPU."""
+
+        def zs(self, seed, n, cfg):
+            zs = sample_zs(n, cfg, torch.Generator().manual_seed(int(seed)))
+            return {k: v.to(self.device) for k, v in zs.items()}
+
+        def render(self, key, b, opts, chunk):
+            g = torch.Generator().manual_seed(int(key))
+            n, S = opts.img_size ** 2, opts.num_steps
+            uniform = torch.rand((b, n, S, 1), generator=g).to(self.device)
+            draws = [ray_tile.RayDraws(*(t.to(self.device) for t in
+                                         ray_tile.draw_ray_randoms(b, chunk, S, False, g, "cpu")))
+                     for _ in range(n // chunk)]
+            return dict(perturb_uniform=uniform, chunk_draws=draws)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    ckpt = f"{tmp}/train_r64/ckptdir/best_fid"
+    config = os.path.join(root, "configs/ffhq.yaml")
+    out = os.path.join(tmp, "long_multiview.png")
+    zero_kernel_counts()
+    rc = cli.main(["multiview", "--ckpt", ckpt, "--config", config, "--command", "train_r64",
+                   "--serving", "--num-steps", "24", "--seeds", "0", "--img-size", "64", "--out",
+                   out])
+    torch.cuda.synchronize()
+    got = {k: build.launches(k) for k in ("ray_tile", "inr_tile")}
+    shape = image_io.read_png(out).shape
+    if rc != 0 or shape != (64, 320, 3) or min(got.values()) <= 0:
+        raise AssertionError(f"eval.cli multiview --num-steps 24: exit {rc}, grid {shape}, "
+                             f"launches {got}")
+    counts.update(got)
+    log(f"phase 19 cli: eval.cli multiview --serving --num-steps 24 (S = 48) --seeds 0 "
+        f"--img-size 64: grid {shape}, launches {got}")
+    gen_cfg = cli.serving_config(cli.generator_config(config, "train_r64"))
+    mv = cli.load_generator(ckpt, gen_cfg, "G_ema", device=dev)
+    mv_cpu = copy.deepcopy(mv).cpu()
+    with torch.no_grad():   # the grid's last view (yaw offset 0.5)
+        grid = p_render.render_multiview(mv, None, seeds=[0], yaw_offsets=(0.5,), img_size=64,
+                                         num_steps=24, draws=HostDraws(dev))
+        ref = p_render.render_multiview(mv_cpu, None, seeds=[0], yaw_offsets=(0.5,),
+                                        img_size=64, num_steps=24, draws=HostDraws("cpu"))
+    err = np.abs(grid - ref)
+    share = (err > FRAME_ATOL).any(1).mean()
+    log(f"  multiview view r64 x48 vs plain CPU path: max_abs_err {err.max():.3e}; pixels "
+        f"outside atol {FRAME_ATOL}: {share:.2e}")
+    if not np.isfinite(grid).all() or share > MAX_OUTSIDE:
+        raise AssertionError("multiview at S = 48: the kernel path disagrees with the plain path")
+    del mv, mv_cpu
+    graphs.release()
+    log(f"phase 19 done in {time.perf_counter() - t0:.1f} s [{smi}]")
+    return counts
+
+
 def main():
     import torch
 
@@ -3935,21 +4097,28 @@ def main():
     err_at_main = {}
     f32, bf16 = torch.float32, torch.bfloat16
     with torch.no_grad():
-        for S in (12, SERVING_STEPS):
+        for S in (12, SERVING_STEPS, LONG_STEPS, ray_tile.MAX_STEPS):
             world, st = world_and_styles(1, 128, S)
             wt = ray_tile.flat_weights(gen.siren, st)
             for noise in (0.0, 0.5):
                 draws = ray_tile.draw_ray_randoms(1, 128 * 128, S, noise != 0, g, dev)
                 args = (wt, world.points, world.origins, world.dirs, world.z_vals[..., 0],
                         *draws, noise)
+                # past S = 24 under noise the f32 resample's conditioning sets the share
+                # outside (PERF.md section 7): there a miss counts beyond the witness's
+                long_noisy = noise != 0 and S > SERVING_STEPS
                 for fs in ((True, False) if noise == 0 else (True,)):
                     tag = f"ray_tile S={S} noise={noise} fast_sin={fs}"
                     fa, da = ray_tile.ray_tile_cuda(*args, fast_sin=fs)
                     fb, db = ray_tile.ray_tile_plain(*args, fast_sin=fs)
-                    e, _, _ = compare(tag + " float32 feature", fa, fb, TOL["ray_tile", "float32"])
-                    compare(tag + " float32 depth", da, db, TOL["ray_tile", "float32"])
-                    if S == SERVING_STEPS and noise == 0 and fs:
-                        err_at_main["ray_tile"] = e
+                    if not (torch.isfinite(fa).all() and torch.isfinite(da).all()):
+                        raise AssertionError(f"{tag}: kernel output is not finite")
+                    e, _, _ = compare(tag + " float32 feature", fa, fb, TOL["ray_tile", "float32"],
+                                      check=not long_noisy)
+                    compare(tag + " float32 depth", da, db, TOL["ray_tile", "float32"],
+                            check=not long_noisy)
+                    if S in (SERVING_STEPS, LONG_STEPS, ray_tile.MAX_STEPS) and noise == 0 and fs:
+                        err_at_main["ray_tile" + ("" if S == SERVING_STEPS else f" S={S}")] = e
                     if noise:
                         # witness: the plain version with its fine depths from a float64
                         # run; the f32 resample under noise is ill-conditioned
@@ -3963,7 +4132,10 @@ def main():
                         wit = (outside(fw, fb, tol) | outside(dw, db, tol)).float().mean().item()
                         log(f"  {tag}: rays outside the f32 tolerance: kernel {kern:.2e}; "
                             f"plain with float64 fine depths {wit:.2e}")
-                    if not fs:
+                        if long_noisy and kern > max(MAX_OUTSIDE, wit):
+                            raise AssertionError(f"{tag}: {kern:.2e} of rays outside the f32 "
+                                                 f"tolerance, beyond the witness's {wit:.2e}")
+                    if not fs or long_noisy:   # bf16 past S = 24 without noise
                         continue
                     outs = {mm: ray_tile.ray_tile_cuda(*args, fast_sin=fs, mm_dtype=mm, out_dtype=bf16)
                             for mm in (f32, bf16)}
@@ -4074,7 +4246,7 @@ def main():
     t_phase = time.perf_counter()
 
     # ---- phase 5: timings -------------------------------------------------
-    timings = {}
+    timings, long_times = {}, {}
     with torch.no_grad():
         world, st = world_and_styles(1, 128, SERVING_STEPS)
         wt = ray_tile.flat_weights(gen.siren, st)
@@ -4091,6 +4263,18 @@ def main():
             timings[f"inr_tile {dn}"] = cuda_ms(
                 [lambda: inr_tile.inr_tile_plain(fea, s, d, weights, mm_dtype=mm),
                  lambda: inr_tile.inr_tile_cuda(fea, s, d, weights, mm_dtype=mm)])
+        # #2 past 32 samples a ray, at the same frame: S = 48 and the cap
+        for S in (LONG_STEPS, ray_tile.MAX_STEPS):
+            world_l, st_l = world_and_styles(1, 128, S)
+            args_l = (ray_tile.flat_weights(gen.siren, st_l), world_l.points, world_l.origins,
+                      world_l.dirs, world_l.z_vals[..., 0],
+                      *ray_tile.draw_ray_randoms(1, 128 * 128, S, False, g, dev))
+            for mm in (torch.float32, torch.bfloat16):
+                kw = dict(mm_dtype=mm, fast_sin=True)
+                long_times[S, str(mm)[6:]] = cuda_ms(
+                    [lambda: ray_tile.ray_tile_plain(*args_l, **kw),
+                     lambda: ray_tile.ray_tile_cuda(*args_l, **kw)], reps=10)
+            del world_l, st_l, args_l
     occ = ray_tile.kernel_occupancy(SERVING_STEPS, 2, 128, 64, 32)
     for mm in (torch.float32, torch.bfloat16):
         occ[f"inr_tile {str(mm)[6:]}"] = inr_tile.kernel_occupancy(512, mm)
@@ -4100,6 +4284,10 @@ def main():
         extra = f"; {resources_line(entry, occ, ptxas)}" if entry in KERNEL_PARTS else ""
         log(f"phase 5 time: {k} r128 x{SERVING_STEPS} (n=16384): kernel {kern:.3f} ms, "
             f"plain {plain:.3f} ms [{smi}]{extra}")
+    for (S, dn), (plain, kern) in long_times.items():
+        occ_l = ray_tile.kernel_occupancy(S, 2, 128, 64, 32, getattr(torch, dn))["ray_tile"]
+        log(f"phase 5 time: ray_tile {dn} r128 x{S} (n=16384): kernel {kern:.3f} ms, plain "
+            f"{plain:.3f} ms [{smi}]; {occ_l[0]} warps/SM, {occ_l[1] / 1024:.1f} KB shared")
     lat = {}
     for name, svc, reps in (("r128 x24", service, 41), ("r256 x12", service_r256, 21)):
         svc.frame(seed=9)
@@ -4120,13 +4308,9 @@ def main():
     log(f"phase 5 done in {time.perf_counter() - t_phase:.1f} s")
 
     # bounds at the phase-5 shapes (b = 1, 16384 rays, 48 points a ray)
-    n5, H, L, C, R = 128 * 128, 128, 2, 64, 32
-    macs = siren_macs(H, L, C, R)
-    fwd_in_bytes = 4 * n5 * (SERVING_STEPS * 3 + 6 + 3 * SERVING_STEPS + 2 * SERVING_STEPS)
-    # (the bf16 calls take and give the same f32 tensors: the same bytes, the bf16 peak)
+    n5 = 128 * 128
     serve_bounds, serve_bounds_bf16 = ({
-        "ray_tile": bound_ms(2 * n5 * 2 * SERVING_STEPS * macs,
-                             fwd_in_bytes + 4 * macs + 4 * n5 * (R + 1), peak),
+        "ray_tile": serve_bound(SERVING_STEPS, peak),
         "inr_tile": bound_ms(2 * n5 * (32 * 512 + 17 * 512 * 512 + 6 * 512 * 3),
                              4 * n5 * (32 + 3) + 4 * (32 * 512 + 17 * 512 * 512), peak),
     } for peak in (F32_PEAK, BF16_PEAK))
@@ -4172,6 +4356,7 @@ def main():
         render_counts = render_phase(dev, smi, log, tmp, gen)
         slice_counts = last_slice_phase(dev, smi, log, tmp, gen)
         graphs.release()
+        long_counts = long_ray_phase(dev, smi, log, tmp, gen, cpu_gen)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4179,12 +4364,13 @@ def main():
     # training from the dataset tool's zip (phase 12), training on several processes (13),
     # a loaded reference checkpoint served (14), the bf16 step, frame and benches (15), the
     # chunks' replays (16), the render side's replays (17), render_sharded's replays through
-    # one NCCL rank (18); a program's launches are counted
+    # one NCCL rank (18), the service and the eval CLI at 48 samples a ray (19); a program's
+    # launches are counted
     # through its replays (and its warm-up's, which runs the kernels once before the capture)
     for k in ("ray_tile", "inr_tile"):
         launches[k] += (apps[k] + data_counts[k] + dist_counts[k] + ckpt_counts[k]
                         + bench_counts.get(k, 0) + chunk_counts[k] + render_counts[k]
-                        + slice_counts[k])
+                        + slice_counts[k] + long_counts[k])
     for e in train:
         e["launches"] += (apps[e["name"]] + bench_counts.get(e["name"], 0)
                           + chunk_counts[e["name"]] + render_counts[e["name"]])
@@ -4200,6 +4386,13 @@ def main():
          "plain_ms": timings["inr_tile float32"][0], "bound_ms": serve_bounds["inr_tile"][0],
          "bound_by": serve_bounds["inr_tile"][1], "library_ms": None},
     ] + train
+    # #2 past 32 samples a ray at phase 5's frame (the training rows carry theirs from phase 8)
+    for S in (LONG_STEPS, ray_tile.MAX_STEPS):
+        bnd = serve_bound(S, F32_PEAK)
+        kernels[0].update({f"ms_s{S}": long_times[S, "float32"][1],
+                           f"plain_ms_s{S}": long_times[S, "float32"][0], f"bound_ms_s{S}": bnd[0],
+                           f"bound_by_s{S}": bnd[1],
+                           f"max_abs_err_s{S}": err_at_main[f"ray_tile S={S}"]})
     # each kernel with bf16 products, as the benches launch it (phase 15, all bf16): its
     # time and plain time at the row's shapes (phase 5 for #1 and #2, phase 15(c) for #2r
     # and #3), its max abs error there against the bf16 plain version (phases 3 and 6) and

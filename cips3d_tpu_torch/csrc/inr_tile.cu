@@ -407,8 +407,8 @@ int launch(const InrArgs& a, int grid, cudaStream_t stream) {
 
 // Shapes as in InrArgs; mm_bf16 selects the matmul-input type of w0, wrest
 // and wr; grid blocks (at most the tiles) walk the 64-pixel tiles, and
-// scratch holds grid * 64 * D floats.  The wrapper checks D % 64 == 0,
-// D <= 512, in0 % 16 == 0 and in0 <= D.  Returns the CUDA error of the
+// scratch holds grid * 64 * D floats.  The wrapper zero-pads D to a
+// multiple of 64 (D <= 512) and in0 to a multiple of 16 (in0 <= D).  Returns the CUDA error of the
 // launch (0 on success).
 extern "C" int cips_inr_tile_forward(
     const void* x, const void* s, const void* d, const void* w0, const void* wrest,

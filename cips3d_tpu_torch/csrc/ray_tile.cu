@@ -78,7 +78,7 @@ struct RayArgs {
 };
 
 struct RayLayout {
-  size_t w, p, f, xb, hb, sig, zall, sall, nfv, t1, t2, rank, uv, ncv, od, total;
+  size_t w, p, f, xb, hb, sig, zall, sall, t1, t2, rank, od, total;
   int ldh;   // row stride of the hidden-state buffer
   template <typename T>
   __host__ __device__ static RayLayout make(const RayArgs& a) {
@@ -95,12 +95,9 @@ struct RayLayout {
     y.sig = cips::take(off, sizeof(float) * kRows);
     y.zall = cips::take(off, sizeof(float) * kRays * M);
     y.sall = cips::take(off, sizeof(float) * kRays * M);
-    y.nfv = cips::take(off, sizeof(float) * kRays * M);
     y.t1 = cips::take(off, sizeof(float) * kRays * M);
     y.t2 = cips::take(off, sizeof(float) * kRays * M);
     y.rank = cips::take(off, sizeof(int) * kRays * M);
-    y.uv = cips::take(off, sizeof(float) * kRays * a.S);
-    y.ncv = cips::take(off, sizeof(float) * kRays * a.S);
     y.od = cips::take(off, sizeof(float) * kRays * 8);
     y.total = off;
     return y;
@@ -120,12 +117,9 @@ __global__ void __launch_bounds__(kThreads, 1) ray_tile_kernel(RayArgs a) {
   float* sig = reinterpret_cast<float*>(smem + lay.sig);
   float* zall = reinterpret_cast<float*>(smem + lay.zall);   // [ray][fine 0..S-1, coarse S..2S-1]
   float* sall = reinterpret_cast<float*>(smem + lay.sall);
-  float* nfv = reinterpret_cast<float*>(smem + lay.nfv);
   float* t1 = reinterpret_cast<float*>(smem + lay.t1);
   float* t2 = reinterpret_cast<float*>(smem + lay.t2);
   int* rank = reinterpret_cast<int*>(smem + lay.rank);
-  float* uv = reinterpret_cast<float*>(smem + lay.uv);
-  float* ncv = reinterpret_cast<float*>(smem + lay.ncv);
   float* od = reinterpret_cast<float*>(smem + lay.od);       // [ray][org xyz, pad, dir xyz, pad]
   T* rh = static_cast<T*>(a.rh);
   T* rhc = static_cast<T*>(a.rhc);
@@ -150,15 +144,7 @@ __global__ void __launch_bounds__(kThreads, 1) ray_tile_kernel(RayArgs a) {
     for (int i = tid; i < a.nfilm; i += kThreads) fsm[i] = a.films[(size_t)bi * a.nfilm + i];
     for (int i = tid; i < kRays * S; i += kThreads) {
       const int r = i / S, s = i % S, ray = ray0 + r;
-      const bool ok = ray < n;
-      const size_t idx = ((size_t)bi * n + ray) * S + s;
-      zall[r * M + S + s] = ok ? a.z[idx] : 0.f;
-      uv[i] = ok ? a.u[idx] : 0.f;
-      ncv[i] = ok && a.use_noise ? a.nc[idx] : 0.f;
-    }
-    for (int i = tid; i < kRays * M; i += kThreads) {
-      const int r = i / M, j = i % M, ray = ray0 + r;
-      nfv[i] = ray < n && a.use_noise ? a.nf[((size_t)bi * n + ray) * M + j] : 0.f;
+      zall[r * M + S + s] = ray < n ? a.z[((size_t)bi * n + ray) * S + s] : 0.f;
     }
     for (int i = tid; i < kRays * 3; i += kThreads) {
       const int r = i / 3, c = i % 3, ray = ray0 + r;
@@ -199,21 +185,26 @@ __global__ void __launch_bounds__(kThreads, 1) ray_tile_kernel(RayArgs a) {
     };
 
     run_pass(false);
-    cips_ray::resample_ray(zall + warp * M, sall + warp * M + S, uv + warp * S, ncv + warp * S,
-                           t1 + warp * M, t2 + warp * M, S, a.use_noise, noise_std, a.softplus);
+    {   // the draws of the warp's ray are read where they lie (null past n)
+      const size_t dro = ((size_t)bi * n + ray0 + warp) * S;
+      const bool live = ray0 + warp < n;
+      cips_ray::resample_ray(zall + warp * M, sall + warp * M + S, live ? a.u + dro : nullptr,
+                             live ? a.nc + dro : nullptr, t1 + warp * M, t2 + warp * M, S,
+                             a.use_noise, noise_std, a.softplus);
+    }
     __syncthreads();
     run_pass(true);
 
-    // ---- compositing: warp = ray, lanes own samples lane and lane + 32 ----
+    // ---- compositing: warp = ray, lane l owns samples l, l + 32, .. ----
     const int r = warp, ray = ray0 + r;
     float* wt = t2 + r * M;
     float wsum;
     const cips_ray::CompLane cl = cips_ray::composite_ray(
-        zall + r * M, sall + r * M, nfv + r * M, t1 + r * M, rank + r * M, M, a.use_noise,
-        noise_std, a.softplus, a.last_back, wsum);
+        zall + r * M, sall + r * M, ray < n ? a.nf + ((size_t)bi * n + ray) * M : nullptr,
+        t1 + r * M, rank + r * M, M, a.use_noise, noise_std, a.softplus, a.last_back, wsum);
     float dpart = 0.f;
 #pragma unroll
-    for (int t = 0; t < 2; ++t) {
+    for (int t = 0; t < cips_ray::kLaneSamples; ++t) {
       const int j = lane + 32 * t;
       if (j >= M) continue;
       wt[j] = cl.w[t];
@@ -240,6 +231,7 @@ __global__ void __launch_bounds__(kThreads, 1) ray_tile_kernel(RayArgs a) {
 
 template <typename T, bool kRes>
 int launch(const RayArgs& a, cudaStream_t stream) {
+  if (a.S < 3 || a.S > cips_ray::kMaxSteps) return (int)cudaErrorInvalidValue;
   const RayLayout lay = RayLayout::make<T>(a);
   const cudaError_t err = cips::raise_smem(ray_tile_kernel<T, kRes>, lay.total);
   if (err != cudaSuccess) return (int)err;
@@ -252,11 +244,14 @@ int launch(const RayArgs& a, cudaStream_t stream) {
 // Rays per block of the forward (and of the backward's cotangent kernel).
 extern "C" int cips_ray_tile_block_rays() { return kRays; }
 
+// The most coarse samples a ray may have (#2, #2r and #3).
+extern "C" int cips_ray_tile_max_steps() { return cips_ray::kMaxSteps; }
+
 // Shapes as in RayArgs; rh, ra, rhc, rac are all null (no residuals) or
 // all set.  noise is the density-noise scale, one f32 on the device (null
 // without flags bit 0, and read only with it).  rgb is (grid, kRays, 2S, R) f32 scratch.  The wrapper checks S
-// in [3, 32], H, C, R multiples of 16 up to 128, and pads pbuf and the
-// films rows to 16-byte multiples.  Returns the CUDA error of the launch (0
+// in [3, kMaxSteps], pads H, C, R to multiples of 16 (up to 128), and pads
+// pbuf and the films rows to 16-byte multiples.  Returns the CUDA error of the launch (0
 // on success).
 extern "C" int cips_ray_tile_forward(
     const void* pts, const void* org, const void* dir, const void* z, const void* u,

@@ -115,8 +115,7 @@ struct CotRow {
 };
 
 struct CotLayout {
-  size_t w, p, f, d, dsg, facc, bacc, zall, sall, nfv, t1, t2, dsa, rdot, rank, uv, ncv, od, dfv,
-      ddv, total;
+  size_t w, p, f, d, dsg, facc, bacc, zall, sall, t1, t2, rdot, rank, od, dfv, ddv, total;
   int ldh, nsum;
   template <typename T>
   __host__ __device__ static CotLayout make(const BwdArgs& a) {
@@ -137,14 +136,10 @@ struct CotLayout {
     y.bacc = cips::take(off, sizeof(float) * (R + 1));
     y.zall = cips::take(off, sizeof(float) * kRays * M);
     y.sall = cips::take(off, sizeof(float) * kRays * M);
-    y.nfv = cips::take(off, sizeof(float) * kRays * M);
     y.t1 = cips::take(off, sizeof(float) * kRays * M);
     y.t2 = cips::take(off, sizeof(float) * kRays * M);
-    y.dsa = cips::take(off, sizeof(float) * kRays * M);
     y.rdot = cips::take(off, sizeof(float) * kRays * M);
     y.rank = cips::take(off, sizeof(int) * kRays * M);
-    y.uv = cips::take(off, sizeof(float) * kRays * a.S);
-    y.ncv = cips::take(off, sizeof(float) * kRays * a.S);
     y.od = cips::take(off, sizeof(float) * kRays * 8);
     y.dfv = cips::take(off, sizeof(float) * kRays * R);
     y.ddv = cips::take(off, sizeof(float) * kRays);
@@ -180,14 +175,13 @@ __global__ void __launch_bounds__(kThreads, 1) ray_tile_bwd_cot(BwdArgs a) {
   float* bacc = reinterpret_cast<float*>(smem + lay.bacc);    // d br (R), d bs
   float* zall = reinterpret_cast<float*>(smem + lay.zall);    // [ray][fine 0..S-1, coarse S..2S-1]
   float* sall = reinterpret_cast<float*>(smem + lay.sall);
-  float* nfv = reinterpret_cast<float*>(smem + lay.nfv);
   float* t1 = reinterpret_cast<float*>(smem + lay.t1);
   float* t2 = reinterpret_cast<float*>(smem + lay.t2);        // compositing weights after phase B
-  float* dsa = reinterpret_cast<float*>(smem + lay.dsa);      // d raw sigma per sample
-  float* rdot = reinterpret_cast<float*>(smem + lay.rdot);    // rgb . d fea per sample
+  // rgb . d fea per sample until phase B, then d raw sigma per sample: the lane that reads
+  // a sample's rgb . d fea is the one that writes its d sigma
+  float* rdot = reinterpret_cast<float*>(smem + lay.rdot);
+  float* dsa = rdot;
   int* rank = reinterpret_cast<int*>(smem + lay.rank);
-  float* uv = reinterpret_cast<float*>(smem + lay.uv);
-  float* ncv = reinterpret_cast<float*>(smem + lay.ncv);
   float* od = reinterpret_cast<float*>(smem + lay.od);
   float* dfv = reinterpret_cast<float*>(smem + lay.dfv);      // [ray][R]
   float* ddv = reinterpret_cast<float*>(smem + lay.ddv);
@@ -226,15 +220,9 @@ __global__ void __launch_bounds__(kThreads, 1) ray_tile_bwd_cot(BwdArgs a) {
     __syncthreads();   // the previous ray block is done with the shared buffers
     for (int i = tid; i < kRays * S; i += kThreads) {
       const int r = i / S, s = i % S, ray = ray0 + r;
-      const bool ok = ray < n;
-      const size_t idx = ((size_t)bi * n + ray) * S + s;
-      zall[r * M + S + s] = ok ? a.z[idx] : 0.f;
-      uv[i] = ok ? a.u[idx] : 0.f;
-      ncv[i] = ok && a.use_noise ? a.nc[idx] : 0.f;
+      zall[r * M + S + s] = ray < n ? a.z[((size_t)bi * n + ray) * S + s] : 0.f;
     }
     for (int i = tid; i < kRays * M; i += kThreads) {
-      const int r = i / M, m = i % M, ray = ray0 + r;
-      nfv[i] = ray < n && a.use_noise ? a.nf[((size_t)bi * n + ray) * M + m] : 0.f;
       sall[i] = 0.f;
       rdot[i] = 0.f;
     }
@@ -288,24 +276,30 @@ __global__ void __launch_bounds__(kThreads, 1) ray_tile_bwd_cot(BwdArgs a) {
     };
     phase_a(false);
     __syncthreads();
-    cips_ray::resample_ray(zall + warp * M, sall + warp * M + S, uv + warp * S, ncv + warp * S,
-                           t1 + warp * M, t2 + warp * M, S, a.use_noise, noise_std, a.softplus);
+    {   // the draws of the warp's ray are read where they lie (null past n)
+      const size_t dro = ((size_t)bi * n + ray0 + warp) * S;
+      const bool live = ray0 + warp < n;
+      cips_ray::resample_ray(zall + warp * M, sall + warp * M + S, live ? a.u + dro : nullptr,
+                             live ? a.nc + dro : nullptr, t1 + warp * M, t2 + warp * M, S,
+                             a.use_noise, noise_std, a.softplus);
+    }
     __syncthreads();
     phase_a(true);
     __syncthreads();
 
     // ---- phase B: compositing forward and backward, warp = ray ----
     {
-      const int r = warp;
+      const int r = warp, ray = ray0 + r;
       float wsum;
       const cips_ray::CompLane cl = cips_ray::composite_ray(
-          zall + r * M, sall + r * M, nfv + r * M, t1 + r * M, rank + r * M, M, a.use_noise,
-          noise_std, a.softplus, a.last_back, wsum);
+          zall + r * M, sall + r * M, ray < n ? a.nf + ((size_t)bi * n + ray) * M : nullptr,
+          t1 + r * M, rank + r * M, M, a.use_noise, noise_std, a.softplus, a.last_back, wsum);
       const float* df = dfv + r * R;
-      float dw0[2] = {0.f, 0.f}, lastpart = 0.f;
+      float dw0[cips_ray::kLaneSamples], lastpart = 0.f;
 #pragma unroll
-      for (int t = 0; t < 2; ++t) {
+      for (int t = 0; t < cips_ray::kLaneSamples; ++t) {
         const int j = lane + 32 * t;
+        dw0[t] = 0.f;
         if (j >= M) continue;
         dw0[t] = rdot[r * M + j] + ddv[r] * cl.z[t];        // d w (after last_back)
         if (cl.rank[t] == M - 1) lastpart += dw0[t];
@@ -320,7 +314,7 @@ __global__ void __launch_bounds__(kThreads, 1) ray_tile_bwd_cot(BwdArgs a) {
       if (a.last_back) dwsum -= dlast;
       float* dacc = t1 + r * M;
 #pragma unroll
-      for (int t = 0; t < 2; ++t) {
+      for (int t = 0; t < cips_ray::kLaneSamples; ++t) {
         const int j = lane + 32 * t;
         if (j >= M) continue;
         dw0[t] += dwsum;
@@ -330,7 +324,7 @@ __global__ void __launch_bounds__(kThreads, 1) ray_tile_bwd_cot(BwdArgs a) {
       __syncwarp();
       const int* rk = rank + r * M;
 #pragma unroll
-      for (int t = 0; t < 2; ++t) {
+      for (int t = 0; t < cips_ray::kLaneSamples; ++t) {
         const int j = lane + 32 * t;
         if (j >= M) continue;
         float dlogx = 0.f;                                   // sum over the samples behind j
@@ -691,6 +685,7 @@ WgradArgs wgrad_args(const BwdArgs& a, float* part_w, int split_rows) {
 template <typename T>
 int launch(const BwdArgs& a, float* part_w, int nsplit, int split_rows, float* out_w,
            float* out_f, cudaStream_t stream) {
+  if (a.S < 3 || a.S > cips_ray::kMaxSteps) return (int)cudaErrorInvalidValue;
   const CotLayout lay = CotLayout::make<T>(a);
   cudaError_t err = cips::raise_smem(ray_tile_bwd_cot<T>, lay.total);
   if (err != cudaSuccess) return (int)err;

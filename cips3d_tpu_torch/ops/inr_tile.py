@@ -28,7 +28,9 @@ import torch.nn.functional as F
 from cips3d_tpu_torch.models.cips_net import CIPS_RESOLUTIONS, FIRST_RGB, FIRST_SKIP
 from cips3d_tpu_torch.ops import build
 
-MAX_WIDTH = 512    # the kernel's 16 warps x 32 channels cover hidden widths up to 512
+MAX_WIDTH = 512    # the kernel's 16 warps x 32 channels cover hidden widths up to 512 ...
+WIDTH_STEP = 64    # ... in multiples of 64, and input widths in multiples of IN_STEP: the
+IN_STEP = 16       # wrapper zero-pads the rest
 TILE_PIXELS = 64   # pixels per tile of the kernel (`kPix` of csrc/inr_tile.cu)
 
 
@@ -110,6 +112,22 @@ def inr_tile_plain(x: torch.Tensor, s: torch.Tensor, d: torch.Tensor, weights: I
     return torch.tanh(rgb)
 
 
+def pad_widths(x: torch.Tensor, s: torch.Tensor, d: torch.Tensor, weights: InrWeights):
+    """The decode at the kernel's widths: in0 up to a multiple of IN_STEP and
+    D up to a multiple of WIDTH_STEP, with zeros in x, s, d and the weights.
+    A padded channel's input is 0 * s, its output lrelu(0 * demod) = 0, and
+    its weight rows are zero, so every true output is the same sum plus
+    exact zeros."""
+    in0, D = x.shape[-1], s.shape[-1]
+    di, dd = -in0 % IN_STEP, -D % WIDTH_STEP
+    if not (di or dd):
+        return x, s, d, weights
+    return (F.pad(x, (0, di)), F.pad(s, (0, dd)), F.pad(d, (0, dd)),
+            InrWeights(w0=F.pad(weights.w0, (0, dd, 0, di)),
+                       wrest=F.pad(weights.wrest, (0, dd, 0, dd)),
+                       wr=F.pad(weights.wr, (0, 0, 0, dd)), br=weights.br))
+
+
 def forward_grid(b: int, n: int, sms: int) -> int:
     """Blocks of the persistent kernel: one per SM, or one per 64-pixel tile
     when there are fewer.  Block i walks tiles i, i + grid, ... of the
@@ -127,17 +145,18 @@ def scratch_shape(grid: int, D: int) -> Tuple[int, int, int]:
 def inr_tile_cuda(x: torch.Tensor, s: torch.Tensor, d: torch.Tensor, weights: InrWeights,
                   mm_dtype=torch.float32) -> torch.Tensor:
     """The CUDA kernel (`csrc/inr_tile.cu`); same arguments and result as
-    `inr_tile_plain`.  Raises if the library cannot be built or the launch
+    `inr_tile_plain`.  Widths off the kernel's tiling run zero-padded
+    (`pad_widths`).  Raises if the library cannot be built or the launch
     fails; never falls back to the plain version."""
-    dev = x.device
-    if dev.type != "cuda":
-        raise ValueError(f"inr_tile_cuda needs CUDA tensors, got {dev}")
     b, n, in0 = x.shape
     L, D = s.shape[1], s.shape[2]
     n_blocks = L // 2
-    if D % 64 or D > MAX_WIDTH or in0 % 16 or in0 > D or n_blocks <= FIRST_RGB:
-        raise ValueError(f"unsupported shape: D={D} (multiple of 64, <= {MAX_WIDTH}), "
-                         f"in0={in0} (multiple of 16, <= D), n_blocks={n_blocks} (> {FIRST_RGB})")
+    if D > MAX_WIDTH or in0 > D or n_blocks <= FIRST_RGB:
+        raise ValueError(f"unsupported shape: D={D} (<= {MAX_WIDTH}), in0={in0} (<= D), "
+                         f"n_blocks={n_blocks} (> {FIRST_RGB})")
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"inr_tile_cuda needs CUDA tensors, got {dev}")
     if mm_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"mm dtype must be float32 or bfloat16, got {mm_dtype}")
     expect = {"x": (x, (b, n, in0)), "s": (s, (b, L, D)), "d": (d, (b, L, D)),
@@ -148,6 +167,8 @@ def inr_tile_cuda(x: torch.Tensor, s: torch.Tensor, d: torch.Tensor, weights: In
         if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != dev:
             raise ValueError(f"{name}: expected float32 {shape} on {dev}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    x, s, d, weights = pad_widths(x, s, d, weights)
+    in0, D = x.shape[-1], s.shape[-1]
     x, s, d = x.contiguous(), s.contiguous(), d.contiguous()
     w0 = weights.w0.to(mm_dtype).contiguous()
     wrest = weights.wrest.to(mm_dtype).contiguous()

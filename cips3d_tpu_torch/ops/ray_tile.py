@@ -41,9 +41,9 @@ from cips3d_tpu_torch.ops import build
 from cips3d_tpu_torch.ops.fast_sin import fast_sin as _fast_sin
 from cips3d_tpu_torch.ops.fast_sin import fast_sin_grad
 
-MAX_STEPS = 32     # the kernel gives each of a ray's 2S samples to one lane of a warp pair
-MAX_WIDTH = 128    # the kernels' MMA tiling covers layer widths up to 128 ...
-WIDTH_STEP = 16    # ... in multiples of 16 (one bf16 k-step)
+MAX_STEPS = 64     # a warp holds a ray, 2S / 32 samples a lane (`kMaxSteps` of csrc/ray_tile.cuh)
+MAX_WIDTH = 128    # the kernels' weight tiles hold layer widths up to 128 ...
+WIDTH_STEP = 16    # ... in multiples of 16 (one bf16 k-step): the wrappers zero-pad the rest
 BLOCK_RAYS = 16    # rays per block of the forward and of the backward's cotangent kernel
 SPLIT_ROWS = 2048  # points per block of the backward's weight-grad kernel (a multiple of 32)
 POINT_WIDTH = 8    # row of the backward's point scratch (3 used)
@@ -460,15 +460,86 @@ def bwd_plan(b: int, n: int, S: int, L: int, H: int, C: int, R: int, sms: int) -
                    n_bias=L * H + C + R + 1, n_film=2 * L * H + 2 * C)
 
 
-def _check(name, wt, pts, org, dirs, z, u, nc, nf, clamp_mode, mm_dtype, extra=()):
-    """Shapes, dtypes and devices the kernels take; returns (L, H, C, R)."""
+def _round_up(x: int, multiple: int) -> int:
+    return -(-x // multiple) * multiple
+
+
+class Widths(NamedTuple):
+    """A SIREN's layer widths (H, C, R) and the kernels' (each rounded up to
+    a multiple of WIDTH_STEP)."""
+
+    L: int
+    H: int
+    C: int
+    R: int
+    Hp: int
+    Cp: int
+    Rp: int
+
+    @property
+    def padded(self) -> bool:
+        return (self.H, self.C, self.R) != (self.Hp, self.Cp, self.Rp)
+
+
+def widths(wt) -> Widths:
+    layers, (wc, _, _, _, wr, _, _, _) = _split(wt)
+    H, C, R = layers[0][0].shape[1], wc.shape[1], wr.shape[1]
+    return Widths(len(layers), H, C, R,
+                  *(_round_up(w, WIDTH_STEP) for w in (H, C, R)))
+
+
+def pad_weights(wt, w: Widths) -> List[torch.Tensor]:
+    """``wt`` at the kernels' widths: zero rows and columns in the matrices,
+    zero biases, FiLM gains and shifts.  A padded channel's pre-activation is
+    0 and its output sin(0 * 0 + 0) = 0 (the polynomial sine's too), and it
+    feeds zero weight rows, so every true output is the same sum plus exact
+    zeros."""
+    if not w.padded:
+        return list(wt)
     layers, (wc, bc, gc, fc, wr, br, ws, bs) = _split(wt)
+    dh, dc, dr = w.Hp - w.H, w.Cp - w.C, w.Rp - w.R
+    out = []
+    for i, (w_, b_, g_, f_) in enumerate(layers):
+        out += [F.pad(w_, (0, dh, 0, dh if i else 0)), F.pad(b_, (0, dh)), F.pad(g_, (0, dh)),
+                F.pad(f_, (0, dh))]
+    return out + [F.pad(wc, (0, dc, 0, dh)), F.pad(bc, (0, dc)), F.pad(gc, (0, dc)),
+                  F.pad(fc, (0, dc)), F.pad(wr, (0, dr, 0, dc)), F.pad(br, (0, dr)),
+                  F.pad(ws, (0, 0, 0, dh)), bs]
+
+
+def unpad_grads(grads, wt) -> List[torch.Tensor]:
+    """Grads at the kernels' widths cut back to the shapes of ``wt``."""
+    return [g if g.shape == t.shape else g[tuple(slice(0, s) for s in t.shape)].contiguous()
+            for g, t in zip(grads, wt)]
+
+
+def pad_residuals(res, w: Widths):
+    """(rh, ra, rhc, rac) at the true widths -> the kernels' layout: each
+    layer's H channels padded to Hp, the colour FiLM's C to Cp."""
+    if not w.padded:
+        return tuple(res)
+    rh, ra, rhc, rac = res
+    by_layer = lambda t: F.pad(t.unflatten(-1, (w.L, w.H)), (0, w.Hp - w.H)).flatten(-2)
+    return (by_layer(rh), by_layer(ra), F.pad(rhc, (0, w.Cp - w.C)), F.pad(rac, (0, w.Cp - w.C)))
+
+
+def unpad_residuals(res, w: Widths):
+    """The kernels' residuals cut back to the true widths (the plain
+    version's layout)."""
+    if not w.padded:
+        return tuple(res)
+    rh, ra, rhc, rac = res
+    by_layer = lambda t: t.unflatten(-1, (w.L, w.Hp))[..., :w.H].flatten(-2).contiguous()
+    return by_layer(rh), by_layer(ra), rhc[..., :w.C].contiguous(), rac[..., :w.C].contiguous()
+
+
+def _check(name, wt, pts, org, dirs, z, u, nc, nf, clamp_mode, mm_dtype, extra=()):
+    """Shapes, dtypes and devices the kernels take; returns `widths`."""
+    w = widths(wt)
     b, n, S, _ = pts.shape
-    L, H, C, R = len(layers), layers[0][0].shape[1], wc.shape[1], wr.shape[1]
-    if (not 3 <= S <= MAX_STEPS or max(H, C, R) > MAX_WIDTH or L < 1
-            or any(w % WIDTH_STEP for w in (H, C, R))):
-        raise ValueError(f"unsupported shape: S={S} (3..{MAX_STEPS}), H={H}, C={C}, R={R} "
-                         f"(multiples of {WIDTH_STEP} up to {MAX_WIDTH}), L={L}")
+    if not 3 <= S <= MAX_STEPS or max(w.H, w.C, w.R) > MAX_WIDTH or w.L < 1:
+        raise ValueError(f"unsupported shape: S={S} (3..{MAX_STEPS}), H={w.H}, C={w.C}, "
+                         f"R={w.R} (up to {MAX_WIDTH}), L={w.L}")
     dev = pts.device
     if dev.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got {dev}")
@@ -488,7 +559,7 @@ def _check(name, wt, pts, org, dirs, z, u, nc, nf, clamp_mode, mm_dtype, extra=(
     for t in wt:
         if t.device != dev or t.dtype != torch.float32:
             raise ValueError("weights and films must be float32 on the inputs' device")
-    return L, H, C, R
+    return w
 
 
 def _residual_shapes(b, n, S, L, H, C, mm_dtype):
@@ -532,6 +603,8 @@ def _launch_forward(lib, inputs, packed, dims, noise_std, res, *, clamp_mode, wh
     dev = inputs[0].device
     if lib.cips_ray_tile_block_rays() != BLOCK_RAYS:
         raise RuntimeError("the kernel library's ray block is not BLOCK_RAYS")
+    if lib.cips_ray_tile_max_steps() != MAX_STEPS:
+        raise RuntimeError("the kernel library's step cap is not MAX_STEPS")
     grid = forward_grid(b, n, torch.cuda.get_device_properties(dev).multi_processor_count)
     fea = torch.empty((b, n, R), dtype=out_dtype, device=dev)
     depth = torch.empty((b, n, 1), dtype=torch.float32, device=dev)
@@ -557,24 +630,28 @@ def ray_tile_cuda(
     out_dtype=torch.float32, with_residuals: bool = False,
 ):
     """The CUDA kernel (`csrc/ray_tile.cu`); same arguments and results as
-    `ray_tile_plain` (residuals in its layout).  Raises if the library
-    cannot be built or the launch fails; never falls back to the plain
-    version."""
+    `ray_tile_plain` (residuals in its layout).  Widths off the kernel's
+    16-wide tiling run zero-padded (`pad_weights`) and come back cut to
+    size.  Raises if the library cannot be built or the launch fails; never
+    falls back to the plain version."""
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out dtype must be float32 or bfloat16, got {out_dtype}")
-    L, H, C, R = _check("ray_tile_cuda", wt, pts, org, dirs, z, u, nc, nf, clamp_mode, mm_dtype)
+    w = _check("ray_tile_cuda", wt, pts, org, dirs, z, u, nc, nf, clamp_mode, mm_dtype)
     b, n, S, _ = pts.shape
     inputs = [t.contiguous() for t in (pts, org, dirs, z, u, nc, nf)]
     res = ([torch.empty(shape, dtype=dt, device=pts.device)
-            for shape, dt in _residual_shapes(b, n, S, L, H, C, mm_dtype).values()]
+            for shape, dt in _residual_shapes(b, n, S, w.L, w.Hp, w.Cp, mm_dtype).values()]
            if with_residuals else [])
     fea, depth = _launch_forward(
-        build.library(), inputs, _pack(wt, b, mm_dtype), (b, n, S, L, H, C, R), noise_std, res,
-        clamp_mode=clamp_mode, white_back=white_back, last_back=last_back, fast_sin=fast_sin,
-        mm_dtype=mm_dtype, warp_scale=warp_scale, out_dtype=out_dtype)
+        build.library(), inputs, _pack(pad_weights(wt, w), b, mm_dtype),
+        (b, n, S, w.L, w.Hp, w.Cp, w.Rp), noise_std, res, clamp_mode=clamp_mode,
+        white_back=white_back, last_back=last_back, fast_sin=fast_sin, mm_dtype=mm_dtype,
+        warp_scale=warp_scale, out_dtype=out_dtype)
+    if w.padded:
+        fea = fea[..., :w.R].contiguous()
     if with_residuals:
         build.count_launch("ray_tile_residuals", mm_dtype)
-        return fea, depth, tuple(res)
+        return fea, depth, unpad_residuals(res, w)
     build.count_launch("ray_tile", mm_dtype)
     return fea, depth
 
@@ -612,21 +689,24 @@ def ray_tile_bwd_cuda(
     ``residuals`` (the forward kernel runs again with residuals into
     scratch), residual mode with them; same arguments and results as
     `ray_tile_bwd_plain`.  Deterministic: a fixed split (`bwd_plan`) summed
-    in a fixed order.  Raises on a failed build or launch."""
+    in a fixed order.  Widths off the tiling run zero-padded, as the
+    forward's.  Raises on a failed build or launch."""
     b, n, S, _ = pts.shape
-    extra = [("d_fea", (d_fea, (b, n, wt[-4].shape[1]), torch.float32)),
+    w = widths(wt)
+    extra = [("d_fea", (d_fea, (b, n, w.R), torch.float32)),
              ("d_dep", (d_dep, (b, n, 1), torch.float32))]
-    layers = _split(wt)[0]
     if residuals is not None:
-        L, H, C = len(layers), layers[0][0].shape[1], wt[-8].shape[1]
         extra += [(k, (t, shape, dt)) for (k, (shape, dt)), t in
-                  zip(_residual_shapes(b, n, S, L, H, C, mm_dtype).items(), residuals)]
-    L, H, C, R = _check("ray_tile_bwd_cuda", wt, pts, org, dirs, z, u, nc, nf, clamp_mode,
-                        mm_dtype, extra)
+                  zip(_residual_shapes(b, n, S, w.L, w.H, w.C, mm_dtype).items(), residuals)]
+    _check("ray_tile_bwd_cuda", wt, pts, org, dirs, z, u, nc, nf, clamp_mode, mm_dtype, extra)
+    L, H, C, R = w.L, w.Hp, w.Cp, w.Rp
     dev = pts.device
     inputs = [t.contiguous() for t in (pts, org, dirs, z, u, nc, nf)]
+    if w.padded:
+        d_fea = F.pad(d_fea, (0, R - w.R))
     d_fea, d_dep = d_fea.contiguous(), d_dep.contiguous()
-    packed = _pack(wt, b, mm_dtype)
+    wt_k = pad_weights(wt, w)
+    packed = _pack(wt_k, b, mm_dtype)
     wbuf, pbuf, films = packed
     lib = build.library()
     plan = bwd_plan(b, n, S, L, H, C, R, torch.cuda.get_device_properties(dev).multi_processor_count)
@@ -640,7 +720,7 @@ def ray_tile_bwd_cuda(
         _launch_forward(lib, inputs, packed, (b, n, S, L, H, C, R), noise_std, res,
                         out_dtype=torch.float32, **opts)
     else:
-        res = [t.contiguous() for t in residuals]
+        res = [t.contiguous() for t in pad_residuals(residuals, w)]
     xs = torch.empty((b, 2, n, S, POINT_WIDTH), dtype=mm_dtype, device=dev)
     dq = torch.empty((b, 2, n, S, plan.cot_width), dtype=mm_dtype, device=dev)
     part_b = torch.empty((b, plan.gx, plan.n_bias + plan.n_film), dtype=torch.float32, device=dev)
@@ -663,7 +743,7 @@ def ray_tile_bwd_cuda(
     build.check(lib, err, "ray_tile_bwd")
     build.count_launch("ray_tile_bwd_recompute" if residuals is None else "ray_tile_bwd_residual",
                        mm_dtype)
-    return _unpack_grads(wt, out_w, out_f, L, H, C, R), d_pts
+    return unpad_grads(_unpack_grads(wt_k, out_w, out_f, L, H, C, R), wt), d_pts
 
 
 

@@ -47,6 +47,17 @@ from cips3d_tpu_torch.utils import image_io, video
 # the first optimizer.  Every worker collects every test file before it runs any
 # test, so the import above, made while this file is collected, keeps all of them
 # clear of it.
+#
+# Likewise for the cores: each torch process sizes its OpenMP pool to all of them, so
+# n workers run n threads a core, and the port's tests, many small ops each, then spend
+# about half their time waiting on one another's threads.  Under pytest-xdist every
+# worker, and every process its tests start, gets an even share of the cores, at least
+# two, when this file is collected.
+_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "0"))
+if _WORKERS:
+    _THREADS = max(2, (os.cpu_count() or 2) // _WORKERS)
+    torch.set_num_threads(_THREADS)
+    os.environ.setdefault("OMP_NUM_THREADS", str(_THREADS))
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(ROOT, "cips3d_tpu_torch", "native", "fixtures")

@@ -121,16 +121,98 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 
 @pytest.mark.parametrize("widths", [dict(hidden=40), dict(rgb=24)], ids=["H40", "R24"])
-def test_cuda_wrappers_refuse_widths_off_the_mma_tiling(widths):
-    """The kernels tile the layers in 16-wide MMA steps: other widths raise
-    before any launch (the plain version takes them)."""
-    wt, args = _ray_inputs("cpu", **widths)
-    with pytest.raises(ValueError, match="multiples of 16"):
+def test_cuda_wrappers_pad_widths_off_the_mma_tiling(widths):
+    """The kernels tile the layers in 16-wide MMA steps; the wrappers run
+    other widths zero-padded (they reach the device check, not a shape
+    error) and cut the results back.  The padded weights, cotangent and
+    residuals through the plain versions give the unpadded results: in
+    float64 to rounding (bit for bit is not defined here, the CPU's BLAS
+    blocks a padded product otherwise)."""
+    n = 12
+    wt, args = _ray_inputs("cpu", n=n, **widths)
+    R = wt[-4].shape[1]
+    d_fea, d_dep = torch.ones(B, n, R), torch.ones(B, n, 1)
+    with pytest.raises(ValueError, match="CUDA"):
         ray_tile.ray_tile_cuda(wt, *args)
-    with pytest.raises(ValueError, match="multiples of 16"):
-        ray_tile.ray_tile_bwd_cuda(wt, *args, 0.0, torch.ones(B, N, wt[-4].shape[1]),
-                                   torch.ones(B, N, 1))
-    assert ray_tile.ray_tile_plain(wt, *args)[0].shape == (B, N, wt[-4].shape[1])
+    with pytest.raises(ValueError, match="CUDA"):
+        ray_tile.ray_tile_bwd_cuda(wt, *args, 0.0, d_fea, d_dep)
+    w = ray_tile.widths(wt)
+    assert w.padded and (w.Hp, w.Cp, w.Rp) == tuple(-(-x // 16) * 16 for x in (w.H, w.C, w.R))
+    wt, args = [t.double() for t in wt], [a.double() for a in args]
+    kw = dict(mm_dtype=torch.float64, clamp_mode="softplus", white_back=True, last_back=True)
+    wp = ray_tile.pad_weights(wt, w)
+    assert [t.shape[-1] for t in wp[:4]] == [w.Hp] * 4 and wp[-4].shape == (w.Cp, w.Rp)
+    fea, dep, res = ray_tile.ray_tile_plain(wt, *args, 0.4, with_residuals=True, **kw)
+    fp, dp, rp = ray_tile.ray_tile_plain(wp, *args, 0.4, with_residuals=True, **kw)
+    rp = ray_tile.unpad_residuals(rp, w)
+    exact = lambda a, b: torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
+    exact(fp[..., :w.R], fea)
+    exact(dp, dep)
+    for a, b in zip(rp, res):
+        exact(a, b)
+    g = torch.Generator().manual_seed(2)
+    d_fea = torch.randn(B, n, R, generator=g, dtype=torch.float64)
+    d_dep = torch.randn(B, n, 1, generator=g, dtype=torch.float64)
+    for r in (None, res):
+        ref, ref_pts = ray_tile.ray_tile_bwd_plain(wt, *args, 0.4, d_fea, d_dep, residuals=r,
+                                                   **kw)
+        got, got_pts = ray_tile.ray_tile_bwd_plain(
+            wp, *args, 0.4, torch.nn.functional.pad(d_fea, (0, w.Rp - w.R)), d_dep,
+            residuals=None if r is None else ray_tile.pad_residuals(r, w), **kw)
+        got = ray_tile.unpad_grads(got, wt)
+        for a, b in zip(got + [got_pts], ref + [ref_pts]):
+            assert a.shape == b.shape
+            exact(a, b)
+
+
+def test_inr_wrapper_pads_widths_off_its_tiling():
+    """The INR tile's wrapper zero-pads D to a multiple of 64 and in0 to a
+    multiple of 16 (D 200, in0 24 reach the device check); through the plain
+    version the padded decode is the unpadded one."""
+    x, s, d, w = _inr_inputs("cpu", 9, D=200, in0=24)
+    with pytest.raises(ValueError, match="CUDA"):
+        inr_tile.inr_tile_cuda(x, s, d, w)
+    xp, sp, dp, wp = inr_tile.pad_widths(x, s, d, w)
+    assert xp.shape[-1] == 32 and sp.shape[-1] == dp.shape[-1] == 256
+    assert wp.w0.shape == (32, 256) and wp.wrest.shape[1:] == (256, 256)
+    assert wp.wr.shape[1:] == (256, 3)
+    ref = inr_tile.inr_tile_plain(x, s, d, w, mm_dtype=torch.float64)
+    got = inr_tile.inr_tile_plain(xp, sp, dp, wp, mm_dtype=torch.float64)
+    torch.testing.assert_close(got, ref, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("steps", [33, 48, 64])
+def test_cuda_wrappers_take_long_rays(steps):
+    """#2, #2r and #3 take every S up to MAX_STEPS: on CPU tensors the
+    wrappers get past the shape gate to the device check."""
+    assert ray_tile.MAX_STEPS >= 64
+    wt, args = _ray_inputs("cpu", n=5, steps=steps)
+    d_fea, d_dep = torch.ones(B, 5, 16), torch.ones(B, 5, 1)
+    res = ray_tile.ray_tile_plain(wt, *args, with_residuals=True)[2]
+    with pytest.raises(ValueError, match="needs CUDA"):
+        ray_tile.ray_tile_cuda(wt, *args)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        ray_tile.ray_tile_cuda(wt, *args, with_residuals=True)
+    for r in (None, res):
+        with pytest.raises(ValueError, match="needs CUDA"):
+            ray_tile.ray_tile_bwd_cuda(wt, *args, 0.0, d_fea, d_dep, residuals=r)
+
+
+def test_cuda_wrappers_refuse_past_the_caps():
+    """S past MAX_STEPS, ray-tile widths past 128 and INR widths past 512
+    raise before any launch, naming the cap."""
+    wt, args = _ray_inputs("cpu", n=3, steps=ray_tile.MAX_STEPS + 1)
+    with pytest.raises(ValueError, match=rf"unsupported shape: S={ray_tile.MAX_STEPS + 1} "
+                                         rf"\(3\.\.{ray_tile.MAX_STEPS}\)"):
+        ray_tile.ray_tile_cuda(wt, *args)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        ray_tile.ray_tile_bwd_cuda(wt, *args, 0.0, torch.ones(B, 3, 16), torch.ones(B, 3, 1))
+    wt, args = _ray_inputs("cpu", n=3, hidden=144)
+    with pytest.raises(ValueError, match="H=144.*up to 128"):
+        ray_tile.ray_tile_cuda(wt, *args)
+    x, s, d, w = _inr_inputs("cpu", 4, D=576, n=3)
+    with pytest.raises(ValueError, match="D=576 \\(<= 512\\)"):
+        inr_tile.inr_tile_cuda(x, s, d, w)
 
 
 def test_dispatch_runs_plain_on_cpu():
@@ -437,8 +519,12 @@ def test_ray_tile_bwd_bf16_control(cuda_device):
 
 # ---------------------------------------------- on the card, flagship widths
 
+# S past 32: each lane of a ray's warp holds several samples (csrc/ray_tile.cuh)
+STEPS = sorted({10, 12, 24, 33, 48, 64, ray_tile.MAX_STEPS})
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("steps", [10, 12, 24])
+@pytest.mark.parametrize("steps", STEPS)
 @pytest.mark.parametrize("mm_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("residuals", [False, True], ids=["plain", "residuals"])
 def test_ray_tile_kernel_flagship(cuda_device, steps, mm_dtype, residuals):
@@ -459,7 +545,7 @@ def test_ray_tile_kernel_flagship(cuda_device, steps, mm_dtype, residuals):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("steps", [10, 12, 24])
+@pytest.mark.parametrize("steps", STEPS)
 @pytest.mark.parametrize("mm_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("mode", ["recompute", "residual"])
 def test_ray_tile_bwd_flagship(cuda_device, steps, mm_dtype, mode):
@@ -503,3 +589,83 @@ def test_ray_tile_bwd_as_close_to_float64_as_plain(cuda_device, mode):
     far = lambda gs: max(((a.double() - b).abs().max() / (b.abs().max() + 1)).item()
                          for a, b in zip(gs, g64))
     assert far(ga) <= 2 * far(gb)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("steps", [33, 48, 64])
+@pytest.mark.parametrize("mm_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ray_tile_long_rays_deterministic(cuda_device, steps, mm_dtype):
+    """Past 32 samples a ray, with density noise: #2, #2r and #3 in both
+    modes give the same bits twice."""
+    wt, args = _ray_inputs(cuda_device, n=N_WIDE, steps=steps, **FLAGSHIP)
+    d_fea = torch.ones(B, N_WIDE, 32, device=cuda_device)
+    d_dep = torch.ones(B, N_WIDE, 1, device=cuda_device)
+
+    def run():
+        fea, dep = ray_tile.ray_tile_cuda(wt, *args, 0.4, mm_dtype=mm_dtype)
+        fr, dr, res = ray_tile.ray_tile_cuda(wt, *args, 0.4, mm_dtype=mm_dtype,
+                                             with_residuals=True)
+        out = [fea, dep, fr, dr, *res]
+        for r in (None, res):
+            g, p = ray_tile.ray_tile_bwd_cuda(wt, *args, 0.4, d_fea, d_dep, residuals=r,
+                                              mm_dtype=mm_dtype)
+            out += g + [p]
+        return out
+
+    for a, b in zip(run(), run()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mm_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("widths", [dict(hidden=40), dict(rgb=24), dict(hidden=40, rgb=24)],
+                         ids=["H40", "R24", "H40-R24"])
+def test_ray_tile_kernels_at_padded_widths(cuda_device, mm_dtype, widths):
+    """Widths off the 16-wide tiling run zero-padded: #2, #2r and #3 (both
+    modes) against the plain version at the true widths."""
+    wt, args = _ray_inputs(cuda_device, n=N_WIDE, steps=24, **widths)
+    R = wt[-4].shape[1]
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    d_fea = torch.randn(B, N_WIDE, R, generator=g, device=cuda_device)
+    d_dep = torch.randn(B, N_WIDE, 1, generator=g, device=cuda_device)
+    tol = F32_TOL if mm_dtype == torch.float32 else RAY_BF16_TOL
+    before = {k: build.launches(k) for k in build.KERNELS}
+    fa, da, ra = ray_tile.ray_tile_cuda(wt, *args, 0.0, mm_dtype=mm_dtype, with_residuals=True)
+    fb, db, rb = ray_tile.ray_tile_plain(wt, *args, 0.0, mm_dtype=mm_dtype, with_residuals=True)
+    torch.cuda.synchronize()
+    assert fa.shape == (B, N_WIDE, R) and fa.is_contiguous()
+    _close(fa, fb, tol)
+    _close(da, db, tol)
+    for x, y in zip(ra, rb):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        assert _points_outside(x, y, dict(rtol=tol["rtol"], atol=tol["atol"] * 20)) <= 1e-3
+    fa, da = ray_tile.ray_tile_cuda(wt, *args, 0.0, mm_dtype=mm_dtype)
+    _close(fa, fb, tol)
+    for res in (None, ra):
+        ga, pa = ray_tile.ray_tile_bwd_cuda(wt, *args, 0.0, d_fea, d_dep, residuals=res,
+                                            mm_dtype=mm_dtype)
+        gb, pb = ray_tile.ray_tile_bwd_plain(wt, *args, 0.0, d_fea, d_dep, residuals=res,
+                                             mm_dtype=mm_dtype)
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(ga, gb)):
+            assert a.shape == b.shape
+            assert _grad_err(a, b) < BWD_TOL[mm_dtype], f"grad {i}: {_grad_err(a, b):.3e}"
+        assert _rays_outside(pa, pb, 1e-4 if mm_dtype == torch.float32 else 1e-2) == 0
+    after = {k: build.launches(k) - before[k] for k in build.KERNELS}
+    assert after == dict(ray_tile=1, ray_tile_residuals=1, ray_tile_bwd_recompute=1,
+                         ray_tile_bwd_residual=1, inr_tile=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mm_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("D,in0", [(448, 24), (200, 24), (448, 32)])
+def test_inr_tile_kernel_at_padded_widths(cuda_device, D, in0, mm_dtype):
+    """D off the 64-channel tiling and in0 off the 16-row weight stage run
+    zero-padded, against the plain version at the true widths."""
+    x, s, d, w = _inr_inputs(cuda_device, 9, D=D, in0=in0, n=200, b=2)
+    before = build.launches("inr_tile")
+    out = inr_tile.inr_tile_cuda(x, s, d, w, mm_dtype=mm_dtype)
+    ref = inr_tile.inr_tile_plain(x, s, d, w, mm_dtype=mm_dtype)
+    torch.cuda.synchronize()
+    assert out.shape == (2, 200, 3) and build.launches("inr_tile") == before + 1
+    _close(out, ref, F32_TOL if mm_dtype == torch.float32 else INR_BF16_WIDE_TOL)
