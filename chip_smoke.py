@@ -144,9 +144,9 @@ Phases, each printing one line (plus detail lines):
      the residual backward) on the card against the same bf16 step on the
      CPU, the CPU's f32 step as the witness (BF16_RATIO), and an r64 x 12
      bf16 serving frame likewise; (b) ``python -m
-     cips3d_tpu_torch.bench.train`` and ``python -m
-     cips3d_tpu_torch.bench.inference`` (BENCH_AB=1) at their default
-     sizes in subprocesses: exit 0, one JSON line with every key and
+     cips3d_tpu_torch.bench.train`` (2 + 1 calls, 50 loader steps) and
+     ``python -m cips3d_tpu_torch.bench.inference`` (BENCH_AB=1) at their
+     default sizes in subprocesses: exit 0, one JSON line with every key and
      finite positive values, and per leg the kernels' launches by product
      dtype (bf16 only: #1 and #2 in every training leg and the fused
      serving leg, #2r and #3 in the exact-sine leg), #1's bf16
@@ -220,6 +220,25 @@ Phases, each printing one line (plus detail lines):
      phase 9's r64 snapshot, its launches counted, and its render (the
      CLI's generator and arguments, draws made on the host) on the card
      against the CPU; both by phase 4's frame rule.
+ 20. the streamed path, which takes every shape the Pallas kernels take
+     where the resident kernels do not (`csrc/ray_tile_streamed.cu`,
+     `csrc/inr_tile_streamed.cu`; the wrappers choose from the resident
+     layouts' bytes against the card's shared memory, printed beside the
+     library's own count): (a) #2 at nerf_hidden_layers 3 (r128 x 24), #2r
+     and #3 in both modes at depth 3 (r64, b = 4, S = 12, density noise 0.5)
+     and #1 at D = 1024 (r64) against their plain versions (f32 at the
+     kernel rows' tolerances, bf16 with the controls), twice bit for bit,
+     timed beside the plain versions and beside the resident kernels at
+     the flagship shapes, which both paths take; (b) from zeroed counts:
+     `RenderService` serving the depth-3 flagship at r128 x 24 (captured
+     replays against eager calls bit for bit, a frame against the CPU by
+     phase 4's rule), an r32 b = 2 step at depth 3 with the exact sine
+     (#2r, #3 residual) and one with the polynomial sine (#3 recompute)
+     against the CPU by phase 7's tolerances, ``eval.cli multiview --serving
+     --num-steps 48`` (S = 96) on phase 9's snapshot with its view against
+     the CPU, and a wide generator (nerf_hidden_dim 256 with the colour
+     layer as wide, inr_hidden_dim 1024) at r64 x 12 against the CPU; each
+     with the streamed kernels' launches.
 Phases 4, 5, 11, 14 and 15 go through the same captured programs (a frame,
 the inversion step, the sigma chunk, the bench's frame; the eval CLI's
 renders in its subprocesses): their launch counts include each program's
@@ -233,8 +252,11 @@ the benches run it (``bf16_*``: phase 15's launches, the bf16 time, plain
 time and error, the bound at the 989 TFLOP/s bf16 peak) and the ray
 tile's at S = 48 and at the cap (``ms_s48``, ``plain_ms_s48``,
 ``bound_ms_s48``, ``bound_by_s48``, ``max_abs_err_s48``, the same with
-``s64``: #2 at phase 5's frame, #2r and #3 at phase 8's shapes); the last
-line the device summary.
+``s64``: #2 at phase 5's frame, #2r and #3 at phase 8's shapes), then the
+streamed kernels of phase 20 (``*_streamed``: launches from phase 20(b),
+times, errors and bounds at phase 20(a)'s shapes, the resident and the
+streamed time at a shape both take, each kernel's ptxas registers and
+spills and the shared memory); the last line the device summary.
 Any failed check raises, so the exit code is not 0.
 Without CUDA (or without the package beside it) the script exits with an
 error before printing any result.
@@ -288,6 +310,10 @@ STEP_TOL = dict(loss_rtol=1e-4, grad=3e-4, param=2e-2)   # card step vs CPU step
 # density noise 0 (normalised grad error): at most this multiple of the f32 plain version's
 # distance from a float64 run of the plain version
 F64_RATIO = 2.0
+# A kernel's reading under density noise (the resample's conditioning aside) that misses its
+# tolerance passes only where a witness on the same inputs misses it too, and then by at most
+# this multiple of the witness's reading (phases 6 and 20)
+WITNESS_RATIO = 2.0
 SHIPPED = "shipped: fast_sin, unfused G phase"            # configs/ffhq.yaml's generator
 R256 = "train_r256: freeze_nerf, DiffAug, warmup_d, aux off"   # the r256 stage's settings
 F32_PEAK = 67e12          # FLOP/s, f32 FMA outside the tensor cores (H100 SXM data sheet)
@@ -362,6 +388,12 @@ def max_grad_err(ga, gb):
     return max(grad_err(a, b) for a, b in zip(ga, gb))
 
 
+def held(reading, tol, witness):
+    """``reading`` within ``tol``, or, where ``witness`` misses ``tol`` as
+    well, within WITNESS_RATIO x ``witness``."""
+    return reading <= tol or (witness > tol and reading <= WITNESS_RATIO * witness)
+
+
 def rays_outside(a, b, tol):
     """Share of rays (the first two axes) with any element beyond
     tol * (max|b| + 1)."""
@@ -381,28 +413,30 @@ def siren_macs(H, L, C, R):
     return 3 * H + (L - 1) * H * H + H * C + C * R + H
 
 
-def serve_bound(S, peak, n=128 * 128):
+def serve_bound(S, peak, n=128 * 128, widths=(128, 2, 64, 32)):
     """#2's bound at a one-row frame of n rays and S coarse samples a ray
-    (phase 5's shapes): the multiply-adds of both passes at 2 FLOP each over
-    ``peak``; the points, rays, depths and draws read once, the weights
-    once, the features and depths written once (the bf16 calls take and
-    give the same f32 tensors: the same bytes)."""
-    H, L, C, R = 128, 2, 64, 32
+    (phase 5's shapes; ``widths`` H, L, C, R, the flagship's by default):
+    the multiply-adds of both passes at 2 FLOP each over ``peak``; the
+    points, rays, depths and draws read once, the weights once, the
+    features and depths written once (the bf16 calls take and give the same
+    f32 tensors: the same bytes)."""
+    H, L, C, R = widths
     macs = siren_macs(H, L, C, R)
     fwd_in_bytes = 4 * n * (S * 3 + 6 + 3 * S + 2 * S)
     return bound_ms(2 * n * 2 * S * macs, fwd_in_bytes + 4 * macs + 4 * n * (R + 1), peak)
 
 
-def train_bounds(dn, S=12):
+def train_bounds(dn, S=12, widths=(128, 2, 64, 32)):
     """Bounds of #2r, #3 residual and #3 recompute at the training shapes
     timed in phases 8 and 15(c) (r64, b = 4, S = 12; phase 8 also S = 48
-    and the cap) with ``dn`` ("float32" or "bfloat16") products: the
+    and the cap; ``widths`` H, L, C, R, the flagship's by default, phase 20
+    also depth 3) with ``dn`` ("float32" or "bfloat16") products: the
     multiply-adds at 2 FLOP each over that dtype's peak; each input read
     once and each output written once.  With bf16 products the residuals h
     and hc are bf16 (a and ac stay f32), and so is phase 15(c)'s #2r
     feature."""
     b, n = 4, 64 * 64
-    H, L, C, R = 128, 2, 64, 32
+    H, L, C, R = widths
     half = dn == "bfloat16"
     peak = BF16_PEAK if half else F32_PEAK
     pts = b * n * 2 * S
@@ -2919,7 +2953,10 @@ def bench_phase(dev, smi, log, tmp, gen):
     for k in ("BENCH_FAST_SIN", "BENCH_FUSED", "BENCH_VJP", "BENCH_DPHASE", "BENCH_DPHASE_INR",
               "BENCH_BATCH", "BENCH_FUSED_INR"):
         env.pop(k, None)
-    train_line, train_rep, _ = bench_run("train", [], env, log, smi, 900)
+    # 2 + 1 timed calls and 50 loader steps, not the bench's defaults 4 + 2 and 100: the
+    # smoke run's time limit (the rates are the same measurement, over fewer calls)
+    train_line, train_rep, _ = bench_run("train", ["--calls", "2", "--exact-calls", "1",
+                                                   "--loader-steps", "50"], env, log, smi, 900)
     inf_line, inf_rep, _ = bench_run("inference", [], dict(env, BENCH_AB="1"), log, smi, 600)
     for line, keys, metric in (
             (train_line, ("exact_sin_imgs_per_sec", "loader_imgs_per_sec"),
@@ -3945,6 +3982,33 @@ def last_slice_phase(dev, smi, log, tmp, gen):
 
 # ---- phase 19: the render path past 32 samples a ray ----------------------------
 
+def host_draws():
+    """The apps' `Draws` with every draw made on the host from its seed or
+    key, then moved to the device: the same numbers on the card and the
+    CPU (phases 19 and 20)."""
+    import torch
+
+    from cips3d_tpu_torch.apps import render as p_render
+    from cips3d_tpu_torch.models.generator import sample_zs
+    from cips3d_tpu_torch.ops import ray_tile
+
+    class HostDraws(p_render.Draws):
+        def zs(self, seed, n, cfg):
+            zs = sample_zs(n, cfg, torch.Generator().manual_seed(int(seed)))
+            return {k: v.to(self.device) for k, v in zs.items()}
+
+        def render(self, key, b, opts, chunk):
+            g = torch.Generator().manual_seed(int(key))
+            n, S = opts.img_size ** 2, opts.num_steps
+            uniform = torch.rand((b, n, S, 1), generator=g).to(self.device)
+            draws = [ray_tile.RayDraws(*(t.to(self.device) for t in
+                                         ray_tile.draw_ray_randoms(b, chunk, S, False, g, "cpu")))
+                     for _ in range(n // chunk)]
+            return dict(perturb_uniform=uniform, chunk_draws=draws)
+
+    return HostDraws
+
+
 def long_ray_phase(dev, smi, log, tmp, gen, cpu_gen):
     """Phase 19: the entry points past 32 samples a ray, where each lane of
     #2's warps holds several samples: (a) `RenderService` at r128 x 48
@@ -3963,8 +4027,7 @@ def long_ray_phase(dev, smi, log, tmp, gen, cpu_gen):
     from cips3d_tpu_torch.apps import render as p_render
     from cips3d_tpu_torch.apps.serve import RenderService
     from cips3d_tpu_torch.eval import cli
-    from cips3d_tpu_torch.models.generator import sample_zs
-    from cips3d_tpu_torch.ops import build, ray_tile
+    from cips3d_tpu_torch.ops import build
     from cips3d_tpu_torch.utils import graphs, image_io
 
     t0 = time.perf_counter()
@@ -3984,23 +4047,7 @@ def long_ray_phase(dev, smi, log, tmp, gen, cpu_gen):
     frame_vs_cpu(gen, cpu_gen, dev, f"  frame r128 x{LONG_STEPS} vs plain CPU path", size=128,
                  steps=LONG_STEPS)
 
-    class HostDraws(p_render.Draws):
-        """The apps' draws made on the host from each seed and key, then
-        moved to the device: the same numbers on the card and the CPU."""
-
-        def zs(self, seed, n, cfg):
-            zs = sample_zs(n, cfg, torch.Generator().manual_seed(int(seed)))
-            return {k: v.to(self.device) for k, v in zs.items()}
-
-        def render(self, key, b, opts, chunk):
-            g = torch.Generator().manual_seed(int(key))
-            n, S = opts.img_size ** 2, opts.num_steps
-            uniform = torch.rand((b, n, S, 1), generator=g).to(self.device)
-            draws = [ray_tile.RayDraws(*(t.to(self.device) for t in
-                                         ray_tile.draw_ray_randoms(b, chunk, S, False, g, "cpu")))
-                     for _ in range(n // chunk)]
-            return dict(perturb_uniform=uniform, chunk_draws=draws)
-
+    HostDraws = host_draws()
     root = os.path.dirname(os.path.abspath(__file__))
     ckpt = f"{tmp}/train_r64/ckptdir/best_fid"
     config = os.path.join(root, "configs/ffhq.yaml")
@@ -4036,6 +4083,444 @@ def long_ray_phase(dev, smi, log, tmp, gen, cpu_gen):
     graphs.release()
     log(f"phase 19 done in {time.perf_counter() - t0:.1f} s [{smi}]")
     return counts
+
+
+# ---- phase 20: every shape the Pallas kernels take: the streamed path ---------------
+
+# the kernels each streamed entry launches (mangled-name patterns of its f32 build)
+STREAMED_PARTS = {
+    "ray_tile_streamed": [r"gemm_kernelIffLb0ELi0E", r"gemm_kernelIffLb0ELi1E",
+                          r"sigma_rowsIfE", r"coarse_pointsIfE", r"rays_resampleIfE",
+                          r"rays_compositeE"],
+    "ray_tile_bwd_residual_streamed": [r"coarse_pointsIfE", r"sigma_rowsIfE",
+                                       r"gemm_kernelIffLb0ELi1E", r"rays_backwardIfE",
+                                       r"bwd_prepIfE", r"gemm_kernelIffLb1ELi2E",
+                                       r"gemm_kernelIffLb1ELi3E", r"wgrad_tilesIfE",
+                                       r"streamed_cu_\w*bwd_reduceE"],
+    "inr_tile_streamed": [r"gemm_kernelIffLb0ELi4E", r"to_rgbIfE"],
+}
+STREAMED_PARTS["ray_tile_residuals_streamed"] = STREAMED_PARTS["ray_tile_streamed"]
+STREAMED_PARTS["ray_tile_bwd_recompute_streamed"] = (STREAMED_PARTS["ray_tile_streamed"]
+                                                     + STREAMED_PARTS["ray_tile_bwd_residual_streamed"])
+L3 = (128, 3, 64, 32)        # H, L, C, R of the flagship at nerf_hidden_layers 3
+WIDE_STEPS = 12              # the wide generator's frame: r64 x 12
+
+
+def streamed_resources(name, ptxas, lib):
+    """{kernel: [registers, spill store bytes, spill load bytes]} of each
+    kernel a streamed entry launches (f32 build) and the largest dynamic
+    shared memory among them (the same at every shape)."""
+    regs = {}
+    for pat in STREAMED_PARTS[name]:
+        for k, v in ptxas.items():
+            if re.search(pat, k):
+                regs[pat.replace("streamed_cu_\\w*", "")] = list(v)
+                break
+    smem = (lib.cips_inr_tile_streamed_smem(0) if name == "inr_tile_streamed"
+            else lib.cips_ray_tile_streamed_smem(0))
+    return {"ptxas": regs, "smem_bytes": smem,
+            "max_registers": max((v[0] or 0) for v in regs.values()) if regs else None,
+            "spill_bytes": max(v[1] + v[2] for v in regs.values()) if regs else None}
+
+
+def streamed_phase(dev, smi, log, tmp, gen, cpu_gen, lib_path):
+    """Phase 20: the streamed path (`csrc/ray_tile_streamed.cu`,
+    `csrc/inr_tile_streamed.cu`), which takes the shapes the resident
+    kernels do not.  (a) Each streamed kernel against its plain version at
+    the new shapes (f32 at the kernel rows' tolerances, bf16 with its
+    control), twice bit for bit, timed beside the plain version and beside
+    the resident kernel at a shape both take: #2 at nerf_hidden_layers 3,
+    r128 x 24; #2r and #3 (both modes) at depth 3, r64, b = 4, S = 12; #1 at
+    D = 1024, r64.  (b) The main paths on it, from zeroed counts, against
+    the CPU: the depth-3 flagship served by `RenderService` (r128 x 24, #2
+    streamed, #1 resident; replays against eager calls, bit for bit), one
+    r32 b = 2 training step at depth 3 with the exact sine (#2r and #3
+    residual, streamed) and one with the polynomial sine (#3 recompute), by
+    phase 7's tolerances; ``eval.cli multiview --serving --num-steps 48`` (S
+    = 96) on phase 9's r64 snapshot and its view against the CPU; a wide
+    generator (nerf_hidden_dim 256, the colour layer as wide, inr_hidden_dim
+    1024: #2 and #1 streamed) at r64 x 12 against the CPU.  Returns the
+    launches of (b) and the kernel entries of the summary line."""
+    import numpy as np
+    import torch
+
+    from cips3d_tpu_torch.apps import render as p_render
+    from cips3d_tpu_torch.apps.serve import RenderService
+    from cips3d_tpu_torch.eval import cli
+    from cips3d_tpu_torch.eval.cli import serving_config
+    from cips3d_tpu_torch.models.generator import (GeneratorConfig, GeneratorNerfINR,
+                                                   RenderOptions, sample_zs)
+    from cips3d_tpu_torch.models.nerf_net import NeRFNetwork
+    from cips3d_tpu_torch.ops import build, inr_tile, ray_tile
+    from cips3d_tpu_torch.utils import image_io
+
+    t0 = time.perf_counter()
+    f32, bf16 = torch.float32, torch.bfloat16
+    lib = build.library()
+    optin = build.smem_optin(dev)
+    for S, L, H, C, R in ((24, 2, 128, 64, 32), (24, 3, 128, 64, 32), (96, 2, 128, 64, 32),
+                          (12, 2, 256, 256, 32)):
+        mirror = ray_tile.resident_smem(S, L, H, C, R)
+        own = ray_tile.library_smem(S, L, H, C, R)
+        path = ray_tile.ray_path(S, L, H, C, R, f32, optin, ray_tile.library_smem)
+        log(f"phase 20 path: S={S} L={L} H={H} C={C} R={R} f32: resident layouts {own} bytes "
+            f"(mirror {mirror}), limit {optin}: {path}")
+        if mirror != own:
+            raise AssertionError("the wrappers' mirror of the resident layouts is not the library's")
+    if ray_tile.ray_path(24, 3, 128, 64, 32, f32, optin, ray_tile.library_smem) != "streamed":
+        raise AssertionError("depth 3 at the flagship widths in f32 should take the streamed path")
+    g = torch.Generator(dev).manual_seed(20)
+    gen3 = GeneratorNerfINR(serving_config(GeneratorConfig(nerf_hidden_layers=3)),
+                            generator=torch.Generator().manual_seed(200)).to(dev).eval()
+
+    def inputs(model, b, size, S, noise=0.0):
+        zs = sample_zs(b, model.cfg, g, device=dev)
+        with torch.no_grad():
+            st = model.mapping(zs["z_nerf"], zs["z_inr"])
+        opts = RenderOptions(img_size=size, num_steps=S, h_stddev=0.0, v_stddev=0.0)
+        pos = torch.tensor([[0.3, 0.1, 0.95]], device=dev).repeat(b, 1)
+        pos = pos / pos.norm(dim=-1, keepdim=True)
+        world = model.sample_world(b, opts, g, pos, -pos)
+        wt = [w.detach() for w in ray_tile.flat_weights(model.siren, st)]
+        draws = ray_tile.draw_ray_randoms(b, size * size, S, noise != 0, g, dev)
+        return st, (wt, world.points, world.origins, world.dirs, world.z_vals[..., 0], *draws)
+
+    ptxas = ptxas_resources(lib_path.with_suffix(".log").read_text())
+    entries, errs, times = {}, {}, {}
+    with torch.no_grad():
+        # ---- (a) #2: the depth-3 flagship's serving frame, r128 x 24
+        st3, args = inputs(gen3, 1, 128, SERVING_STEPS)
+        kw = dict(fast_sin=True)
+        fa, da = ray_tile.ray_tile_cuda(*args, **kw)
+        fb, db = ray_tile.ray_tile_plain(*args, **kw)
+        errs["ray_tile_streamed"], _, _ = compare("ray_tile streamed L=3 r128 x24 f32 feature",
+                                                  fa, fb, TOL["ray_tile", "float32"])
+        compare("ray_tile streamed L=3 r128 x24 f32 depth", da, db, TOL["ray_tile", "float32"])
+        fa2, da2 = ray_tile.ray_tile_cuda(*args, **kw)
+        if not (torch.equal(fa, fa2) and torch.equal(da, da2)):
+            raise AssertionError("#2 streamed: two runs differ")
+        times["ray_tile_streamed"] = cuda_ms([lambda: ray_tile.ray_tile_plain(*args, **kw),
+                                              lambda: ray_tile.ray_tile_cuda(*args, **kw)], reps=5)
+        outs = {mm: ray_tile.ray_tile_cuda(*args, mm_dtype=mm, **kw)[0] for mm in (f32, bf16)}
+        plain = {mm: ray_tile.ray_tile_plain(*args, mm_dtype=mm, **kw)[0] for mm in (f32, bf16)}
+        errs["ray_tile_streamed bf16"] = check_bf16(
+            "ray_tile streamed L=3 r128 x24 bfloat16 feature", outs[bf16], plain[bf16],
+            plain[f32], outs[f32], TOL["ray_tile", "bfloat16"])
+        del outs, plain, fa, fb, fa2
+        # beside the resident path at the flagship (depth 2), which both paths take
+        _, args2 = inputs(gen, 1, 128, SERVING_STEPS)
+        ra_, rb_ = (ray_tile.ray_tile_cuda(*args2, path=p, **kw) for p in ("resident", "streamed"))
+        same = all(torch.equal(x, y) for x, y in zip(ra_, rb_))
+        compare("ray_tile streamed vs resident, flagship L=2 r128 x24 f32 feature", rb_[0],
+                ra_[0], TOL["ray_tile", "float32"])
+        times["ray_tile resident vs streamed"] = cuda_ms(
+            [lambda: ray_tile.ray_tile_cuda(*args2, path="resident", **kw),
+             lambda: ray_tile.ray_tile_cuda(*args2, path="streamed", **kw)], reps=5)
+        log(f"phase 20 time: #2 L=3 r128 x24 f32: streamed {times['ray_tile_streamed'][1]:.3f} ms, "
+            f"plain {times['ray_tile_streamed'][0]:.3f} ms; flagship L=2: resident "
+            f"{times['ray_tile resident vs streamed'][0]:.3f} ms, streamed "
+            f"{times['ray_tile resident vs streamed'][1]:.3f} ms (bit for bit the same: {same}) "
+            f"[{smi}]")
+        del args, args2, ra_, rb_
+
+    # ---- (a) #2r and #3 at depth 3, r64, b = 4, S = 12 (phase 8's training shapes)
+    st3, args = inputs(gen3, 4, 64, 12, noise=0.5)
+    noise = torch.tensor(0.5, device=dev)
+    d_fea = torch.randn((4, 4096, 32), generator=g, device=dev)
+    d_dep = torch.randn((4, 4096, 1), generator=g, device=dev)
+    tol = TOL["ray_tile", "float32"]
+    # without noise, the strict tolerance (as phase 6 at S = 48 and 64)
+    f0, d0, res0 = ray_tile.ray_tile_cuda(*args, 0.0, with_residuals=True)
+    f0p, d0p = ray_tile.ray_tile_plain(*args, 0.0)
+    errs["ray_tile_residuals_streamed"], _, _ = compare(
+        "ray_tile residuals streamed L=3 r64 b=4 x12 f32 feature", f0, f0p, tol)
+    compare("ray_tile residuals streamed L=3 r64 b=4 x12 f32 depth", d0, d0p, tol)
+    fr, dr, res = ray_tile.ray_tile_cuda(*args, noise, with_residuals=True)
+    fp, dp, rp = ray_tile.ray_tile_plain(*args, noise, with_residuals=True)
+    compare("ray_tile residuals streamed L=3 r64 b=4 x12 noise 0.5 f32 feature", fr, fp, tol,
+            check=False)
+    # under noise the f32 resample's conditioning sets the share outside (phases 3 and 6): a
+    # miss counts beyond the plain version with its fine depths from a float64 resample
+    d64 = [t.double() for t in (args[1], args[4], args[5], args[6])]
+    fz = ray_tile.plain_fine_depths([w.double() for w in args[0]], *d64, 0.5,
+                                    mm_dtype=torch.float64).float()
+    fw, dw = ray_tile.ray_tile_plain(*args, noise, fine_z=fz)
+    kern = (outside(fr, fp, tol) | outside(dr, dp, tol)).float().mean().item()
+    wit = (outside(fw, fp, tol) | outside(dw, dp, tol)).float().mean().item()
+    log(f"  rays outside the f32 tolerance: streamed #2r {kern:.2e}; plain with float64 fine "
+        f"depths {wit:.2e}")
+    if kern > max(MAX_OUTSIDE, wit):
+        raise AssertionError(f"#2r streamed: {kern:.2e} of rays outside, beyond the witness")
+    for name, x, y in zip(("rh", "ra", "rhc", "rac"), res, rp):
+        compare(f"  residual {name}", x, y, dict(rtol=tol["rtol"], atol=tol["atol"] * 20))
+    witness = ray_tile.ray_tile_bwd_plain(*args, noise, d_fea, d_dep, fine_z=fz)
+    wit_ge = max_grad_err(witness[0], ray_tile.ray_tile_bwd_plain(*args, noise, d_fea, d_dep)[0])
+    # bf16 residuals under noise of each path: depth 3 at these widths fits the resident
+    # layouts in bf16, so the resident bf16 kernel is the streamed one's witness
+    resq = {p: ray_tile.ray_tile_cuda(*args, noise, mm_dtype=bf16, with_residuals=True, path=p)[2]
+            for p in ("streamed", "resident")}
+    for mode, r, r0 in (("recompute", None, None), ("residual", res, res0)):
+        name = f"ray_tile_bwd_{mode}_streamed"
+        # f32 without noise, at the strict tolerance
+        g0, p0 = ray_tile.ray_tile_bwd_cuda(*args, 0.0, d_fea, d_dep, residuals=r0)
+        g0p, p0p = ray_tile.ray_tile_bwd_plain(*args, 0.0, d_fea, d_dep, residuals=r0)
+        e0, rays0 = max_grad_err(g0, g0p), rays_outside(p0, p0p, D_PTS_TOL["float32"])
+        log(f"  #3 {mode} streamed L=3 r64 b=4 x12 f32, no noise: grads normalised err {e0:.2e} "
+            f"(tol {BWD_TOL['float32']}), d pts rays outside {rays0:.2e} (bound {MAX_OUTSIDE})")
+        if e0 > BWD_TOL["float32"] or rays0 > MAX_OUTSIDE:
+            raise AssertionError(f"#3 {mode} streamed disagrees with the plain backward, no noise")
+        errs[name] = max((a - b).abs().max().item() for a, b in zip(g0, g0p))
+        # f32 under noise 0.5: a miss counts only if the float64-resample witness parts as well
+        # (phase 6), and then by at most WITNESS_RATIO x the witness
+        ga, pa = ray_tile.ray_tile_bwd_cuda(*args, noise, d_fea, d_dep, residuals=r)
+        ga2, pa2 = ray_tile.ray_tile_bwd_cuda(*args, noise, d_fea, d_dep, residuals=r)
+        gb, pb = ray_tile.ray_tile_bwd_plain(*args, noise, d_fea, d_dep, residuals=r)
+        e, out_rays = max_grad_err(ga, gb), rays_outside(pa, pb, D_PTS_TOL["float32"])
+        wit_rays = rays_outside(witness[1], pb, D_PTS_TOL["float32"])
+        bits = all(torch.equal(x, y) for x, y in zip(ga + [pa], ga2 + [pa2]))
+        log(f"  #3 {mode} streamed L=3 r64 b=4 x12 noise 0.5 f32: grads normalised err {e:.2e} "
+            f"(tol {BWD_TOL['float32']}), d pts rays outside {out_rays:.2e}; float64-resample "
+            f"witness: grads {wit_ge:.2e}, d pts rays {wit_rays:.2e}; two runs bit for bit: {bits}")
+        if (not held(e, BWD_TOL["float32"], wit_ge) or not held(out_rays, MAX_OUTSIDE, wit_rays)
+                or not bits):
+            raise AssertionError(f"#3 {mode} streamed disagrees with the plain backward or itself")
+        # bf16 under noise 0.5, each kernel on its own path's residuals and the plain version on
+        # the same ones (phase 6): the streamed kernel held to the resident one as witness
+        rq, rqr = (None, None) if r is None else (resq["streamed"], resq["resident"])
+        gq, _ = ray_tile.ray_tile_bwd_cuda(*args, noise, d_fea, d_dep, residuals=rq,
+                                           mm_dtype=bf16)
+        gqr, _ = ray_tile.ray_tile_bwd_cuda(*args, noise, d_fea, d_dep, residuals=rqr,
+                                            mm_dtype=bf16, path="resident")
+        eq = max_grad_err(gq, ray_tile.ray_tile_bwd_plain(*args, noise, d_fea, d_dep,
+                                                          residuals=rq, mm_dtype=bf16)[0])
+        wq = max_grad_err(gqr, ray_tile.ray_tile_bwd_plain(*args, noise, d_fea, d_dep,
+                                                           residuals=rqr, mm_dtype=bf16)[0])
+        log(f"  #3 {mode} bfloat16 L=3 r64 b=4 x12 noise 0.5: grads normalised err streamed "
+            f"{eq:.2e}, resident {wq:.2e} (tol {BWD_TOL['bfloat16']}); streamed vs resident "
+            f"{max_grad_err(gq, gqr):.2e}")
+        if not held(eq, BWD_TOL["bfloat16"], wq):
+            raise AssertionError(f"#3 {mode} streamed bf16 under noise: beyond the resident kernel")
+        # bf16 products without noise, each version on its own bf16 residuals; the control:
+        # the f32 kernel
+        rq = rqp = None
+        if r is not None:
+            rq = ray_tile.ray_tile_cuda(*args, 0.0, mm_dtype=bf16, with_residuals=True)[2]
+            rqp = ray_tile.ray_tile_plain(*args, 0.0, mm_dtype=bf16, with_residuals=True)[2]
+        gq, _ = ray_tile.ray_tile_bwd_cuda(*args, 0.0, d_fea, d_dep, residuals=rq, mm_dtype=bf16)
+        gqp, _ = ray_tile.ray_tile_bwd_plain(*args, 0.0, d_fea, d_dep, residuals=rqp,
+                                             mm_dtype=bf16)
+        eb, ctrl = max_grad_err(gq, gqp), max_grad_err(g0, gqp)
+        log(f"  #3 {mode} streamed bfloat16, no noise: grads normalised err {eb:.2e} (tol "
+            f"{BWD_TOL['bfloat16']}); CONTROL f32 kernel vs bf16 plain {ctrl:.2e} (must fail)")
+        if eb > BWD_TOL["bfloat16"] or ctrl <= BWD_TOL["bfloat16"]:
+            raise AssertionError(f"#3 {mode} streamed bf16: check or control failed")
+        del ga, ga2, gb, g0, g0p, gq, gqr, gqp, rq, rqr, rqp
+    times["ray_tile_residuals_streamed"] = cuda_ms(
+        [lambda: ray_tile.ray_tile_plain(*args, noise, with_residuals=True),
+         lambda: ray_tile.ray_tile_cuda(*args, noise, with_residuals=True)], reps=5)
+    times["ray_tile_bwd_residual_streamed"] = cuda_ms(
+        [lambda: ray_tile.ray_tile_bwd_plain(*args, noise, d_fea, d_dep, residuals=res),
+         lambda: ray_tile.ray_tile_bwd_cuda(*args, noise, d_fea, d_dep, residuals=res)], reps=5)
+    times["ray_tile_bwd_recompute_streamed"] = cuda_ms(
+        [lambda: ray_tile.ray_tile_bwd_plain(*args, noise, d_fea, d_dep),
+         lambda: ray_tile.ray_tile_bwd_cuda(*args, noise, d_fea, d_dep)], reps=5)
+    _, args2 = inputs(gen, 4, 64, 12, noise=0.5)
+    res2 = {p: ray_tile.ray_tile_cuda(*args2, noise, with_residuals=True, path=p)[2]
+            for p in ("resident", "streamed")}
+    for what, fn in (
+            ("#2r", lambda p: ray_tile.ray_tile_cuda(*args2, noise, with_residuals=True, path=p)),
+            ("#3 residual", lambda p: ray_tile.ray_tile_bwd_cuda(*args2, noise, d_fea, d_dep,
+                                                                 residuals=res2[p], path=p)),
+            ("#3 recompute", lambda p: ray_tile.ray_tile_bwd_cuda(*args2, noise, d_fea, d_dep,
+                                                                  path=p))):
+        t = cuda_ms([lambda: fn("resident"), lambda: fn("streamed")], reps=5)
+        times[f"{what} resident vs streamed"] = t
+        log(f"phase 20 time: {what} flagship L=2 r64 b=4 x12: resident {t[0]:.3f} ms, streamed "
+            f"{t[1]:.3f} ms [{smi}]")
+    for k in ("ray_tile_residuals_streamed", "ray_tile_bwd_residual_streamed",
+              "ray_tile_bwd_recompute_streamed"):
+        log(f"phase 20 time: {k} L=3 r64 b=4 x12 f32: streamed {times[k][1]:.3f} ms, plain "
+            f"{times[k][0]:.3f} ms [{smi}]")
+    del args, args2, res, res0, resq, res2, fr, fp, rp, fw, f0, f0p, witness
+
+    # ---- (a) #1 at D = 1024, r64 (the wide generator's decode)
+    gen_w = GeneratorNerfINR(serving_config(GeneratorConfig(nerf_hidden_dim=256,
+                                                            inr_hidden_dim=1024)),
+                             generator=torch.Generator().manual_seed(201))
+    gen_w.siren = NeRFNetwork(hidden_dim=256, hidden_layers=2, rgb_dim=32,
+                              style_dim=gen_w.cfg.nerf_style_dim, fast_sin=True,
+                              color_hidden_dim=256, generator=torch.Generator().manual_seed(202))
+    gen_w = gen_w.to(dev).eval()
+    with torch.no_grad():
+        st_w, _ = inputs(gen_w, 1, 8, 3)
+        weights, mods = inr_tile.extract_inr_weights(gen_w.inr_net, 9)
+        s_, d_ = inr_tile.compute_inr_mods(mods, st_w, 1024)
+        x = torch.randn((1, 4096, 32), generator=g, device=dev)
+        for scale in (1, 100):
+            w_s = weights._replace(wr=weights.wr * scale)
+            outs = {mm: inr_tile.inr_tile_cuda(x, s_, d_, w_s, mm_dtype=mm) for mm in (f32, bf16)}
+            plain = {mm: inr_tile.inr_tile_plain(x, s_, d_, w_s, mm_dtype=mm) for mm in (f32, bf16)}
+            case = f"inr_tile x{scale}"
+            e, _, _ = compare(f"inr_tile streamed D=1024 r64 ToRGB x{scale} float32", outs[f32],
+                              plain[f32], TOL[case, "float32"])
+            e_b = check_bf16(f"inr_tile streamed D=1024 r64 ToRGB x{scale} bfloat16", outs[bf16],
+                             plain[bf16], plain[f32], outs[f32], TOL[case, "bfloat16"])
+            if scale == 1:
+                errs["inr_tile_streamed"], errs["inr_tile_streamed bf16"] = e, e_b
+                if not torch.equal(outs[f32], inr_tile.inr_tile_cuda(x, s_, d_, w_s)):
+                    raise AssertionError("#1 streamed: two runs differ")
+        times["inr_tile_streamed"] = cuda_ms(
+            [lambda: inr_tile.inr_tile_plain(x, s_, d_, weights),
+             lambda: inr_tile.inr_tile_cuda(x, s_, d_, weights)], reps=5)
+        st1, _ = inputs(gen, 1, 8, 3)
+        w1, m1 = inr_tile.extract_inr_weights(gen.inr_net, 9)
+        s1, d1 = inr_tile.compute_inr_mods(m1, st1, 512)
+        x1 = torch.randn((1, 16384, 32), generator=g, device=dev)
+        a_, b_ = (inr_tile.inr_tile_cuda(x1, s1, d1, w1, path=p) for p in ("resident", "streamed"))
+        compare("inr_tile streamed vs resident D=512 r128 f32", b_, a_, TOL["inr_tile x1", "float32"])
+        for scale in (1, 100):   # and at D = 512, the width phase 3 checks the resident at
+            w_s = w1._replace(wr=w1.wr * scale)
+            outs = {mm: inr_tile.inr_tile_cuda(x1, s1, d1, w_s, mm_dtype=mm, path="streamed")
+                    for mm in (f32, bf16)}
+            plain = {mm: inr_tile.inr_tile_plain(x1, s1, d1, w_s, mm_dtype=mm) for mm in (f32, bf16)}
+            check_bf16(f"inr_tile streamed D=512 r128 ToRGB x{scale} bfloat16", outs[bf16],
+                       plain[bf16], plain[f32], outs[f32], TOL[f"inr_tile x{scale}", "bfloat16"])
+            res_b = inr_tile.inr_tile_cuda(x1, s1, d1, w_s, mm_dtype=bf16, path="resident")
+            log(f"  inr_tile D=512 x{scale} bfloat16: streamed bit for bit the resident: "
+                f"{torch.equal(res_b, outs[bf16])}; max abs difference "
+                f"{(res_b - outs[bf16]).abs().max().item():.3e}")
+        t = cuda_ms([lambda: inr_tile.inr_tile_cuda(x1, s1, d1, w1, path="resident"),
+                     lambda: inr_tile.inr_tile_cuda(x1, s1, d1, w1, path="streamed")], reps=5)
+        times["#1 resident vs streamed"] = t
+        log(f"phase 20 time: #1 D=1024 r64 f32: streamed {times['inr_tile_streamed'][1]:.3f} ms, "
+            f"plain {times['inr_tile_streamed'][0]:.3f} ms; D=512 r128: resident {t[0]:.3f} ms, "
+            f"streamed {t[1]:.3f} ms (bit for bit the same: {torch.equal(a_, b_)}) [{smi}]")
+        del x, x1, a_, b_, outs, plain
+    log(f"phase 20(a) done in {time.perf_counter() - t0:.1f} s")
+
+    # ---- (b) the main paths on the streamed kernels, from zeroed counts
+    counts = collections.Counter()
+    svc = RenderService(gen3, img_size=128, num_steps=SERVING_STEPS)
+    zero_kernel_counts()
+    frames = [svc.frame(seed=0), svc.frame(seed=1, yaw=math.pi / 2 + 0.3),
+              svc.frame(seed=1, depth=True)]
+    torch.cuda.synchronize()
+    got = kernel_counts()
+    if (any(f.shape != (128, 128, 3) or f.dtype != np.uint8 for f in frames)
+            or got["ray_tile_streamed"] <= 0 or got["inr_tile"] <= 0 or got["ray_tile"] != 0):
+        raise AssertionError(f"RenderService depth 3: {[f.shape for f in frames]}, launches {got}")
+    counts.update(got)
+    log(f"phase 20 serve: RenderService depth 3 r128 x{SERVING_STEPS}, {len(frames)} frames, "
+        f"launches {dict((k, v) for k, v in got.items() if v)}")
+    runs = {}
+    reqs = [(0, math.pi / 2), (1, math.pi / 2 + 0.3), (2, math.pi / 2 - 0.2)]
+    for dispatch in ("eager", "program"):
+        zero_kernel_counts()
+        runs[dispatch] = ([svc.render(seed, yaw, dispatch=dispatch) for seed, yaw in reqs],
+                          kernel_counts())
+    torch.cuda.synchronize()
+    exact, ok, share, dep = frames_agree(runs["program"][0], runs["eager"][0])
+    log(f"phase 20 serve: depth-3 frames, captured replays vs eager calls: {held_line(exact, ok)} "
+        f"(pixels outside {share:.2e}, depth {dep:.3e}); launches through the replays "
+        f"{dict((k, v) for k, v in runs['program'][1].items() if v)}")
+    if not exact or runs["program"][1] != runs["eager"][1]:
+        raise AssertionError("phase 20: the streamed path's replays differ from its eager calls")
+    counts.update(runs["program"][1])
+    svc.close()
+    gen3_cpu = copy.deepcopy(gen3).cpu()
+    frame_vs_cpu(gen3, gen3_cpu, dev, f"  depth-3 frame r128 x{SERVING_STEPS} vs plain CPU path",
+                 size=128, steps=SERVING_STEPS)
+    del gen3_cpu
+    tols = [STEP_TOL["loss_rtol"], STEP_TOL["grad"], STEP_TOL["grad"]] + [MAX_OUTSIDE] * 3
+    for label, cfg, want in (
+            ("exact sine, residual backward, NeRF depth 3",
+             GeneratorConfig(fused_ray=True, fused_ray_vjp="pallas_residual", nerf_hidden_layers=3),
+             ("ray_tile_residuals_streamed", "ray_tile_bwd_residual_streamed")),
+            ("polynomial sine, recompute backward, NeRF depth 3",
+             GeneratorConfig(fused_ray=True, fast_sin=True, nerf_hidden_layers=3),
+             ("ray_tile_streamed", "ray_tile_bwd_recompute_streamed"))):
+        zero_kernel_counts()
+        card, _ = step_vs_cpu(dev, log, 0.0, cfg=cfg, label=label)
+        got = kernel_counts()
+        if any(x > tol for x, tol in zip(card, tols)) or min(got[k] for k in want) <= 0:
+            raise AssertionError(f"phase 20 step ({label}): {card} against {tols}, launches {got}")
+        counts.update(got)
+        log(f"phase 20 train: {label}: launches {dict((k, v) for k, v in got.items() if v)}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    ckpt = f"{tmp}/train_r64/ckptdir/best_fid"
+    config = os.path.join(root, "configs/ffhq.yaml")
+    out = os.path.join(tmp, "streamed_multiview.png")
+    zero_kernel_counts()
+    rc = cli.main(["multiview", "--ckpt", ckpt, "--config", config, "--command", "train_r64",
+                   "--serving", "--num-steps", "48", "--seeds", "0", "--img-size", "64", "--out",
+                   out])
+    torch.cuda.synchronize()
+    got = kernel_counts()
+    shape = image_io.read_png(out).shape
+    if rc != 0 or shape != (64, 320, 3) or got["ray_tile_streamed"] <= 0 or got["inr_tile"] <= 0:
+        raise AssertionError(f"eval.cli multiview --num-steps 48: exit {rc}, grid {shape}, "
+                             f"launches {got}")
+    counts.update(got)
+    log(f"phase 20 cli: eval.cli multiview --serving --num-steps 48 (S = 96) --seeds 0 "
+        f"--img-size 64: grid {shape}, launches {dict((k, v) for k, v in got.items() if v)}")
+    gen_cfg = serving_config(cli.generator_config(config, "train_r64"))
+    mv = cli.load_generator(ckpt, gen_cfg, "G_ema", device=dev)
+    mv_cpu = copy.deepcopy(mv).cpu()
+    HostDraws = host_draws()
+    with torch.no_grad():   # the grid's last view (yaw offset 0.5)
+        grid = p_render.render_multiview(mv, None, seeds=[0], yaw_offsets=(0.5,), img_size=64,
+                                         num_steps=48, draws=HostDraws(dev))
+        ref = p_render.render_multiview(mv_cpu, None, seeds=[0], yaw_offsets=(0.5,),
+                                        img_size=64, num_steps=48, draws=HostDraws("cpu"))
+    err = np.abs(grid - ref)
+    share = (err > FRAME_ATOL).any(1).mean()
+    log(f"  multiview view r64 x96 vs plain CPU path: max_abs_err {err.max():.3e}; pixels "
+        f"outside atol {FRAME_ATOL}: {share:.2e}")
+    if not np.isfinite(grid).all() or share > MAX_OUTSIDE:
+        raise AssertionError("multiview at S = 96: the kernel path disagrees with the plain path")
+    del mv, mv_cpu
+    zero_kernel_counts()
+    frame_vs_cpu(gen_w, copy.deepcopy(gen_w).cpu(), dev,
+                 f"  wide generator (H 256, C 256, D 1024) frame r64 x{WIDE_STEPS} vs plain CPU "
+                 f"path", size=64, steps=WIDE_STEPS)
+    got = kernel_counts()
+    if got["ray_tile_streamed"] <= 0 or got["inr_tile_streamed"] <= 0 or got["inr_tile"] != 0:
+        raise AssertionError(f"wide generator: launches {got}")
+    counts.update(got)
+    log(f"phase 20 wide: launches {dict((k, v) for k, v in got.items() if v)}")
+    del gen_w, gen3
+
+    # ---- the summary line's entries
+    b_serve = serve_bound(SERVING_STEPS, F32_PEAK, widths=L3)
+    b_train = train_bounds("float32", widths=L3)
+    n_w = 64 * 64
+    b_inr = bound_ms(2 * n_w * (32 * 1024 + 17 * 1024 * 1024 + 6 * 1024 * 3),
+                     4 * n_w * (32 + 3) + 4 * (32 * 1024 + 17 * 1024 * 1024))
+    bounds = {"ray_tile_streamed": b_serve, "inr_tile_streamed": b_inr,
+              "ray_tile_residuals_streamed": b_train["ray_tile_residuals"],
+              "ray_tile_bwd_residual_streamed": b_train["ray_tile_bwd_residual"],
+              "ray_tile_bwd_recompute_streamed": b_train["ray_tile_bwd_recompute"]}
+    beside = {"ray_tile_streamed": "ray_tile resident vs streamed",
+              "ray_tile_residuals_streamed": "#2r resident vs streamed",
+              "ray_tile_bwd_residual_streamed": "#3 residual resident vs streamed",
+              "ray_tile_bwd_recompute_streamed": "#3 recompute resident vs streamed",
+              "inr_tile_streamed": "#1 resident vs streamed"}
+    for name in build.STREAMED:
+        inr = name == "inr_tile_streamed"
+        entries[name] = dict(
+            name=name, route="cuda",
+            source=("cips3d_tpu_torch/csrc/inr_tile_streamed.cu" if inr
+                    else "cips3d_tpu_torch/csrc/ray_tile_streamed.cu"),
+            replaces=("cips3d_tpu/ops/pallas/inr_tile.py:48" if inr else
+                      "cips3d_tpu/ops/pallas/ray_tile.py:421" if "bwd" in name else
+                      "cips3d_tpu/ops/pallas/ray_tile.py:137"),
+            launches=counts[name], max_abs_err=errs[name], ms=times[name][1],
+            plain_ms=times[name][0], bound_ms=bounds[name][0], bound_by=bounds[name][1],
+            library_ms=None, resident_ms_at_shared_shape=times[beside[name]][0],
+            streamed_ms_at_shared_shape=times[beside[name]][1],
+            **streamed_resources(name, ptxas, lib))
+    log(f"phase 20 done in {time.perf_counter() - t0:.1f} s [{smi}]")
+    return counts, list(entries.values())
 
 
 def main():
@@ -4357,6 +4842,10 @@ def main():
         slice_counts = last_slice_phase(dev, smi, log, tmp, gen)
         graphs.release()
         long_counts = long_ray_phase(dev, smi, log, tmp, gen, cpu_gen)
+        graphs.release()
+        stream_counts, stream_entries = streamed_phase(dev, smi, log, tmp, gen, cpu_gen,
+                                                       lib_path)
+        graphs.release()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4370,7 +4859,7 @@ def main():
     for k in ("ray_tile", "inr_tile"):
         launches[k] += (apps[k] + data_counts[k] + dist_counts[k] + ckpt_counts[k]
                         + bench_counts.get(k, 0) + chunk_counts[k] + render_counts[k]
-                        + slice_counts[k] + long_counts[k])
+                        + slice_counts[k] + long_counts[k] + stream_counts[k])
     for e in train:
         e["launches"] += (apps[e["name"]] + bench_counts.get(e["name"], 0)
                           + chunk_counts[e["name"]] + render_counts[e["name"]])
@@ -4406,6 +4895,7 @@ def main():
         e.update(bf16_launches=bench_counts.get(k, 0), bf16_ms=bf16_t[k][1],
                  bf16_plain_ms=bf16_t[k][0], bf16_max_abs_err=bf16_err[k + " bfloat16"],
                  bf16_bound_ms=bf16_bounds[k][0], bf16_bound_by=bf16_bounds[k][1])
+    kernels += stream_entries   # f32 at phase 20's shapes; the benches take no streamed kernel
     log(nvidia_smi())   # the card's name and power limit, as nvidia-smi prints them
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

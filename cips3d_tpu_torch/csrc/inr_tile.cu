@@ -442,3 +442,10 @@ extern "C" int cips_inr_tile_occupancy(int D, int mm_bf16, int* out) {
                  : cips::occupancy(inr_tile_kernel<float>, kThreads,
                                    InrLayout::make<float>().total, out);
 }
+
+// Dynamic shared memory (bytes) of the resident kernel, the same at every D
+// up to 512.
+extern "C" long long cips_inr_tile_smem(int mm_bf16) {
+  return (long long)(mm_bf16 ? InrLayout::make<__nv_bfloat16>().total
+                             : InrLayout::make<float>().total);
+}

@@ -231,7 +231,7 @@ __global__ void __launch_bounds__(kThreads, 1) ray_tile_kernel(RayArgs a) {
 
 template <typename T, bool kRes>
 int launch(const RayArgs& a, cudaStream_t stream) {
-  if (a.S < 3 || a.S > cips_ray::kMaxSteps) return (int)cudaErrorInvalidValue;
+  if (a.S < 2 || a.S > cips_ray::kMaxSteps) return (int)cudaErrorInvalidValue;
   const RayLayout lay = RayLayout::make<T>(a);
   const cudaError_t err = cips::raise_smem(ray_tile_kernel<T, kRes>, lay.total);
   if (err != cudaSuccess) return (int)err;
@@ -250,7 +250,7 @@ extern "C" int cips_ray_tile_max_steps() { return cips_ray::kMaxSteps; }
 // Shapes as in RayArgs; rh, ra, rhc, rac are all null (no residuals) or
 // all set.  noise is the density-noise scale, one f32 on the device (null
 // without flags bit 0, and read only with it).  rgb is (grid, kRays, 2S, R) f32 scratch.  The wrapper checks S
-// in [3, kMaxSteps], pads H, C, R to multiples of 16 (up to 128), and pads
+// in [2, kMaxSteps], pads H, C, R to multiples of 16 (up to 128), and pads
 // pbuf and the films rows to 16-byte multiples.  Returns the CUDA error of the launch (0
 // on success).
 extern "C" int cips_ray_tile_forward(
@@ -314,4 +314,16 @@ extern "C" int cips_ray_tile_forward_occupancy(int S, int L, int H, int C, int R
   const size_t sm = RayLayout::make<float>(a).total;
   return res ? cips::occupancy(ray_tile_kernel<float, true>, kThreads, sm, out)
              : cips::occupancy(ray_tile_kernel<float, false>, kThreads, sm, out);
+}
+
+// Dynamic shared memory (bytes) of the resident forward at these widths
+// (flags bit 2: bf16), without asking the device: the wrapper picks the
+// resident or the streamed path from it before any launch.
+extern "C" long long cips_ray_tile_forward_smem(int S, int L, int H, int C, int R, int flags) {
+  RayArgs a = {};
+  a.S = S; a.L = L; a.H = H; a.C = C; a.R = R;
+  a.np = L * H + C + R + 4;
+  a.nfilm = 2 * L * H + 2 * C;
+  return (long long)((flags >> 2) & 1 ? RayLayout::make<__nv_bfloat16>(a).total
+                                      : RayLayout::make<float>(a).total);
 }

@@ -45,6 +45,20 @@ _SIGNATURES = {
     "cips_inr_tile_forward": [_P] * 9 + [_I] * 7 + [_P],
     "cips_inr_tile_pixels": [],
     "cips_inr_tile_occupancy": [_I, _I, _P],
+    # the streamed paths (shapes past the resident kernels' shared memory)
+    "cips_ray_tile_forward_streamed": [_P] * 22 + [_I] * 8 + [_F] + [_I] * 4 + [_P],
+    "cips_ray_tile_backward_streamed": [_P] * 28 + [_I] * 10 + [_F] + [_I] * 4 + [_P],
+    "cips_ray_tile_streamed_ray_rows": [],
+    "cips_ray_tile_streamed_smem": [_I],
+    "cips_inr_tile_forward_streamed": [_P] * 11 + [_I] * 6 + [_P],
+    "cips_inr_tile_streamed_smem": [_I],
+    "cips_smem_optin": [_P],
+}
+# byte counts of the resident layouts (long long)
+_SIGNATURES_LL = {
+    "cips_ray_tile_forward_smem": [_I] * 6,
+    "cips_ray_tile_backward_smem": [_I] * 6,
+    "cips_inr_tile_smem": [_I],
 }
 
 
@@ -113,10 +127,12 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+            for table, restype in ((_SIGNATURES, ctypes.c_int),
+                                   (_SIGNATURES_LL, ctypes.c_longlong)):
+                for name, argtypes in table.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = restype
             lib.cips_error_string.argtypes = [ctypes.c_int]
             lib.cips_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -130,10 +146,44 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
                            f"({lib.cips_error_string(err).decode()})")
 
 
+# The path a kernel wrapper takes: the resident kernel where the shape fits, the streamed one
+# elsewhere ("auto"), or one of them forced
+PATHS = ("auto", "resident", "streamed")
+
+
+def check_path(path: str) -> str:
+    if path not in PATHS:
+        raise ValueError(f"path must be one of {PATHS}, got {path!r}")
+    return path
+
+
+_OPTIN = {}
+
+
+def smem_optin(dev) -> int:
+    """The device's opt-in shared memory a block (bytes), from the CUDA
+    runtime through the kernel library."""
+    import torch
+
+    dev = torch.device(dev)
+    key = dev.index if dev.index is not None else torch.cuda.current_device()
+    if key not in _OPTIN:
+        lib = library()
+        out = ctypes.c_int(0)
+        with torch.cuda.device(key):
+            check(lib, lib.cips_smem_optin(ctypes.byref(out)), "shared memory query")
+        _OPTIN[key] = out.value
+    return _OPTIN[key]
+
+
 # Every kernel launch, counted by the wrapper that launches it: {(kernel, product dtype): n}
-# since the last `reset_launches`.  The kernels: #2, #2r, #3 recompute, #3 residual, #1.
-KERNELS = ("ray_tile", "ray_tile_residuals", "ray_tile_bwd_recompute", "ray_tile_bwd_residual",
-           "inr_tile")
+# since the last `reset_launches`.  The kernels: #2, #2r, #3 recompute, #3 residual, #1,
+# each on its resident path, then each on its streamed path (`STREAMED`: a wrapper call
+# that runs the streamed sequence of launches counts once).
+RESIDENT = ("ray_tile", "ray_tile_residuals", "ray_tile_bwd_recompute", "ray_tile_bwd_residual",
+            "inr_tile")
+STREAMED = tuple(k + "_streamed" for k in RESIDENT)
+KERNELS = RESIDENT + STREAMED
 LAUNCHES = {}
 
 

@@ -11,7 +11,11 @@ so ``s`` and ``demod`` are (b, dim) vectors computed outside the kernel
 matmuls with leaky-ReLU, the residual from block 4, ToRGB accumulation
 from block 3 and a final tanh.  Two versions of that decode:
   * `inr_tile_plain`, CIPSNet's math in PyTorch ops on the extracted weights;
-  * `inr_tile_cuda`, the hand-written kernel of `csrc/inr_tile.cu`.
+  * `inr_tile_cuda`, hand-written CUDA on one of two paths chosen on the host
+    before the launch (`inr_path`): the resident kernel of `csrc/inr_tile.cu`
+    (64 pixels x D activations in shared memory) up to D = MAX_WIDTH, the
+    streamed one of `csrc/inr_tile_streamed.cu` (layer by layer over device
+    memory, shared memory the same at every D) past it.
 `inr_tile` runs the plain version for CPU tensors and the kernel for CUDA
 tensors; a failed build or launch raises.  Forward only: the G phase
 decodes through `CIPSNet` under autograd.
@@ -28,10 +32,11 @@ import torch.nn.functional as F
 from cips3d_tpu_torch.models.cips_net import CIPS_RESOLUTIONS, FIRST_RGB, FIRST_SKIP
 from cips3d_tpu_torch.ops import build
 
-MAX_WIDTH = 512    # the kernel's 16 warps x 32 channels cover hidden widths up to 512 ...
+MAX_WIDTH = 512    # the resident kernel's 16 warps x 32 channels cover widths up to 512 (its
+                   # shared memory, `cips_inr_tile_smem`, is sized for that at every D) ...
 WIDTH_STEP = 64    # ... in multiples of 64, and input widths in multiples of IN_STEP: the
-IN_STEP = 16       # wrapper zero-pads the rest
-TILE_PIXELS = 64   # pixels per tile of the kernel (`kPix` of csrc/inr_tile.cu)
+IN_STEP = 16       # wrapper zero-pads the rest (the streamed path's too)
+TILE_PIXELS = 64   # pixels per tile of the resident kernel (`kPix` of csrc/inr_tile.cu)
 
 
 class InrWeights(NamedTuple):
@@ -142,18 +147,27 @@ def scratch_shape(grid: int, D: int) -> Tuple[int, int, int]:
     return (grid, TILE_PIXELS, D)
 
 
+def inr_path(D: int) -> str:
+    """The path #1 takes at width D (a multiple of WIDTH_STEP): "resident"
+    up to MAX_WIDTH, else "streamed"."""
+    return "resident" if D <= MAX_WIDTH else "streamed"
+
+
 def inr_tile_cuda(x: torch.Tensor, s: torch.Tensor, d: torch.Tensor, weights: InrWeights,
-                  mm_dtype=torch.float32) -> torch.Tensor:
-    """The CUDA kernel (`csrc/inr_tile.cu`); same arguments and result as
-    `inr_tile_plain`.  Widths off the kernel's tiling run zero-padded
-    (`pad_widths`).  Raises if the library cannot be built or the launch
-    fails; never falls back to the plain version."""
+                  mm_dtype=torch.float32, path: str = "auto") -> torch.Tensor:
+    """The CUDA kernels, on the resident path (`csrc/inr_tile.cu`) or the
+    streamed one (`csrc/inr_tile_streamed.cu`) as ``path`` says ("auto":
+    `inr_path`'s choice; "resident" raises where it does not take D); same
+    arguments and result as `inr_tile_plain`.  Widths off the kernels'
+    tiling run zero-padded (`pad_widths`).  Raises if the library cannot be
+    built or a launch fails; never falls back to the plain version."""
+    build.check_path(path)
     b, n, in0 = x.shape
     L, D = s.shape[1], s.shape[2]
     n_blocks = L // 2
-    if D > MAX_WIDTH or in0 > D or n_blocks <= FIRST_RGB:
-        raise ValueError(f"unsupported shape: D={D} (<= {MAX_WIDTH}), in0={in0} (<= D), "
-                         f"n_blocks={n_blocks} (> {FIRST_RGB})")
+    if in0 > D or n_blocks <= FIRST_RGB:
+        raise ValueError(f"unsupported shape: in0={in0} (<= D={D}), n_blocks={n_blocks} "
+                         f"(> {FIRST_RGB}), as fused_inr_decode")
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"inr_tile_cuda needs CUDA tensors, got {dev}")
@@ -169,25 +183,39 @@ def inr_tile_cuda(x: torch.Tensor, s: torch.Tensor, d: torch.Tensor, weights: In
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
     x, s, d, weights = pad_widths(x, s, d, weights)
     in0, D = x.shape[-1], s.shape[-1]
+    fits = inr_path(D) == "resident"
+    if path == "resident" and not fits:
+        raise ValueError(f"path='resident': the resident INR kernel does not take D={D} "
+                         f"(up to {MAX_WIDTH})")
+    streamed = path == "streamed" or not fits
     x, s, d = x.contiguous(), s.contiguous(), d.contiguous()
     w0 = weights.w0.to(mm_dtype).contiguous()
     wrest = weights.wrest.to(mm_dtype).contiguous()
     wr = weights.wr.to(mm_dtype).contiguous()
     br = weights.br.contiguous()
     lib = build.library()
-    if lib.cips_inr_tile_pixels() != TILE_PIXELS:
-        raise RuntimeError("the kernel library's tile is not TILE_PIXELS")
-    grid = forward_grid(b, n, torch.cuda.get_device_properties(dev).multi_processor_count)
     out = torch.empty((b, n, 3), dtype=torch.float32, device=dev)
-    scratch = torch.empty(scratch_shape(grid, D), dtype=torch.float32, device=dev)
+    bf16 = int(mm_dtype == torch.bfloat16)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.cips_inr_tile_forward(
-            x.data_ptr(), s.data_ptr(), d.data_ptr(), w0.data_ptr(), wrest.data_ptr(),
-            wr.data_ptr(), br.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-            b, n, in0, D, n_blocks, int(mm_dtype == torch.bfloat16), grid, stream)
-    build.check(lib, err, "inr_tile")
-    build.count_launch("inr_tile", mm_dtype)
+        if streamed:   # two activation planes and the ToRGB sums, from the caching allocator
+            planes = torch.empty((2, b, n, D), dtype=torch.float32, device=dev)
+            rgb = torch.empty((b, n, 3), dtype=torch.float32, device=dev)
+            err = lib.cips_inr_tile_forward_streamed(
+                x.data_ptr(), s.data_ptr(), d.data_ptr(), w0.data_ptr(), wrest.data_ptr(),
+                wr.data_ptr(), br.data_ptr(), out.data_ptr(), planes[0].data_ptr(),
+                planes[1].data_ptr(), rgb.data_ptr(), b, n, in0, D, n_blocks, bf16, stream)
+        else:
+            if lib.cips_inr_tile_pixels() != TILE_PIXELS:
+                raise RuntimeError("the kernel library's tile is not TILE_PIXELS")
+            grid = forward_grid(b, n, torch.cuda.get_device_properties(dev).multi_processor_count)
+            scratch = torch.empty(scratch_shape(grid, D), dtype=torch.float32, device=dev)
+            err = lib.cips_inr_tile_forward(
+                x.data_ptr(), s.data_ptr(), d.data_ptr(), w0.data_ptr(), wrest.data_ptr(),
+                wr.data_ptr(), br.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                b, n, in0, D, n_blocks, bf16, grid, stream)
+    build.check(lib, err, "inr_tile" + (" (streamed)" if streamed else ""))
+    build.count_launch("inr_tile_streamed" if streamed else "inr_tile", mm_dtype)
     return out
 
 

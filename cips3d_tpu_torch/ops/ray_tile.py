@@ -9,13 +9,19 @@ and its custom VJP):
 
 Two versions of each function over the same inputs:
   * forward: `ray_tile_plain` (PyTorch ops, ported from the Pallas module's
-    `_jnp_core`) and `ray_tile_cuda` (`csrc/ray_tile.cu`), both optionally
-    with the residuals of the residual-mode backward;
+    `_jnp_core`) and `ray_tile_cuda`, both optionally with the residuals of
+    the residual-mode backward;
   * backward: `ray_tile_bwd_plain` (a mirror of the Pallas backward's
-    stages) and `ray_tile_bwd_cuda` (`csrc/ray_tile_bwd.cu`), each in
-    recompute or residual mode.
+    stages) and `ray_tile_bwd_cuda`, each in recompute or residual mode.
+The CUDA versions take every shape the Pallas kernels take, on one of two
+paths chosen on the host before any launch (`ray_path`): the resident
+kernels (`csrc/ray_tile.cu`, `csrc/ray_tile_bwd.cu`: the SIREN's weights
+and the rays' samples in shared memory) where their layout fits the
+device's shared memory, and the streamed path (`csrc/ray_tile_streamed.cu`:
+layer by layer over device memory, shared memory the same at every shape)
+elsewhere.  A backward reads residuals only of its own path.
 `ray_tile` and `ray_tile_bwd` run the plain version for tensors on the CPU
-and the kernel for tensors on a CUDA device; a failed build or launch
+and the kernels for tensors on a CUDA device; a failed build or launch
 raises.  `RayTileFunction` puts them under autograd.
 
 The random draws (importance-sample uniforms ``u``, density noise ``nc`` and
@@ -32,6 +38,7 @@ bf16) with f32 accumulation; sines and all depth/CDF/compositing math in f32.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -41,12 +48,18 @@ from cips3d_tpu_torch.ops import build
 from cips3d_tpu_torch.ops.fast_sin import fast_sin as _fast_sin
 from cips3d_tpu_torch.ops.fast_sin import fast_sin_grad
 
+MIN_STEPS = 2      # fused_ray_render's fewest samples a ray (JAX raises at 1)
+# The resident kernels' limits; past any of them the streamed path runs.
 MAX_STEPS = 64     # a warp holds a ray, 2S / 32 samples a lane (`kMaxSteps` of csrc/ray_tile.cuh)
-MAX_WIDTH = 128    # the kernels' weight tiles hold layer widths up to 128 ...
-WIDTH_STEP = 16    # ... in multiples of 16 (one bf16 k-step): the wrappers zero-pad the rest
+MAX_WIDTH = 128    # the weight tiles hold layer widths up to 128 ...
+MAX_JOBS = 8       # ... and the weight-grad kernel L + 3 products
+WIDTH_STEP = 16    # widths in multiples of 16 (one bf16 k-step): the wrappers zero-pad the rest
 BLOCK_RAYS = 16    # rays per block of the forward and of the backward's cotangent kernel
-SPLIT_ROWS = 2048  # points per block of the backward's weight-grad kernel (a multiple of 32)
+SPLIT_ROWS = 2048  # points per block of the backward's weight-grad kernels (a multiple of 32)
 POINT_WIDTH = 8    # row of the backward's point scratch (3 used)
+STREAM_ROWS = 64   # points per block of the streamed path's products
+RAY_ROWS = 14      # rows of 2S floats of device scratch a ray of the streamed path takes
+SMEM_OPTIN = 232448   # an H100's opt-in shared memory a block (bytes); the card's own is read
 
 
 class RayDraws(NamedTuple):
@@ -533,13 +546,78 @@ def unpad_residuals(res, w: Widths):
     return by_layer(rh), by_layer(ra), rhc[..., :w.C].contiguous(), rac[..., :w.C].contiguous()
 
 
+def _align16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def resident_smem(S: int, L: int, H: int, C: int, R: int,
+                  mm_dtype=torch.float32) -> Tuple[int, int]:
+    """Dynamic shared memory (bytes) of the resident forward and of the
+    resident cotangent kernel at these widths (multiples of WIDTH_STEP):
+    a mirror of `csrc/ray_tile.cu`'s `RayLayout` and
+    `csrc/ray_tile_bwd.cu`'s `CotLayout`, for the CPU, where no library
+    is built; on the card the choice reads the library's own count
+    (`library_smem`), which the `gpu` tests hold this mirror to."""
+    t = 2 if mm_dtype == torch.bfloat16 else 4
+    wld = lambda N: N + 16 // t
+    weights = t * (16 * wld(H) + (L - 1) * H * wld(H) + H * wld(C) + C * wld(R) + H)
+    head = [weights, 4 * (L * H + C + R + 4), 4 * (2 * L * H + 2 * C)]
+    rays = [4 * BLOCK_RAYS * 2 * S] * 5   # zall, sall, t1, t2, rank
+    fwd = head + [4 * 64 * 20, 4 * 64 * (max(H, C) + 4), 4 * 64] + rays + [4 * BLOCK_RAYS * 8]
+    cot = (head + [4 * 64 * (max(H, C, R) + 4), 4 * 64, 4 * 4 * 3 * (L * H + C), 4 * (R + 1)]
+           + rays + [4 * BLOCK_RAYS * 2 * S, 4 * BLOCK_RAYS * 8, 4 * BLOCK_RAYS * R,
+                     4 * BLOCK_RAYS])
+    return sum(map(_align16, fwd)), sum(map(_align16, cot))
+
+
+def library_smem(S: int, L: int, H: int, C: int, R: int,
+                 mm_dtype=torch.float32) -> Tuple[int, int]:
+    """`resident_smem` as the kernel library counts it
+    (`cips_ray_tile_forward_smem`, `cips_ray_tile_backward_smem`)."""
+    lib = build.library()
+    flags = int(mm_dtype == torch.bfloat16) << 2
+    return (lib.cips_ray_tile_forward_smem(S, L, H, C, R, flags),
+            lib.cips_ray_tile_backward_smem(S, L, H, C, R, flags))
+
+
+def ray_path(S: int, L: int, H: int, C: int, R: int, mm_dtype=torch.float32,
+             smem_limit: int = SMEM_OPTIN, layout_smem=resident_smem) -> str:
+    """The path #2, #2r and #3 take at these widths (multiples of
+    WIDTH_STEP): "resident" where the resident kernels' limits hold and
+    both their layouts (``layout_smem``'s bytes) fit ``smem_limit``, else
+    "streamed".  One choice for the forward and the backward, so a backward
+    always reads residuals of its own path."""
+    if S > MAX_STEPS or max(H, C, R) > MAX_WIDTH or L + 3 > MAX_JOBS:
+        return "streamed"
+    return "resident" if max(layout_smem(S, L, H, C, R, mm_dtype)) <= smem_limit else "streamed"
+
+
+def resolve_path(path: str, S: int, w: "Widths", mm_dtype, dev) -> str:
+    """``path`` ("auto", "resident" or "streamed") made definite for CUDA
+    tensors on ``dev`` at S and widths ``w``: "auto" takes `ray_path`'s
+    choice from the library's layouts against the device's shared memory;
+    "resident" raises where the resident kernels do not take the shape."""
+    build.check_path(path)
+    limit = build.smem_optin(dev)
+    dims = (S, w.L, w.Hp, w.Cp, w.Rp)
+    fits = ray_path(*dims, mm_dtype, limit, library_smem) == "resident"
+    if path == "resident" and not fits:
+        raise ValueError(f"path='resident': the resident kernels do not take S={S}, L={w.L}, "
+                         f"H={w.Hp}, C={w.Cp}, R={w.Rp} in {str(mm_dtype)[6:]} "
+                         f"(layouts {library_smem(*dims, mm_dtype)} bytes, limit {limit})")
+    if path == "auto":
+        return "resident" if fits else "streamed"
+    return path
+
+
 def _check(name, wt, pts, org, dirs, z, u, nc, nf, clamp_mode, mm_dtype, extra=()):
     """Shapes, dtypes and devices the kernels take; returns `widths`."""
-    w = widths(wt)
     b, n, S, _ = pts.shape
-    if not 3 <= S <= MAX_STEPS or max(w.H, w.C, w.R) > MAX_WIDTH or w.L < 1:
-        raise ValueError(f"unsupported shape: S={S} (3..{MAX_STEPS}), H={w.H}, C={w.C}, "
-                         f"R={w.R} (up to {MAX_WIDTH}), L={w.L}")
+    L = (len(wt) - 8) // 4
+    if S < MIN_STEPS or L < 1:
+        raise ValueError(f"unsupported shape: S={S} (at least {MIN_STEPS}), L={L} "
+                         f"(at least 1), as fused_ray_render")
+    w = widths(wt)
     dev = pts.device
     if dev.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got {dev}")
@@ -623,36 +701,82 @@ def _launch_forward(lib, inputs, packed, dims, noise_std, res, *, clamp_mode, wh
     return fea, depth
 
 
+def _launch_forward_streamed(lib, inputs, packed, dims, noise_std, res, *, clamp_mode,
+                             white_back, last_back, fast_sin, mm_dtype, warp_scale, out_dtype):
+    """The streamed forward (`csrc/ray_tile_streamed.cu`), arguments as
+    `_launch_forward`'s; its scratch comes from the caching allocator on the
+    current stream, so a CUDA graph captures it as it does the resident
+    path's."""
+    b, n, S, L, H, C, R = dims
+    wbuf, pbuf, films = packed
+    dev = inputs[0].device
+    if lib.cips_ray_tile_streamed_ray_rows() != RAY_ROWS:
+        raise RuntimeError("the kernel library's ray scratch is not RAY_ROWS")
+    fea = torch.empty((b, n, R), dtype=out_dtype, device=dev)
+    depth = torch.empty((b, n, 1), dtype=torch.float32, device=dev)
+    xs = torch.empty((b, 2, n, S, POINT_WIDTH), dtype=mm_dtype, device=dev)
+    hbuf = None if res else torch.empty((2, b * n * S, max(H, C)), dtype=mm_dtype, device=dev)
+    sig = torch.empty((b, 2, n, S), dtype=torch.float32, device=dev)
+    rgb = torch.empty((b, 2, n, S, R), dtype=torch.float32, device=dev)
+    rows = torch.empty((b * n, RAY_ROWS, 2 * S), dtype=torch.float32, device=dev)
+    res_ptrs = [t.data_ptr() for t in res] if res else [None] * 4
+    noise = noise_operand(noise_std, dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.cips_ray_tile_forward_streamed(
+            *(t.data_ptr() for t in inputs), _ptr(noise), wbuf.data_ptr(), pbuf.data_ptr(),
+            films.data_ptr(), fea.data_ptr(), depth.data_ptr(), *res_ptrs, xs.data_ptr(),
+            _ptr(hbuf), sig.data_ptr(), rgb.data_ptr(), rows.data_ptr(), b, n, S, L, H, C, R,
+            films.shape[1], float(warp_scale), int(clamp_mode == "softplus"), int(white_back),
+            int(last_back), _flags(noise_std, fast_sin, mm_dtype, out_dtype), stream)
+    build.check(lib, err, "ray_tile (streamed)")
+    return fea, depth
+
+
+def ray_path_of(wt, pts, mm_dtype=torch.float32) -> Optional[str]:
+    """The path #2, #2r and #3 take for these weights and points on the
+    card (`resolve_path` of "auto"); None on the CPU, where the plain
+    versions run."""
+    if pts.device.type != "cuda":
+        return None
+    return resolve_path("auto", pts.shape[2], widths(wt), mm_dtype, pts.device)
+
+
 def ray_tile_cuda(
     wt, pts, org, dirs, z, u, nc, nf, noise_std=0.0, *,
     clamp_mode: str = "relu", white_back: bool = False, last_back: bool = False,
     fast_sin: bool = False, mm_dtype=torch.float32, warp_scale: float = 2.0 / 0.24,
-    out_dtype=torch.float32, with_residuals: bool = False,
+    out_dtype=torch.float32, with_residuals: bool = False, path: str = "auto",
 ):
-    """The CUDA kernel (`csrc/ray_tile.cu`); same arguments and results as
-    `ray_tile_plain` (residuals in its layout).  Widths off the kernel's
-    16-wide tiling run zero-padded (`pad_weights`) and come back cut to
-    size.  Raises if the library cannot be built or the launch fails; never
-    falls back to the plain version."""
+    """The CUDA kernels, on the resident path (`csrc/ray_tile.cu`) or the
+    streamed one (`csrc/ray_tile_streamed.cu`) as ``path`` says ("auto":
+    `ray_path`'s choice); same arguments and results as `ray_tile_plain`
+    (residuals in its layout).  Widths off the kernels' 16-wide tiling run
+    zero-padded (`pad_weights`) and come back cut to size.  Raises if the
+    library cannot be built or a launch fails; never falls back to the
+    plain version."""
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out dtype must be float32 or bfloat16, got {out_dtype}")
+    build.check_path(path)
     w = _check("ray_tile_cuda", wt, pts, org, dirs, z, u, nc, nf, clamp_mode, mm_dtype)
     b, n, S, _ = pts.shape
+    streamed = resolve_path(path, S, w, mm_dtype, pts.device) == "streamed"
     inputs = [t.contiguous() for t in (pts, org, dirs, z, u, nc, nf)]
     res = ([torch.empty(shape, dtype=dt, device=pts.device)
             for shape, dt in _residual_shapes(b, n, S, w.L, w.Hp, w.Cp, mm_dtype).values()]
            if with_residuals else [])
-    fea, depth = _launch_forward(
+    fea, depth = (_launch_forward_streamed if streamed else _launch_forward)(
         build.library(), inputs, _pack(pad_weights(wt, w), b, mm_dtype),
         (b, n, S, w.L, w.Hp, w.Cp, w.Rp), noise_std, res, clamp_mode=clamp_mode,
         white_back=white_back, last_back=last_back, fast_sin=fast_sin, mm_dtype=mm_dtype,
         warp_scale=warp_scale, out_dtype=out_dtype)
     if w.padded:
         fea = fea[..., :w.R].contiguous()
+    suffix = "_streamed" if streamed else ""
     if with_residuals:
-        build.count_launch("ray_tile_residuals", mm_dtype)
+        build.count_launch("ray_tile_residuals" + suffix, mm_dtype)
         return fea, depth, unpad_residuals(res, w)
-    build.count_launch("ray_tile", mm_dtype)
+    build.count_launch("ray_tile" + suffix, mm_dtype)
     return fea, depth
 
 
@@ -683,24 +807,31 @@ def ray_tile_bwd_cuda(
     wt, pts, org, dirs, z, u, nc, nf, noise_std, d_fea, d_dep, *,
     residuals=None, clamp_mode: str = "relu", white_back: bool = False,
     last_back: bool = False, fast_sin: bool = False, mm_dtype=torch.float32,
-    warp_scale: float = 2.0 / 0.24,
+    warp_scale: float = 2.0 / 0.24, path: str = "auto",
 ) -> Tuple[List[torch.Tensor], torch.Tensor]:
-    """The backward kernels (`csrc/ray_tile_bwd.cu`), recompute mode without
-    ``residuals`` (the forward kernel runs again with residuals into
-    scratch), residual mode with them; same arguments and results as
-    `ray_tile_bwd_plain`.  Deterministic: a fixed split (`bwd_plan`) summed
-    in a fixed order.  Widths off the tiling run zero-padded, as the
-    forward's.  Raises on a failed build or launch."""
+    """The backward kernels on the resident path (`csrc/ray_tile_bwd.cu`)
+    or the streamed one (`csrc/ray_tile_streamed.cu`) as ``path`` says
+    (residuals must come from a forward on the same path: "auto" chooses as
+    the forward does); recompute mode without ``residuals`` (the forward of
+    that path runs again with residuals into scratch), residual mode with
+    them; same arguments and results as `ray_tile_bwd_plain`.
+    Deterministic: fixed splits summed in a fixed order.  Widths off the
+    tiling run zero-padded, as the forward's.  Raises on a failed build or
+    launch."""
+    build.check_path(path)
     b, n, S, _ = pts.shape
-    w = widths(wt)
-    extra = [("d_fea", (d_fea, (b, n, w.R), torch.float32)),
-             ("d_dep", (d_dep, (b, n, 1), torch.float32))]
-    if residuals is not None:
-        extra += [(k, (t, shape, dt)) for (k, (shape, dt)), t in
-                  zip(_residual_shapes(b, n, S, w.L, w.H, w.C, mm_dtype).items(), residuals)]
-    _check("ray_tile_bwd_cuda", wt, pts, org, dirs, z, u, nc, nf, clamp_mode, mm_dtype, extra)
+    extra = []
+    if (len(wt) - 8) // 4 >= 1:   # else `_check` raises, as fused_ray_render does
+        w = widths(wt)
+        extra = [("d_fea", (d_fea, (b, n, w.R), torch.float32)),
+                 ("d_dep", (d_dep, (b, n, 1), torch.float32))]
+        if residuals is not None:
+            extra += [(k, (t, shape, dt)) for (k, (shape, dt)), t in
+                      zip(_residual_shapes(b, n, S, w.L, w.H, w.C, mm_dtype).items(), residuals)]
+    w = _check("ray_tile_bwd_cuda", wt, pts, org, dirs, z, u, nc, nf, clamp_mode, mm_dtype, extra)
     L, H, C, R = w.L, w.Hp, w.Cp, w.Rp
     dev = pts.device
+    streamed = resolve_path(path, S, w, mm_dtype, dev) == "streamed"
     inputs = [t.contiguous() for t in (pts, org, dirs, z, u, nc, nf)]
     if w.padded:
         d_fea = F.pad(d_fea, (0, R - w.R))
@@ -714,37 +845,53 @@ def ray_tile_bwd_cuda(
         raise RuntimeError("the kernel library's cotangent row is not bwd_plan's")
     opts = dict(clamp_mode=clamp_mode, white_back=white_back, last_back=last_back,
                 fast_sin=fast_sin, mm_dtype=mm_dtype, warp_scale=warp_scale)
-    if residuals is None:   # recompute mode: the MLP states from the forward kernel, again
+    if residuals is None:   # recompute mode: the MLP states from the forward of the path, again
         res = [torch.empty(shape, dtype=dt, device=dev)
                for shape, dt in _residual_shapes(b, n, S, L, H, C, mm_dtype).values()]
-        _launch_forward(lib, inputs, packed, (b, n, S, L, H, C, R), noise_std, res,
-                        out_dtype=torch.float32, **opts)
+        (_launch_forward_streamed if streamed else _launch_forward)(
+            lib, inputs, packed, (b, n, S, L, H, C, R), noise_std, res, out_dtype=torch.float32,
+            **opts)
     else:
         res = [t.contiguous() for t in pad_residuals(residuals, w)]
     xs = torch.empty((b, 2, n, S, POINT_WIDTH), dtype=mm_dtype, device=dev)
     dq = torch.empty((b, 2, n, S, plan.cot_width), dtype=mm_dtype, device=dev)
-    part_b = torch.empty((b, plan.gx, plan.n_bias + plan.n_film), dtype=torch.float32, device=dev)
     part_w = torch.empty((plan.nsplit, plan.n_weight), dtype=torch.float32, device=dev)
     d_pts = torch.empty((b, n, S, 3), dtype=torch.float32, device=dev)
     out_w = torch.empty((plan.n_weight + plan.n_bias,), dtype=torch.float32, device=dev)
     out_f = torch.empty((b, plan.n_film), dtype=torch.float32, device=dev)
     noise = noise_operand(noise_std, dev)
+    flags = _flags(noise_std, fast_sin, mm_dtype)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.cips_ray_tile_backward(
-            *(t.data_ptr() for t in inputs), _ptr(noise), wbuf.data_ptr(), pbuf.data_ptr(),
-            films.data_ptr(),
-            d_fea.data_ptr(), d_dep.data_ptr(), *(t.data_ptr() for t in res), xs.data_ptr(),
-            dq.data_ptr(), part_b.data_ptr(), part_w.data_ptr(), d_pts.data_ptr(),
-            out_w.data_ptr(), out_f.data_ptr(),
-            b, n, S, L, H, C, R, plan.gx, plan.nsplit, SPLIT_ROWS, pbuf.numel(), films.shape[1],
-            float(warp_scale), int(clamp_mode == "softplus"), int(white_back),
-            int(last_back), _flags(noise_std, fast_sin, mm_dtype), stream)
-    build.check(lib, err, "ray_tile_bwd")
-    build.count_launch("ray_tile_bwd_recompute" if residuals is None else "ray_tile_bwd_residual",
-                       mm_dtype)
+        head = [*(t.data_ptr() for t in inputs), _ptr(noise), wbuf.data_ptr(), pbuf.data_ptr(),
+                films.data_ptr(), d_fea.data_ptr(), d_dep.data_ptr(),
+                *(t.data_ptr() for t in res)]
+        tail = [float(warp_scale), int(clamp_mode == "softplus"), int(white_back),
+                int(last_back), flags, stream]
+        if streamed:
+            nchunk = -(-(n * S) // STREAM_ROWS)
+            sig = torch.empty((b, 2, n, S), dtype=torch.float32, device=dev)
+            rgb = torch.empty((b, 2, n, S, R), dtype=torch.float32, device=dev)
+            rows = torch.empty((b * n, RAY_ROWS, 2 * S), dtype=torch.float32, device=dev)
+            fpart = torch.empty((b, 2, nchunk, 3 * (L * H + C)), dtype=torch.float32, device=dev)
+            bpart = torch.empty((b, 2, nchunk, R + 1), dtype=torch.float32, device=dev)
+            err = lib.cips_ray_tile_backward_streamed(
+                *head, xs.data_ptr(), dq.data_ptr(), sig.data_ptr(), rgb.data_ptr(),
+                rows.data_ptr(), fpart.data_ptr(), bpart.data_ptr(), part_w.data_ptr(),
+                d_pts.data_ptr(), out_w.data_ptr(), out_f.data_ptr(), b, n, S, L, H, C, R,
+                films.shape[1], plan.nsplit, SPLIT_ROWS, *tail)
+        else:
+            part_b = torch.empty((b, plan.gx, plan.n_bias + plan.n_film), dtype=torch.float32,
+                                 device=dev)
+            err = lib.cips_ray_tile_backward(
+                *head, xs.data_ptr(), dq.data_ptr(), part_b.data_ptr(), part_w.data_ptr(),
+                d_pts.data_ptr(), out_w.data_ptr(), out_f.data_ptr(),
+                b, n, S, L, H, C, R, plan.gx, plan.nsplit, SPLIT_ROWS, pbuf.numel(),
+                films.shape[1], *tail)
+    build.check(lib, err, "ray_tile_bwd" + (" (streamed)" if streamed else ""))
+    build.count_launch(("ray_tile_bwd_recompute" if residuals is None else "ray_tile_bwd_residual")
+                       + ("_streamed" if streamed else ""), mm_dtype)
     return unpad_grads(_unpack_grads(wt_k, out_w, out_f, L, H, C, R), wt), d_pts
-
 
 
 def kernel_occupancy(S: int, L: int, H: int, C: int, R: int, mm_dtype=torch.float32):
@@ -771,7 +918,8 @@ def kernel_occupancy(S: int, L: int, H: int, C: int, R: int, mm_dtype=torch.floa
 
 
 def ray_tile_bwd(wt, pts, *args, **kwargs):
-    """`ray_tile_bwd_plain` for CPU tensors, `ray_tile_bwd_cuda` otherwise."""
+    """`ray_tile_bwd_plain` for CPU tensors, `ray_tile_bwd_cuda`
+    otherwise."""
     if pts.device.type == "cpu":
         return ray_tile_bwd_plain(wt, pts, *args, **kwargs)
     return ray_tile_bwd_cuda(wt, pts, *args, **kwargs)
@@ -788,17 +936,22 @@ class RayTileFunction(torch.autograd.Function):
     the MLP states; 'pallas_residual', the backward kernel reading the
     residuals; 'jnp', autograd through `ray_tile_plain` (the reference).
     The kernels give grads to the weights, films and coarse points only:
-    origins, dirs, z, u and the noise get none (the resample is detached)."""
+    origins, dirs, z, u and the noise get none (the resample is detached).
+    On the card the forward takes the path `ray_path_of` chooses and the
+    backward runs on the same one, so it reads residuals of its own path."""
 
     @staticmethod
     def forward(ctx, opts, pts, org, dirs, z, u, nc, nf, *wt):
         noise_std, vjp_impl, kw = opts
+        path = ray_path_of(wt, pts, kw["mm_dtype"])
+        fwd = ray_tile_plain if path is None else functools.partial(ray_tile_cuda, path=path)
         inputs = (pts, org, dirs, z, u, nc, nf)
         if vjp_impl == "pallas_residual":
-            fea, depth, res = ray_tile(list(wt), *inputs, noise_std, with_residuals=True, **kw)
+            fea, depth, res = fwd(list(wt), *inputs, noise_std, with_residuals=True, **kw)
         else:
-            (fea, depth), res = ray_tile(list(wt), *inputs, noise_std, **kw), ()
+            (fea, depth), res = fwd(list(wt), *inputs, noise_std, **kw), ()
         ctx.opts = opts
+        ctx.path = path
         ctx.n_res = len(res)
         ctx.save_for_backward(*inputs, *res, *wt)
         return fea, depth
@@ -820,8 +973,10 @@ class RayTileFunction(torch.autograd.Function):
                                                  allow_unused=True))
             return (None,) + tuple(next(grads) if t.requires_grad else None for t in leaves)
         kw = {k: v for k, v in kw.items() if k != "out_dtype"}
-        d_wt, d_pts = ray_tile_bwd(wt, *inputs, noise_std, d_fea, d_dep,
-                                   residuals=tuple(res) or None, **kw)
+        bwd = (ray_tile_bwd_plain if ctx.path is None
+               else functools.partial(ray_tile_bwd_cuda, path=ctx.path))
+        d_wt, d_pts = bwd(wt, *inputs, noise_std, d_fea, d_dep, residuals=tuple(res) or None,
+                          **kw)
         return (None, d_pts) + (None,) * 6 + tuple(d_wt)
 
 

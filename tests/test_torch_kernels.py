@@ -20,6 +20,7 @@ f32 kernel fails), d pts per ray within 1e-4 (max|b| + 1).
 """
 
 import shutil
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -41,13 +42,13 @@ N_WIDE = 101                 # at the flagship widths: 6 full ray blocks and a r
 FLAGSHIP = dict(hidden=128, rgb=32)   # H 128, C 64, R 32, L 2
 
 
-def _ray_inputs(device, hidden=32, rgb=16, n=N, steps=S):
+def _ray_inputs(device, hidden=32, rgb=16, n=N, steps=S, layers=2, color=None):
     N, S = n, steps
     g = torch.Generator().manual_seed(0)
-    siren = NeRFNetwork(hidden_dim=hidden, hidden_layers=2, rgb_dim=rgb, style_dim=hidden,
-                        generator=g).to(device)
+    siren = NeRFNetwork(hidden_dim=hidden, hidden_layers=layers, rgb_dim=rgb, style_dim=hidden,
+                        color_hidden_dim=color, generator=g).to(device)
     styles = {k: torch.randn(B, hidden, generator=g).to(device)
-              for k in ("nerf_w0", "nerf_w1", "nerf_rgb")}
+              for k in [f"nerf_w{i}" for i in range(layers)] + ["nerf_rgb"]}
     origins = torch.randn(B, N, 3, generator=g) * 0.05
     d = torch.randn(B, N, 3, generator=g) + torch.tensor([0.0, 0.0, -1.0])
     dirs = d / d.norm(dim=-1, keepdim=True)
@@ -96,7 +97,8 @@ def _close(a, b, tol):
 def test_kernel_sources_are_in_the_package():
     names = {p.name for p in build._sources()}
     assert {"ray_tile.cu", "ray_tile_bwd.cu", "inr_tile.cu", "common.cu", "common.cuh",
-            "fast_sin.cuh", "ray_tile.cuh"} <= names
+            "fast_sin.cuh", "ray_tile.cuh", "ray_tile_streamed.cu", "inr_tile_streamed.cu",
+            "stream_gemm.cuh", "wgrad.cuh"} <= names
 
 
 def test_build_needs_nvcc():
@@ -198,21 +200,157 @@ def test_cuda_wrappers_take_long_rays(steps):
             ray_tile.ray_tile_bwd_cuda(wt, *args, 0.0, d_fea, d_dep, residuals=r)
 
 
-def test_cuda_wrappers_refuse_past_the_caps():
-    """S past MAX_STEPS, ray-tile widths past 128 and INR widths past 512
-    raise before any launch, naming the cap."""
-    wt, args = _ray_inputs("cpu", n=3, steps=ray_tile.MAX_STEPS + 1)
-    with pytest.raises(ValueError, match=rf"unsupported shape: S={ray_tile.MAX_STEPS + 1} "
-                                         rf"\(3\.\.{ray_tile.MAX_STEPS}\)"):
+# Shapes past the resident kernels' limits (S past MAX_STEPS, widths past 128, L past the
+# weight-grad kernel's products or its shared memory) and INR widths past 512: the streamed
+# path takes them.  (id, ray inputs, the path the mirror picks on an H100)
+PAST_CAPS = [
+    ("S65", dict(steps=65), "streamed"), ("S96", dict(steps=96), "streamed"),
+    ("S256", dict(steps=256), "streamed"),
+    ("H144", dict(hidden=144, color=144), "streamed"),
+    ("H256", dict(hidden=256, color=256), "streamed"),
+    ("R64", dict(rgb=64), "resident"),
+    ("L1", dict(layers=1), "resident"), ("L3", dict(layers=3), "resident"),
+    ("L8", dict(layers=8), "streamed"),
+    ("L3_H128", dict(layers=3, hidden=128, rgb=32), "streamed"),
+]
+
+
+@pytest.mark.parametrize("case,kw,expect", PAST_CAPS, ids=[c[0] for c in PAST_CAPS])
+def test_cuda_wrappers_take_past_the_resident_caps(case, kw, expect):
+    """#2, #2r and #3 (both modes) take every shape the JAX function takes:
+    on CPU tensors the wrappers get past the shape checks to the device
+    check, on either path; the mirror of the resident layouts picks the
+    path the card would take."""
+    n = 3
+    wt, args = _ray_inputs("cpu", n=n, **kw)
+    w = ray_tile.widths(wt)
+    S = args[0].shape[2]
+    assert ray_tile.ray_path(S, w.L, w.Hp, w.Cp, w.Rp) == expect
+    d_fea, d_dep = torch.ones(B, n, w.R), torch.ones(B, n, 1)
+    res = ray_tile.ray_tile_plain(wt, *args, with_residuals=True)[2]
+    for path in ("auto", "streamed"):
+        with pytest.raises(ValueError, match="needs CUDA"):
+            ray_tile.ray_tile_cuda(wt, *args, path=path)
+        with pytest.raises(ValueError, match="needs CUDA"):
+            ray_tile.ray_tile_cuda(wt, *args, with_residuals=True, path=path)
+        for r in (None, res):
+            with pytest.raises(ValueError, match="needs CUDA"):
+                ray_tile.ray_tile_bwd_cuda(wt, *args, 0.0, d_fea, d_dep, residuals=r, path=path)
+
+
+def _inr_zeros(D, in0=32, n_blocks=4, n=3, b=2):
+    """Decode operands of the right shapes (zeros: only the wrapper's checks read them)."""
+    L = 2 * n_blocks
+    w = inr_tile.InrWeights(w0=torch.zeros(in0, D), wrest=torch.zeros(L - 1, D, D),
+                            wr=torch.zeros(n_blocks - 3, D, 3), br=torch.zeros(n_blocks - 3, 3))
+    return torch.zeros(b, n, in0), torch.zeros(b, L, D), torch.zeros(b, L, D), w
+
+
+@pytest.mark.parametrize("D", [576, 1024])
+def test_inr_wrapper_takes_past_the_resident_cap(D):
+    """#1 takes INR widths past 512 (the streamed path): the wrapper gets to
+    the device check; the mirror picks the streamed path."""
+    assert inr_tile.inr_path(D) == "streamed" and inr_tile.inr_path(512) == "resident"
+    for path in ("auto", "streamed"):
+        with pytest.raises(ValueError, match="needs CUDA"):
+            inr_tile.inr_tile_cuda(*_inr_zeros(D), path=path)
+
+
+def test_cuda_wrappers_refuse_what_jax_refuses():
+    """The wrappers raise where `fused_ray_render` and `fused_inr_decode`
+    raise, before any launch: no hidden layer, one sample a ray (the resample
+    needs two), an input wider than D, fewer than 4 INR blocks; and on an
+    unknown path."""
+    wt, args = _ray_inputs("cpu", n=3)
+    no_layers = wt[8:]
+    with pytest.raises(ValueError, match="L=0"):
+        ray_tile.ray_tile_cuda(no_layers, *args)
+    with pytest.raises(ValueError, match="L=0"):
+        ray_tile.ray_tile_bwd_cuda(no_layers, *args, 0.0, torch.ones(B, 3, 16),
+                                   torch.ones(B, 3, 1))
+    wt, args = _ray_inputs("cpu", n=3, steps=1)
+    with pytest.raises(ValueError, match="S=1"):
         ray_tile.ray_tile_cuda(wt, *args)
-    with pytest.raises(ValueError, match="unsupported shape"):
-        ray_tile.ray_tile_bwd_cuda(wt, *args, 0.0, torch.ones(B, 3, 16), torch.ones(B, 3, 1))
-    wt, args = _ray_inputs("cpu", n=3, hidden=144)
-    with pytest.raises(ValueError, match="H=144.*up to 128"):
+    wt, args = _ray_inputs("cpu", n=3, steps=2)   # two samples: JAX takes them
+    with pytest.raises(ValueError, match="needs CUDA"):
         ray_tile.ray_tile_cuda(wt, *args)
-    x, s, d, w = _inr_inputs("cpu", 4, D=576, n=3)
-    with pytest.raises(ValueError, match="D=576 \\(<= 512\\)"):
-        inr_tile.inr_tile_cuda(x, s, d, w)
+    with pytest.raises(ValueError, match="path must be one of"):
+        ray_tile.ray_tile_cuda(wt, *args, path="fast")
+    with pytest.raises(ValueError, match="path must be one of"):
+        inr_tile.inr_tile_cuda(*_inr_zeros(64), path="fast")
+    with pytest.raises(ValueError, match=r"in0=48 \(<= D=32\)"):
+        inr_tile.inr_tile_cuda(*_inr_zeros(32, in0=48))
+    with pytest.raises(ValueError, match="n_blocks=3"):
+        inr_tile.inr_tile_cuda(*_inr_zeros(64, n_blocks=3))
+
+
+def _shipped_generators():
+    """(config, generator node, sample counts) of each shipped config with a NeRF."""
+    from cips3d_tpu_torch.config import yaml_lite
+
+    root = Path(__file__).resolve().parent.parent / "configs"
+    for f in sorted(root.glob("*.yaml")):
+        d = yaml_lite.safe_load(f.read_text())
+        g = d.get("generator", {})
+        if "nerf_hidden_dim" not in g:
+            continue
+        S = d.get("render", {}).get("num_steps") or d.get("nerf_kwargs", {}).get("n_samples")
+        # the stage's count, the serving count (RenderService, eval --serving), multiview's
+        # doubled serving count and the resident cap
+        yield f.name, g, sorted({S, 24, 48, ray_tile.MAX_STEPS})
+
+
+def test_path_choice_keeps_shipped_configs_resident():
+    """The mirror of the resident layouts keeps every shipped config on the
+    resident path (f32 and bf16, at each config's sample counts), so their
+    outputs stay the resident kernels'; the NeRF depth 3 at the flagship
+    width in f32 takes the streamed path at every S (its weights alone pass
+    the card's shared memory)."""
+    seen = 0
+    for name, g, steps in _shipped_generators():
+        L, H, R = g["nerf_hidden_layers"], g["nerf_hidden_dim"], g["nerf_rgb_dim"]
+        for S in steps:
+            for mm in (torch.float32, torch.bfloat16):
+                assert ray_tile.ray_path(S, L, H, H // 2, R, mm) == "resident", (name, S, mm)
+        assert inr_tile.inr_path(g["inr_hidden_dim"]) == "resident"
+        seen += 1
+    assert seen >= 4
+    for S in (3, 12, 24, 64):
+        assert ray_tile.ray_path(S, 3, 128, 64, 32) == "streamed"
+        assert max(ray_tile.resident_smem(S, 3, 128, 64, 32)) > ray_tile.SMEM_OPTIN
+    # the flagship's resident layouts at S = 24: the forward's 179600 bytes, as PERF.md has it
+    assert ray_tile.resident_smem(24, 2, 128, 64, 32)[0] == 179600
+
+
+def test_backward_runs_on_the_forwards_path(monkeypatch):
+    """Under autograd the forward takes the path `ray_path_of` chooses and
+    the backward gets the same one, so a residual of one path is never fed
+    to the other: the CUDA wrappers are replaced by recorders running the
+    plain versions (on the CPU no path is chosen) and the choice forced to
+    "streamed"."""
+    wt, args = _ray_inputs("cpu", n=3)
+    seen = []
+
+    def fwd(*a, path, **kw):
+        seen.append(("fwd", path, kw.get("with_residuals", False)))
+        return ray_tile.ray_tile_plain(*a, **kw)
+
+    def bwd(*a, path, residuals=None, **kw):
+        seen.append(("bwd", path, residuals is not None))
+        return ray_tile.ray_tile_bwd_plain(*a, residuals=residuals, **kw)
+
+    monkeypatch.setattr(ray_tile, "ray_tile_cuda", fwd)
+    monkeypatch.setattr(ray_tile, "ray_tile_bwd_cuda", bwd)
+    monkeypatch.setattr(ray_tile, "ray_path_of", lambda wt, pts, mm: "streamed")
+    leaves = [t.detach().requires_grad_() for t in wt]
+    for impl in ("pallas_residual", "pallas"):
+        seen.clear()
+        kw = dict(clamp_mode="relu", white_back=False, last_back=False, fast_sin=False,
+                  mm_dtype=torch.float32, warp_scale=2.0 / 0.24, out_dtype=torch.float32)
+        fea, dep = ray_tile.RayTileFunction.apply((0.0, impl, kw), *args, *leaves)
+        (fea.sum() + dep.sum()).backward()
+        res = impl == "pallas_residual"
+        assert seen == [("fwd", "streamed", res), ("bwd", "streamed", res)]
 
 
 def test_dispatch_runs_plain_on_cpu():
@@ -653,7 +791,7 @@ def test_ray_tile_kernels_at_padded_widths(cuda_device, mm_dtype, widths):
         assert _rays_outside(pa, pb, 1e-4 if mm_dtype == torch.float32 else 1e-2) == 0
     after = {k: build.launches(k) - before[k] for k in build.KERNELS}
     assert after == dict(ray_tile=1, ray_tile_residuals=1, ray_tile_bwd_recompute=1,
-                         ray_tile_bwd_residual=1, inr_tile=0)
+                         ray_tile_bwd_residual=1, inr_tile=0, **{k: 0 for k in build.STREAMED})
 
 
 @pytest.mark.gpu
@@ -669,3 +807,295 @@ def test_inr_tile_kernel_at_padded_widths(cuda_device, D, in0, mm_dtype):
     torch.cuda.synchronize()
     assert out.shape == (2, 200, 3) and build.launches("inr_tile") == before + 1
     _close(out, ref, F32_TOL if mm_dtype == torch.float32 else INR_BF16_WIDE_TOL)
+
+
+# ---------------------------------------------- on the card, the streamed path
+
+# Shapes past each of the resident kernels' limits, n ragged against the 64-point products
+# and the 8-ray per-ray blocks: S past 64, H past 128 (C = H), the NeRF depth 3 at the
+# flagship widths (past the shared memory in f32), R 64 at depth 1, depth 8.
+STREAM_SHAPES = {
+    "S80": dict(steps=80),
+    "H144": dict(hidden=144, color=144, steps=12),
+    "L3_flagship": dict(layers=3, hidden=128, rgb=32, steps=24),
+    "R64_L1": dict(rgb=64, layers=1, steps=12),
+    "L8": dict(layers=8, steps=10),
+}
+N_STREAM = 37
+FLAGS = [dict(), dict(clamp_mode="softplus"), dict(noise_std=0.4), dict(white_back=True),
+         dict(last_back=True), dict(fast_sin=True)]
+FLAG_IDS = ["relu", "softplus", "noise", "white_back", "last_back", "fast_sin"]
+
+
+def _cotangents(dev, n, R, seed=3):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(B, n, R, generator=g, device=dev),
+            torch.randn(B, n, 1, generator=g, device=dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mm_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kwargs", FLAGS, ids=FLAG_IDS)
+def test_streamed_ray_tile_matches_plain(cuda_device, mm_dtype, kwargs):
+    """#2 and #2r on the streamed path at the narrow shape, every option."""
+    wt, args = _ray_inputs(cuda_device)
+    kwargs = dict(kwargs)
+    ns = kwargs.pop("noise_std", 0.0)
+    tol = F32_TOL if mm_dtype == torch.float32 else RAY_BF16_TOL
+    before = {k: build.launches(k) for k in ("ray_tile_streamed", "ray_tile_residuals_streamed")}
+    fa, da = ray_tile.ray_tile_cuda(wt, *args, ns, mm_dtype=mm_dtype, out_dtype=mm_dtype,
+                                    path="streamed", **kwargs)
+    fr, dr, ra = ray_tile.ray_tile_cuda(wt, *args, ns, mm_dtype=mm_dtype, with_residuals=True,
+                                        path="streamed", **kwargs)
+    fb, db, rb = ray_tile.ray_tile_plain(wt, *args, ns, mm_dtype=mm_dtype, with_residuals=True,
+                                         **kwargs)
+    torch.cuda.synchronize()
+    assert {k: build.launches(k) - v for k, v in before.items()} == dict(
+        ray_tile_streamed=1, ray_tile_residuals_streamed=1)
+    assert fa.dtype == mm_dtype
+    _close(fa, fb.to(mm_dtype), tol)
+    _close(da, db, tol)
+    _close(fr, fb, tol)
+    _close(dr, db, tol)
+    for x, y in zip(ra, rb):
+        # a sine of a large argument can part alone: at most 0.1 % of the points outside
+        assert x.dtype == y.dtype and x.shape == y.shape
+        assert _points_outside(x, y, dict(rtol=tol["rtol"], atol=tol["atol"] * 20)) <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["recompute", "residual"])
+@pytest.mark.parametrize("mm_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kwargs", [dict(), dict(noise_std=0.4, clamp_mode="softplus",
+                                                 white_back=True, last_back=True, fast_sin=True)],
+                         ids=["relu", "noise_softplus_white_last_fast_sin"])
+def test_streamed_ray_tile_bwd_matches_plain(cuda_device, mode, mm_dtype, kwargs):
+    """#3 on the streamed path at the narrow shape, both modes."""
+    wt, args = _ray_inputs(cuda_device)
+    kwargs = dict(kwargs)
+    ns = kwargs.pop("noise_std", 0.0)
+    d_fea, d_dep = _cotangents(cuda_device, N, 16)
+    res = None
+    if mode == "residual":
+        res = ray_tile.ray_tile_cuda(wt, *args, ns, mm_dtype=mm_dtype, with_residuals=True,
+                                     path="streamed", **kwargs)[2]
+    name = f"ray_tile_bwd_{mode}_streamed"
+    before = build.launches(name)
+    ga, pa = ray_tile.ray_tile_bwd_cuda(wt, *args, ns, d_fea, d_dep, residuals=res,
+                                        mm_dtype=mm_dtype, path="streamed", **kwargs)
+    gb, pb = ray_tile.ray_tile_bwd_plain(wt, *args, ns, d_fea, d_dep, residuals=res,
+                                         mm_dtype=mm_dtype, **kwargs)
+    torch.cuda.synchronize()
+    assert build.launches(name) == before + 1
+    for i, (a, b) in enumerate(zip(ga, gb)):
+        assert a.shape == b.shape
+        assert _grad_err(a, b) < BWD_TOL[mm_dtype], f"grad {i}: {_grad_err(a, b):.3e}"
+    assert _rays_outside(pa, pb, 1e-4 if mm_dtype == torch.float32 else 1e-2) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mm_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", list(STREAM_SHAPES))
+def test_streamed_ray_tile_past_the_caps(cuda_device, shape, mm_dtype):
+    """#2, #2r and #3 (both modes) at shapes the resident kernels do not
+    take (or, for R64_L1, do not have to), on the path "auto" picks or the
+    streamed one, against the plain version."""
+    wt, args = _ray_inputs(cuda_device, n=N_STREAM, **STREAM_SHAPES[shape])
+    w = ray_tile.widths(wt)
+    S = args[0].shape[2]
+    auto = ray_tile.ray_path(S, w.L, w.Hp, w.Cp, w.Rp, mm_dtype, build.smem_optin(cuda_device),
+                             ray_tile.library_smem)
+    path = "auto" if auto == "streamed" else "streamed"
+    d_fea, d_dep = _cotangents(cuda_device, N_STREAM, w.R)
+    tol = F32_TOL if mm_dtype == torch.float32 else RAY_BF16_WIDE_TOL
+    before = {k: build.launches(k) for k in build.KERNELS}
+    fa, da = ray_tile.ray_tile_cuda(wt, *args, 0.0, mm_dtype=mm_dtype, path=path)
+    fr, dr, ra = ray_tile.ray_tile_cuda(wt, *args, 0.0, mm_dtype=mm_dtype, with_residuals=True,
+                                        path=path)
+    fb, db, rb = ray_tile.ray_tile_plain(wt, *args, 0.0, mm_dtype=mm_dtype, with_residuals=True)
+    torch.cuda.synchronize()
+    for x, y in ((fa, fb), (da, db), (fr, fb), (dr, db)):
+        _close(x, y, tol)
+    rtol = dict(rtol=tol["rtol"], atol=tol["atol"] * 20)
+    r64 = None
+    for i, (x, y) in enumerate(zip(ra, rb)):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        if _points_outside(x, y, rtol) <= 1e-3:
+            continue
+        # deep SIRENs (8 FiLM layers of gains ~30) carry a rounding into a few points' hidden
+        # states: then the kernel may part from a float64 run of the plain version on at most
+        # twice the points the f32 plain version parts from it on
+        if r64 is None:
+            r64 = ray_tile.ray_tile_plain([w.double() for w in wt], *[a.double() for a in args],
+                                          0.0, mm_dtype=torch.float64, with_residuals=True)[2]
+        y64 = r64[i].to(y.dtype) if mm_dtype == torch.bfloat16 else r64[i]
+        assert _points_outside(x, y64, rtol) <= max(1e-3, 2 * _points_outside(y, y64, rtol)), i
+    for res in (None, ra):
+        ga, pa = ray_tile.ray_tile_bwd_cuda(wt, *args, 0.0, d_fea, d_dep, residuals=res,
+                                            mm_dtype=mm_dtype, path=path)
+        gb, pb = ray_tile.ray_tile_bwd_plain(wt, *args, 0.0, d_fea, d_dep, residuals=res,
+                                             mm_dtype=mm_dtype)
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(ga, gb)):
+            assert a.shape == b.shape
+            assert _grad_err(a, b) < BWD_TOL[mm_dtype], f"grad {i}: {_grad_err(a, b):.3e}"
+        assert _rays_outside(pa, pb, 1e-4 if mm_dtype == torch.float32 else 1e-2) == 0
+    after = {k: build.launches(k) - before[k] for k in build.KERNELS}
+    assert after == {k: int(k in ("ray_tile_streamed", "ray_tile_residuals_streamed",
+                                  "ray_tile_bwd_recompute_streamed",
+                                  "ray_tile_bwd_residual_streamed")) for k in build.KERNELS}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mm_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", ["S80", "L3_flagship"])
+def test_streamed_ray_tile_deterministic(cuda_device, shape, mm_dtype):
+    """With density noise, #2, #2r and #3 in both modes on the streamed
+    path give the same bits twice (the weight grads included)."""
+    wt, args = _ray_inputs(cuda_device, n=N_STREAM, **STREAM_SHAPES[shape])
+    d_fea, d_dep = _cotangents(cuda_device, N_STREAM, wt[-4].shape[1])
+    kw = dict(mm_dtype=mm_dtype, path="streamed")
+
+    def run():
+        fea, dep = ray_tile.ray_tile_cuda(wt, *args, 0.4, **kw)
+        fr, dr, res = ray_tile.ray_tile_cuda(wt, *args, 0.4, with_residuals=True, **kw)
+        out = [fea, dep, fr, dr, *res]
+        for r in (None, res):
+            g, p = ray_tile.ray_tile_bwd_cuda(wt, *args, 0.4, d_fea, d_dep, residuals=r, **kw)
+            out += g + [p]
+        return out
+
+    for a, b in zip(run(), run()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mm_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_streamed_against_resident_flagship(cuda_device, mm_dtype):
+    """At the flagship shape (L 2, H 128, C 64, R 32, S 24), which both
+    paths take, path="streamed" against path="resident": #2, #2r and #3
+    (both modes) within the kernel rows' tolerances.  "auto" there is the
+    resident path."""
+    wt, args = _ray_inputs(cuda_device, n=N_WIDE, steps=24, **FLAGSHIP)
+    assert ray_tile.ray_path_of(wt, args[0], mm_dtype) == "resident"
+    d_fea, d_dep = _cotangents(cuda_device, N_WIDE, 32)
+    tol = F32_TOL if mm_dtype == torch.float32 else RAY_BF16_WIDE_TOL
+    out = {}
+    for path in ("resident", "streamed"):
+        fea, dep = ray_tile.ray_tile_cuda(wt, *args, 0.0, mm_dtype=mm_dtype, path=path)
+        fr, dr, res = ray_tile.ray_tile_cuda(wt, *args, 0.0, mm_dtype=mm_dtype,
+                                             with_residuals=True, path=path)
+        grads = [ray_tile.ray_tile_bwd_cuda(wt, *args, 0.0, d_fea, d_dep, residuals=r,
+                                            mm_dtype=mm_dtype, path=path) for r in (None, res)]
+        out[path] = (fea, dep, fr, dr, res, grads)
+    torch.cuda.synchronize()
+    a, b = out["streamed"], out["resident"]
+    for x, y in zip(a[:4], b[:4]):
+        _close(x, y, tol)
+    for x, y in zip(a[4], b[4]):
+        assert _points_outside(x, y, dict(rtol=tol["rtol"], atol=tol["atol"] * 20)) <= 1e-3
+    for (ga, pa), (gb, pb) in zip(a[5], b[5]):
+        for x, y in zip(ga, gb):
+            assert _grad_err(x, y) < BWD_TOL[mm_dtype]
+        assert _rays_outside(pa, pb, 1e-4 if mm_dtype == torch.float32 else 1e-2) == 0
+    with pytest.raises(ValueError, match="path='resident'"):
+        wt3, args3 = _ray_inputs(cuda_device, n=5, steps=12, layers=3, hidden=128, rgb=32)
+        ray_tile.ray_tile_cuda(wt3, *args3, path="resident")
+
+
+@pytest.mark.gpu
+def test_streamed_bf16_tolerance_sees_the_rounding(cuda_device):
+    """Controls: the f32 streamed kernels lie outside the bf16 tolerances of
+    the bf16 plain versions (#2, #3, #1), and the bf16 streamed #2 outside
+    the f32 tolerance of the f32 plain version."""
+    wt, args = _ray_inputs(cuda_device, n=N_STREAM, **STREAM_SHAPES["L3_flagship"])
+    out = ray_tile.ray_tile_cuda(wt, *args, path="streamed")[0]
+    ref = ray_tile.ray_tile_plain(wt, *args, mm_dtype=torch.bfloat16)[0]
+    with pytest.raises(AssertionError):
+        _close(out, ref, RAY_BF16_WIDE_TOL)
+    out_b = ray_tile.ray_tile_cuda(wt, *args, mm_dtype=torch.bfloat16, path="streamed")[0]
+    with pytest.raises(AssertionError):
+        _close(out_b, ray_tile.ray_tile_plain(wt, *args)[0], F32_TOL)
+    d_fea, d_dep = _cotangents(cuda_device, N_STREAM, 32)
+    ga, _ = ray_tile.ray_tile_bwd_cuda(wt, *args, 0.0, d_fea, d_dep, path="streamed")
+    gb, _ = ray_tile.ray_tile_bwd_plain(wt, *args, 0.0, d_fea, d_dep, mm_dtype=torch.bfloat16)
+    assert max(_grad_err(a, b) for a, b in zip(ga, gb)) > BWD_TOL[torch.bfloat16]
+    x, s, d, w = _inr_inputs(cuda_device, 9, D=576, in0=32, n=70)
+    out = inr_tile.inr_tile_cuda(x, s, d, w, path="streamed")
+    ref = inr_tile.inr_tile_plain(x, s, d, w, mm_dtype=torch.bfloat16)
+    with pytest.raises(AssertionError):
+        _close(out, ref, INR_BF16_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mm_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("D,n_blocks,n", [(64, 9, 70), (576, 9, 133), (1024, 5, 65),
+                                          (512, 4, 1)])
+def test_streamed_inr_tile_matches_plain(cuda_device, D, n_blocks, n, mm_dtype):
+    """#1 on the streamed path (past 512, where "auto" takes it, and below,
+    where it is asked for) against the plain version, n ragged against the
+    64-pixel products; twice, bit for bit."""
+    x, s, d, w = _inr_inputs(cuda_device, n_blocks, D=D, in0=32, n=n, b=2)
+    path = "auto" if D > inr_tile.MAX_WIDTH else "streamed"
+    before = {k: build.launches(k) for k in ("inr_tile", "inr_tile_streamed")}
+    out = inr_tile.inr_tile_cuda(x, s, d, w, mm_dtype=mm_dtype, path=path)
+    again = inr_tile.inr_tile_cuda(x, s, d, w, mm_dtype=mm_dtype, path=path)
+    ref = inr_tile.inr_tile_plain(x, s, d, w, mm_dtype=mm_dtype)
+    torch.cuda.synchronize()
+    assert {k: build.launches(k) - v for k, v in before.items()} == dict(inr_tile=0,
+                                                                         inr_tile_streamed=2)
+    assert torch.equal(out, again)
+    _close(out, ref, F32_TOL if mm_dtype == torch.float32 else INR_BF16_WIDE_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mm_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_streamed_inr_against_resident(cuda_device, mm_dtype):
+    """At D = 512, which both paths take: path="streamed" against
+    path="resident", within the kernel rows' tolerances; "resident" past
+    512 raises."""
+    x, s, d, w = _inr_inputs(cuda_device, 9, D=512, in0=32, n=200, b=2)
+    a = inr_tile.inr_tile_cuda(x, s, d, w, mm_dtype=mm_dtype, path="streamed")
+    b = inr_tile.inr_tile_cuda(x, s, d, w, mm_dtype=mm_dtype, path="resident")
+    _close(a, b, F32_TOL if mm_dtype == torch.float32 else INR_BF16_WIDE_TOL)
+    with pytest.raises(ValueError, match="path='resident'"):
+        inr_tile.inr_tile_cuda(*_inr_inputs(cuda_device, 4, D=576, in0=32, n=3), path="resident")
+
+
+@pytest.mark.gpu
+def test_layout_mirror_matches_library(cuda_device):
+    """`resident_smem`, the CPU's mirror of the resident layouts, is the
+    library's own count (`library_smem`, which the wrappers' choice reads on
+    the card), at the shapes the tests and the main path take; the resident
+    INR layout, the same at every D up to MAX_WIDTH, fits the card."""
+    lib = build.library()
+    for S, L, H, C, R in ((10, 2, 32, 16, 16), (24, 2, 128, 64, 32), (64, 2, 128, 128, 32),
+                          (24, 3, 128, 64, 32), (12, 1, 32, 16, 64), (2, 2, 32, 16, 16)):
+        for mm in (torch.float32, torch.bfloat16):
+            assert ray_tile.resident_smem(S, L, H, C, R, mm) == ray_tile.library_smem(
+                S, L, H, C, R, mm)
+    optin = build.smem_optin(cuda_device)
+    assert optin > 0
+    for mm in (0, 1):
+        assert 0 < lib.cips_inr_tile_smem(mm) <= optin
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mm_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_resident_path_takes_two_samples(cuda_device, mm_dtype):
+    """S = 2, which JAX takes: #2 and #3 (residual mode) against the plain
+    version on the resident path."""
+    wt, args = _ray_inputs(cuda_device, steps=2)
+    tol = F32_TOL if mm_dtype == torch.float32 else RAY_BF16_TOL
+    fa, da, ra = ray_tile.ray_tile_cuda(wt, *args, mm_dtype=mm_dtype, with_residuals=True,
+                                        path="resident")
+    fb, db = ray_tile.ray_tile_plain(wt, *args, mm_dtype=mm_dtype)
+    _close(fa, fb, tol)
+    _close(da, db, tol)
+    d_fea, d_dep = _cotangents(cuda_device, N, 16)
+    ga, pa = ray_tile.ray_tile_bwd_cuda(wt, *args, 0.0, d_fea, d_dep, residuals=ra,
+                                        mm_dtype=mm_dtype, path="resident")
+    gb, pb = ray_tile.ray_tile_bwd_plain(wt, *args, 0.0, d_fea, d_dep, residuals=ra,
+                                         mm_dtype=mm_dtype)
+    for a, b in zip(ga, gb):
+        assert _grad_err(a, b) < BWD_TOL[mm_dtype]
