@@ -167,7 +167,7 @@ Phases, each printing one line (plus detail lines):
      most CHUNK_PEAK_GIB; (d) phase 13(a)'s case through a one-rank NCCL
      group, 10 eager steps against 5 chunks of 2 (the all-reduces captured
      with the step), bit for bit, 3 collectives a step through the replays;
-     (e) the shipped bench leg eager, then chunked (2 calls of 10 steps
+     (e) the shipped bench leg eager, then chunked (1 call of 10 steps
      each): images/s and a profiled run's device idle share,
      printed without a threshold.  In (a) the bench legs' last
      WITNESS_STEPS replays run under the profiler: the port's kernels that
@@ -229,7 +229,9 @@ Phases, each printing one line (plus detail lines):
      and #1 at D = 1024 (r64) against their plain versions (f32 at the
      kernel rows' tolerances, bf16 with the controls), twice bit for bit,
      timed beside the plain versions and beside the resident kernels at
-     the flagship shapes, which both paths take; (b) from zeroed counts:
+     the flagship shapes, which both paths take; then one call each of #2
+     and #1 split launch by launch (`tools/stream_split.py`: stage, device
+     time, FLOPs, bytes, rates, grid, registers); (b) from zeroed counts:
      `RenderService` serving the depth-3 flagship at r128 x 24 (captured
      replays against eager calls bit for bit, a frame against the CPU by
      phase 4's rule), an r32 b = 2 step at depth 3 with the exact sine
@@ -3323,7 +3325,7 @@ def chunk_phase(dev, smi, log, tmp):
     # (e) the shipped bench leg, eager and chunked, in turns
     rep = {}
     for tag, chunked in (("eager", False), ("chunked", True)):
-        _, chunk = bench_train.measure(True, n_calls=2, K=10, device=str(dev), report=rep,
+        _, chunk = bench_train.measure(True, n_calls=1, K=10, device=str(dev), report=rep,
                                        tag=tag, chunked=chunked, fused_ray=False)
         if chunk is not None:
             chunk.close()
@@ -3331,7 +3333,7 @@ def chunk_phase(dev, smi, log, tmp):
     for tag, leg in rep.items():
         p = leg["profile"]
         log(f"phase 16 bench: shipped leg r64 b=4 bf16, {tag}: {leg['value']:.2f} images/s over "
-            f"2 calls of 10 steps (calls {[round(r, 2) for r in leg['rates']]}); a profiled "
+            f"1 call of 10 steps (calls {[round(r, 2) for r in leg['rates']]}); a profiled "
             f"{'chunk' if leg['chunked'] else 'run'} of {p['steps']} steps: {p['wall_ms']:.1f} ms "
             f"host clock, device busy {p['busy_ms']:.1f} ms, idle {p['idle_pct']:.1f} %, "
             f"{p['device_events']} device events [{smi}]")
@@ -4089,15 +4091,15 @@ def long_ray_phase(dev, smi, log, tmp, gen, cpu_gen):
 
 # the kernels each streamed entry launches (mangled-name patterns of its f32 build)
 STREAMED_PARTS = {
-    "ray_tile_streamed": [r"gemm_kernelIffLb0ELi0E", r"gemm_kernelIffLb0ELi1E",
+    "ray_tile_streamed": [r"gemm_kernelIffLb0ELi\d+ELi0E", r"head_kernelIfLb[01]E",
                           r"sigma_rowsIfE", r"coarse_pointsIfE", r"rays_resampleIfE",
                           r"rays_compositeE"],
     "ray_tile_bwd_residual_streamed": [r"coarse_pointsIfE", r"sigma_rowsIfE",
-                                       r"gemm_kernelIffLb0ELi1E", r"rays_backwardIfE",
-                                       r"bwd_prepIfE", r"gemm_kernelIffLb1ELi2E",
-                                       r"gemm_kernelIffLb1ELi3E", r"wgrad_tilesIfE",
-                                       r"streamed_cu_\w*bwd_reduceE"],
-    "inr_tile_streamed": [r"gemm_kernelIffLb0ELi4E", r"to_rgbIfE"],
+                                       r"gemm_kernelIffLb0ELi\d+ELi1E", r"rays_backwardIfE",
+                                       r"bwd_prepIfE", r"gemm_kernelIffLb1ELi\d+ELi2E",
+                                       r"gemm_kernelIffLb1ELi\d+ELi3E", r"wgrad_tilesIfE",
+                                       r"(?<=\d)bwd_reduceE"],
+    "inr_tile_streamed": [r"gemm_kernelIffLb0ELi128ELi4E", r"presplit_wIfLi128E", r"rgb_out"],
 }
 STREAMED_PARTS["ray_tile_residuals_streamed"] = STREAMED_PARTS["ray_tile_streamed"]
 STREAMED_PARTS["ray_tile_bwd_recompute_streamed"] = (STREAMED_PARTS["ray_tile_streamed"]
@@ -4107,20 +4109,21 @@ WIDE_STEPS = 12              # the wide generator's frame: r64 x 12
 
 
 def streamed_resources(name, ptxas, lib):
-    """{kernel: [registers, spill store bytes, spill load bytes]} of each
-    kernel a streamed entry launches (f32 build) and the largest dynamic
-    shared memory among them (the same at every shape)."""
+    """{kernel: [registers, spill store bytes, spill load bytes]} of every
+    instantiation of each kernel a streamed entry launches (f32 build: each
+    tile width, each sine) and the largest dynamic shared memory among them
+    (the same at every shape); fails if a kernel has no ptxas report."""
     regs = {}
     for pat in STREAMED_PARTS[name]:
-        for k, v in ptxas.items():
-            if re.search(pat, k):
-                regs[pat.replace("streamed_cu_\\w*", "")] = list(v)
-                break
+        found = {m.group(0): list(v) for k, v in ptxas.items() for m in [re.search(pat, k)] if m}
+        if not found:
+            raise AssertionError(f"phase 20: no ptxas report matches {pat} ({name})")
+        regs.update(found)
     smem = (lib.cips_inr_tile_streamed_smem(0) if name == "inr_tile_streamed"
             else lib.cips_ray_tile_streamed_smem(0))
     return {"ptxas": regs, "smem_bytes": smem,
-            "max_registers": max((v[0] or 0) for v in regs.values()) if regs else None,
-            "spill_bytes": max(v[1] + v[2] for v in regs.values()) if regs else None}
+            "max_registers": max((v[0] or 0) for v in regs.values()),
+            "spill_bytes": max(v[1] + v[2] for v in regs.values())}
 
 
 def streamed_phase(dev, smi, log, tmp, gen, cpu_gen, lib_path):
@@ -4139,8 +4142,11 @@ def streamed_phase(dev, smi, log, tmp, gen, cpu_gen, lib_path):
     phase 7's tolerances; ``eval.cli multiview --serving --num-steps 48`` (S
     = 96) on phase 9's r64 snapshot and its view against the CPU; a wide
     generator (nerf_hidden_dim 256, the colour layer as wide, inr_hidden_dim
-    1024: #2 and #1 streamed) at r64 x 12 against the CPU.  Returns the
-    launches of (b) and the kernel entries of the summary line."""
+    1024: #2 and #1 streamed) at r64 x 12 against the CPU.  Between them,
+    `tools/stream_split.py`'s split of one call each of #2 (depth 3, r128 x
+    24) and #1 (D = 1024, r64), launch by launch: stage, device time, FLOPs,
+    bytes and rates, grid, registers, shared memory.  Returns the launches
+    of (b) and the kernel entries of the summary line."""
     import numpy as np
     import torch
 
@@ -4397,6 +4403,19 @@ def streamed_phase(dev, smi, log, tmp, gen, cpu_gen, lib_path):
             f"streamed {t[1]:.3f} ms (bit for bit the same: {torch.equal(a_, b_)}) [{smi}]")
         del x, x1, a_, b_, outs, plain
     log(f"phase 20(a) done in {time.perf_counter() - t0:.1f} s")
+
+    # ---- where a streamed call's time goes, launch by launch (`tools/stream_split.py`), in a
+    # process of its own: after the profiled steps of the earlier phases a profiler session
+    # here has come back without device events (the tool retries a profile that saw none)
+    root = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.synchronize()
+    proc = subprocess.run([sys.executable, "-m", "cips3d_tpu_torch.tools.stream_split"],
+                          cwd=root, capture_output=True, text=True, timeout=600)
+    for line in proc.stdout.splitlines():
+        log(f"phase 20 split: {line}")
+    if proc.returncode != 0 or proc.stdout.count(" launches, ") != 2:
+        raise AssertionError(f"phase 20 split: exit {proc.returncode}: {proc.stderr[-2000:]}")
+    log(f"phase 20 split done in {time.perf_counter() - t0:.1f} s [{smi}]")
 
     # ---- (b) the main paths on the streamed kernels, from zeroed counts
     counts = collections.Counter()

@@ -10,24 +10,37 @@
 // _ray_tile_bwd_kernel (both modes).  The stages are the resident kernels',
 // as a sequence of launches on one stream over device memory:
 //   forward, per pass (coarse, then fine), point rows (b, 2, n, S):
-//     each FiLM-SIREN layer, the colour FiLM and the rgb head as one
-//     tensor-core product each (stream_gemm.cuh: 64 points x 128 columns a
-//     block, W in 32-deep k-panels through a cp.async ring), its epilogue
-//     (bias, FiLM, sine, rounding) writing the layer's output h (mm type)
-//     to the residual rows, or to a scratch pair when no residuals are
-//     asked; the sigma head by ray_mlp.cuh's sigma_head, a warp a point;
-//     between the passes the resample, after them the compositing: a warp a
-//     ray, every per-sample quantity in a row of device scratch (RayRow),
-//     loops over the samples in the resident order (sample j on lane j % 32,
-//     the same serial prefix sums), so no register array bounds S;
+//     each FiLM-SIREN layer as one tensor-core product (stream_gemm.cuh:
+//     128 points a tile), its epilogue (bias, FiLM,
+//     sine, rounding) writing the layer's output h (mm type) to the
+//     residual rows, or to a scratch pair when no residuals are asked; the
+//     sigma head by ray_mlp.cuh's sigma_head, a warp a point; the colour
+//     FiLM and the rgb head as one launch (head_kernel): per 128-point tile
+//     the colour activations of each 64-column slab stay in shared memory,
+//     rounded, and feed that slab's share of the rgb product at once, the
+//     rgb sums kept in registers across the slabs; between the passes the
+//     resample, after them the compositing: a warp a ray, every per-sample
+//     quantity in a row of device scratch (RayRow), loops over the samples
+//     in the resident order (sample j on lane j % 32, the same serial prefix
+//     sums), so no register array bounds S;
 //   backward: sigma and rgb of both passes from the residuals, the per-ray
 //     resample, compositing forward and backward (the resident phase B), the
 //     rounded cotangents d rgb and d sigma, then per pass the d-input chain
 //     as products with W^T, each epilogue writing the rounded d a of its
-//     layer and the block's bias and FiLM sums (a fixed owner per column);
+//     layer and the tile's bias and FiLM sums (a fixed owner per column);
 //     the weight grads as wgrad.cuh's split-K product in 128 x 128 tiles of
 //     each matrix, and a reduction of every partial in a fixed order.  No
 //     float atomics: two runs give the same bits.
+// What bounds it on an H100 (PERF.md, tools/stream_split.py): at
+// depth 3, r128 x 24 the products took 93 % of the forward's device time
+// (4.69 ms) before this design and take 89 % of 2.83 ms with it; a K = 128
+// layer moves 400 MB (h in and out, f32) and does 12.9 GFLOP, and runs on
+// the tensor cores' issue and its tiles' epilogues; the per-ray kernels
+// take about 0.15 ms.  So the forward's design work is the
+// product's (stream_gemm.cuh) and the head's fusion, which takes the colour
+// activations' round trip through device memory (100 MB each way a pass
+// at r128 x 24 in f32) and the half-idle warps of a 64- and a 32-wide
+// product off the card.
 // The numerics are the resident kernels': the same products (3xTF32 with a
 // fresh partial per k-step, or bf16 with f32 accumulation), roundings,
 // floors and guards (max(1 - alpha, 1e-10), the `cdf < u` count with the
@@ -77,7 +90,7 @@ struct StreamArgs {
   float* depth;         // (b, n)
   void *rh, *rhc;       // residuals (b, 2, n, S, L H | C), or null
   float *ra, *rac;
-  void* hbuf;           // (2, b n S, max(H, C)) mm type: the layers' outputs without residuals
+  void* hbuf;           // (2, b n S, H) mm type: the layers' outputs without residuals
   // both
   void* xs;             // (b, 2, n, S, kXW) mm type: rounded, warped points
   float* sig;           // (b, 2, n, S) raw sigma
@@ -549,6 +562,125 @@ __global__ void bwd_reduce(const float* part_w, int nsplit, const float* fpart,
   }
 }
 
+// ---- the colour FiLM and the rgb head: one launch over a row tile ----------
+
+constexpr int kHeadC = 64;   // colour columns a slab: 8 warps of 32 rows x 32 columns
+constexpr int kHeadR = 32;   // rgb columns a slab: 8 warps of 16 rows x 32 columns
+
+struct HeadArgs {
+  cips_stream::Mat h;     // h_{L-1} (mm type): the colour FiLM's A
+  const void *wc, *wr;    // (H, C), (C, R), mm type
+  const float *bc, *br;
+  cips_stream::Vec gc, fc;
+  cips_stream::Mat hc, ac;   // the residuals rhc (mm type) and rac (f32), or p null
+  cips_stream::Mat rgb;      // (rows, R) f32
+  int nrows, H, C, R, fast_sin;
+};
+
+template <typename T>
+__host__ __device__ constexpr int head_ld() {   // the colour slab's row stride (elements)
+  return kHeadC + 16 / (int)sizeof(T);
+}
+
+template <typename T>
+__host__ __device__ constexpr size_t head_ring() {
+  using namespace cips_stream;
+  return Tile<T, T, false, kHeadC>::kBytes > Tile<T, T, false, kHeadR>::kBytes
+             ? Tile<T, T, false, kHeadC>::kBytes
+             : Tile<T, T, false, kHeadR>::kBytes;
+}
+
+template <typename T>
+__host__ __device__ constexpr size_t head_smem() {
+  return head_ring<T>() + cips_stream::al16(sizeof(T) * cips_stream::kRows * head_ld<T>());
+}
+
+// Per 128-row tile: each 64-wide slab of the colour FiLM (stream_gemm.cuh's
+// product and kFilm epilogue) into shared memory, rounded, then that slab's
+// share of the rgb head's product from it, the rgb sums kept in registers
+// across the slabs (the k order of one product over C); rgb slabs past 32
+// columns run the colour slabs again.  The colour activations never leave
+// the chip but as residuals.  Grid: row tiles, batch rows.
+template <typename T, bool kFast>
+__global__ void __launch_bounds__(cips_stream::kThreads, 2) head_kernel(HeadArgs a) {
+  using namespace cips_stream;
+  using CC = Tile<T, T, false, kHeadC>;
+  using CR = Tile<T, T, false, kHeadR>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* hcs = reinterpret_cast<T*>(smem + head_ring<T>());
+  constexpr int LH = head_ld<T>();
+  const int z = blockIdx.y, r0 = blockIdx.x * kRows, nrow = min(kRows, a.nrows - r0);
+  const Frag<CC> fc;
+  const Frag<CR> fr;
+  const ASrc<T> A{a.h.at<T>(z, r0), a.h.ld, nrow, a.H, nullptr};
+  const ASrc<T> Ah{nullptr, LH, kRows, kHeadC, hcs};
+  const float* gv = a.gc.at(z);
+  const float* sv = a.fc.at(z);
+  for (int n0r = 0; n0r < a.R; n0r += kHeadR) {
+    Acc<CR> racc;
+    zero<CR>(racc);
+    for (int n0c = 0; n0c < a.C; n0c += kHeadC) {
+      Acc<CC> cacc;
+      zero<CC>(cacc);
+      tile_product<T, T, false, kHeadC, false>(cacc, smem, A, static_cast<const T*>(a.wc), a.C,
+                                               a.H, a.H, a.C, n0c, nullptr);
+      const int kc = min(kHeadC, a.C - n0c);
+#pragma unroll
+      for (int i = 0; i < CC::kMT; ++i)
+#pragma unroll
+        for (int j = 0; j < CC::kNT; ++j) {
+          if (8 * fc.nt(j) >= kc) continue;
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int row = fc.row(i, 2 * hh), lc = fc.col(j, 0), col = n0c + lc;
+            const float a0 = cacc[i][j][2 * hh] + __ldg(a.bc + col);
+            const float a1 = cacc[i][j][2 * hh + 1] + __ldg(a.bc + col + 1);
+            const float h0 =
+                cips::round_mm<T>(film_sin<kFast>(__ldg(gv + col) * a0 + __ldg(sv + col)));
+            const float h1 = cips::round_mm<T>(
+                film_sin<kFast>(__ldg(gv + col + 1) * a1 + __ldg(sv + col + 1)));
+            store2<T>(hcs + row * LH + lc, h0, h1);
+            if (a.hc.p && n0r == 0 && row < nrow) {
+              store2<T>(a.hc.at<T>(z, r0 + row) + col, h0, h1);
+              store2<float>(a.ac.at<float>(z, r0 + row) + col, a0, a1);
+            }
+          }
+        }
+      __syncthreads();
+      tile_product<T, T, false, kHeadR, false>(racc, smem, Ah,
+                                               static_cast<const T*>(a.wr) + (long long)n0c * a.R,
+                                               a.R, kc, kc, a.R, n0r, nullptr);
+    }
+    const int nr = min(kHeadR, a.R - n0r);
+#pragma unroll
+    for (int j = 0; j < CR::kNT; ++j) {
+      if (8 * fr.nt(j) >= nr) continue;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = fr.row(0, 2 * hh), col = n0r + fr.col(j, 0);
+        if (row < nrow)
+          store2<float>(a.rgb.at<float>(z, r0 + row) + col, racc[0][j][2 * hh] + __ldg(a.br + col),
+                        racc[0][j][2 * hh + 1] + __ldg(a.br + col + 1));
+      }
+    }
+  }
+}
+
+template <typename T, bool kFast>
+cudaError_t head_launch(const HeadArgs& a, int nz, cudaStream_t st) {
+  using namespace cips_stream;
+  constexpr size_t sm = head_smem<T>();
+  cudaError_t err = prep_kernel(head_kernel<T, kFast>, sm);
+  if (err != cudaSuccess) return err;
+  head_kernel<T, kFast><<<dim3((a.nrows + kRows - 1) / kRows, nz), kThreads, sm, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t head(const HeadArgs& a, int nz, cudaStream_t st) {
+  return a.fast_sin ? head_launch<T, true>(a, nz, st) : head_launch<T, false>(a, nz, st);
+}
+
 // ---- the sequences ----------------------------------------------------------
 
 template <typename T>
@@ -563,7 +695,7 @@ int ray_blocks(const StreamArgs& a) {
 template <typename T>
 int stream_forward(const StreamArgs& a, cudaStream_t st) {
   using namespace cips_stream;
-  const int L = a.L, H = a.H, C = a.C, R = a.R, LH = L * H, Hmax = max(H, C);
+  const int L = a.L, H = a.H, C = a.C, R = a.R, LH = L * H;
   const long long nS = (long long)a.n * a.S, all = 2 * a.b * nS;
   const Offsets o(L, H, C, R);
   const bool res = a.rh != nullptr;
@@ -575,10 +707,8 @@ int stream_forward(const StreamArgs& a, cudaStream_t st) {
     // a layer's output rows: the residuals, or a pair of scratch rows per point
     auto hmat = [&](int l) {
       return res ? Mat{a.rh, 2 * nS, p0, LH, l * H}
-                 : Mat{static_cast<T*>(a.hbuf) + (l & 1) * (all / 2) * Hmax, nS, 0, Hmax, 0};
+                 : Mat{static_cast<T*>(a.hbuf) + (l & 1) * (all / 2) * H, nS, 0, H, 0};
     };
-    const Mat cmat = res ? Mat{a.rhc, 2 * nS, p0, C, 0}
-                         : Mat{static_cast<T*>(a.hbuf) + (L & 1) * (all / 2) * Hmax, nS, 0, Hmax, 0};
     for (int l = 0; l < L; ++l) {
       GemmArgs g = {};
       g.a = l == 0 ? Mat{a.xs, 2 * nS, p0, kXW, 0} : hmat(l - 1);
@@ -600,34 +730,25 @@ int stream_forward(const StreamArgs& a, cudaStream_t st) {
     sigma_rows<T><<<dim3((unsigned)((nS + kRayWarps - 1) / kRayWarps), a.b), kRayThreads, 0, st>>>(
         hmat(L - 1), wmat<T>(a, o.ws), a.pbuf + o.bs, H, (int)nS, Mat{a.sig, 2 * nS, p0, 1, 0});
     CIPS_TRY(cudaGetLastError());
-    GemmArgs g = {};   // the colour FiLM
-    g.a = hmat(L - 1);
-    g.akvalid = H;
-    g.w = wmat<T>(a, o.wc);
-    g.ldw = C;
-    g.wvalid = H;
-    g.nrows = (int)nS;
-    g.K = H;
-    g.N = C;
-    g.out = cmat;
-    if (res) g.out_a = Mat{a.rac, 2 * nS, p0, C, 0};
-    g.bias = Vec{a.pbuf + o.bc, 0};
-    g.gain = Vec{a.films + o.gc, a.nfilm};
-    g.shift = Vec{a.films + o.gc + C, a.nfilm};
-    g.fast_sin = a.fast_sin;
-    CIPS_TRY((gemm<T, T, false, kFilm>(g, a.b, st)));
-    g = {};            // the rgb head
-    g.a = cmat;
-    g.akvalid = C;
-    g.w = wmat<T>(a, o.wr);
-    g.ldw = R;
-    g.wvalid = C;
-    g.nrows = (int)nS;
-    g.K = C;
-    g.N = R;
-    g.out = Mat{a.rgb, 2 * nS, p0, R, 0};
-    g.bias = Vec{a.pbuf + o.br, 0};
-    CIPS_TRY((gemm<T, T, false, kLinear>(g, a.b, st)));
+    HeadArgs hd = {};   // the colour FiLM and the rgb head
+    hd.h = hmat(L - 1);
+    hd.wc = wmat<T>(a, o.wc);
+    hd.wr = wmat<T>(a, o.wr);
+    hd.bc = a.pbuf + o.bc;
+    hd.br = a.pbuf + o.br;
+    hd.gc = Vec{a.films + o.gc, a.nfilm};
+    hd.fc = Vec{a.films + o.gc + C, a.nfilm};
+    if (res) {
+      hd.hc = Mat{a.rhc, 2 * nS, p0, C, 0};
+      hd.ac = Mat{a.rac, 2 * nS, p0, C, 0};
+    }
+    hd.rgb = Mat{a.rgb, 2 * nS, p0, R, 0};
+    hd.nrows = (int)nS;
+    hd.H = H;
+    hd.C = C;
+    hd.R = R;
+    hd.fast_sin = a.fast_sin;
+    CIPS_TRY(head<T>(hd, a.b, st));
     if (pass == 0) {
       rays_resample<T><<<ray_blocks(a), kRayThreads, 0, st>>>(a, rows);
       CIPS_TRY(cudaGetLastError());
@@ -769,7 +890,7 @@ StreamArgs common_args(const void* pts, const void* org, const void* dir, const 
 // The streamed forward (#2; #2r with rh, ra, rhc, rac all set).  Inputs,
 // weights, outputs and residuals as cips_ray_tile_forward's, at widths that
 // are multiples of 16 and any S >= 2.  Scratch: xs (b, 2, n, S, 8) and, without
-// residuals, hbuf (2, b n S, max(H, C)) in the mm type; sig (b, 2, n, S), rgb
+// residuals, hbuf (2, b n S, H) in the mm type; sig (b, 2, n, S), rgb
 // (b, 2, n, S, R) and rows (b n, 14, 2S) f32.  Returns the CUDA error of the
 // launches (0 on success).
 extern "C" int cips_ray_tile_forward_streamed(
@@ -845,13 +966,24 @@ extern "C" int cips_ray_tile_streamed_ray_rows() { return kRayRows; }
 
 // The largest dynamic shared memory of any streamed ray-tile kernel (bytes)
 // with f32 (mm_bf16 0) or bf16 products: the same at every shape.
-extern "C" int cips_ray_tile_streamed_smem(int mm_bf16) {
+template <typename T>
+size_t streamed_smem() {
   using namespace cips_stream;
   constexpr int kw = cips_wgrad::kWMaxWidth;
-  if (mm_bf16)
-    return (int)max(gemm_smem<__nv_bfloat16, __nv_bfloat16, true, kFilmBwd>(),
-                    cips_wgrad::wg_smem<__nv_bfloat16>(kw, kw));
-  return (int)max(gemm_smem<float, float, true, kFilmBwd>(), cips_wgrad::wg_smem<float>(kw, kw));
+  size_t m = cips_wgrad::wg_smem<T>(kw, kw);
+  m = max(m, gemm_smem_max<T, T, false, kFilm>());
+  m = max(m, gemm_smem_max<T, T, true, kFilmBwd>());
+  return max(m, head_smem<T>());
+}
+
+extern "C" int cips_ray_tile_streamed_smem(int mm_bf16) {
+  return (int)(mm_bf16 ? streamed_smem<__nv_bfloat16>() : streamed_smem<float>());
+}
+
+// The streamed products' block tile: which 0 its rows (the chunk of the
+// backward's FiLM sums), 1 its widest columns (the slab of the INR's ToRGB sums).
+extern "C" int cips_stream_tile(int which) {
+  return which == 0 ? cips_stream::kRows : cips_stream::kSlab;
 }
 
 // The current device's opt-in limit of dynamic shared memory a block (bytes).

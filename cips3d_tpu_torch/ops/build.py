@@ -50,8 +50,9 @@ _SIGNATURES = {
     "cips_ray_tile_backward_streamed": [_P] * 28 + [_I] * 10 + [_F] + [_I] * 4 + [_P],
     "cips_ray_tile_streamed_ray_rows": [],
     "cips_ray_tile_streamed_smem": [_I],
-    "cips_inr_tile_forward_streamed": [_P] * 11 + [_I] * 6 + [_P],
+    "cips_inr_tile_forward_streamed": [_P] * 12 + [_I] * 6 + [_P],
     "cips_inr_tile_streamed_smem": [_I],
+    "cips_stream_tile": [_I],
     "cips_smem_optin": [_P],
 }
 # byte counts of the resident layouts (long long)
@@ -59,6 +60,7 @@ _SIGNATURES_LL = {
     "cips_ray_tile_forward_smem": [_I] * 6,
     "cips_ray_tile_backward_smem": [_I] * 6,
     "cips_inr_tile_smem": [_I],
+    "cips_inr_tile_streamed_wsplit": [_I, _I],
 }
 
 

@@ -198,13 +198,19 @@ def inr_tile_cuda(x: torch.Tensor, s: torch.Tensor, d: torch.Tensor, weights: In
     bf16 = int(mm_dtype == torch.bfloat16)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if streamed:   # two activation planes and the ToRGB sums, from the caching allocator
+        if streamed:   # activation planes, ToRGB slab sums, a layer's split weights: from the
+                       # caching allocator
             planes = torch.empty((2, b, n, D), dtype=torch.float32, device=dev)
-            rgb = torch.empty((b, n, 3), dtype=torch.float32, device=dev)
+            nslab = -(-D // lib.cips_stream_tile(1))
+            rgb = torch.empty((n_blocks - FIRST_RGB, b, n, nslab, 3), dtype=torch.float32,
+                              device=dev)
+            wsplit = torch.empty((lib.cips_inr_tile_streamed_wsplit(D, bf16),), dtype=torch.uint8,
+                                 device=dev)
             err = lib.cips_inr_tile_forward_streamed(
                 x.data_ptr(), s.data_ptr(), d.data_ptr(), w0.data_ptr(), wrest.data_ptr(),
                 wr.data_ptr(), br.data_ptr(), out.data_ptr(), planes[0].data_ptr(),
-                planes[1].data_ptr(), rgb.data_ptr(), b, n, in0, D, n_blocks, bf16, stream)
+                planes[1].data_ptr(), rgb.data_ptr(), wsplit.data_ptr(), b, n, in0, D, n_blocks,
+                bf16, stream)
         else:
             if lib.cips_inr_tile_pixels() != TILE_PIXELS:
                 raise RuntimeError("the kernel library's tile is not TILE_PIXELS")

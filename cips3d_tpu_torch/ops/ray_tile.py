@@ -57,7 +57,6 @@ WIDTH_STEP = 16    # widths in multiples of 16 (one bf16 k-step): the wrappers z
 BLOCK_RAYS = 16    # rays per block of the forward and of the backward's cotangent kernel
 SPLIT_ROWS = 2048  # points per block of the backward's weight-grad kernels (a multiple of 32)
 POINT_WIDTH = 8    # row of the backward's point scratch (3 used)
-STREAM_ROWS = 64   # points per block of the streamed path's products
 RAY_ROWS = 14      # rows of 2S floats of device scratch a ray of the streamed path takes
 SMEM_OPTIN = 232448   # an H100's opt-in shared memory a block (bytes); the card's own is read
 
@@ -715,7 +714,7 @@ def _launch_forward_streamed(lib, inputs, packed, dims, noise_std, res, *, clamp
     fea = torch.empty((b, n, R), dtype=out_dtype, device=dev)
     depth = torch.empty((b, n, 1), dtype=torch.float32, device=dev)
     xs = torch.empty((b, 2, n, S, POINT_WIDTH), dtype=mm_dtype, device=dev)
-    hbuf = None if res else torch.empty((2, b * n * S, max(H, C)), dtype=mm_dtype, device=dev)
+    hbuf = None if res else torch.empty((2, b * n * S, H), dtype=mm_dtype, device=dev)
     sig = torch.empty((b, 2, n, S), dtype=torch.float32, device=dev)
     rgb = torch.empty((b, 2, n, S, R), dtype=torch.float32, device=dev)
     rows = torch.empty((b * n, RAY_ROWS, 2 * S), dtype=torch.float32, device=dev)
@@ -731,6 +730,13 @@ def _launch_forward_streamed(lib, inputs, packed, dims, noise_std, res, *, clamp
             int(last_back), _flags(noise_std, fast_sin, mm_dtype, out_dtype), stream)
     build.check(lib, err, "ray_tile (streamed)")
     return fea, depth
+
+
+def stream_rows(lib) -> int:
+    """Points per row tile of the streamed products (`csrc/stream_gemm.cuh`'s
+    ``kRows``, as the library reports it): the chunk of the streamed
+    backward's per-chunk FiLM and bias sums."""
+    return lib.cips_stream_tile(0)
 
 
 def ray_path_of(wt, pts, mm_dtype=torch.float32) -> Optional[str]:
@@ -869,7 +875,7 @@ def ray_tile_bwd_cuda(
         tail = [float(warp_scale), int(clamp_mode == "softplus"), int(white_back),
                 int(last_back), flags, stream]
         if streamed:
-            nchunk = -(-(n * S) // STREAM_ROWS)
+            nchunk = -(-(n * S) // stream_rows(lib))
             sig = torch.empty((b, 2, n, S), dtype=torch.float32, device=dev)
             rgb = torch.empty((b, 2, n, S, R), dtype=torch.float32, device=dev)
             rows = torch.empty((b * n, RAY_ROWS, 2 * S), dtype=torch.float32, device=dev)

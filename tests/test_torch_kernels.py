@@ -1099,3 +1099,127 @@ def test_resident_path_takes_two_samples(cuda_device, mm_dtype):
                                          mm_dtype=mm_dtype)
     for a, b in zip(ga, gb):
         assert _grad_err(a, b) < BWD_TOL[mm_dtype]
+
+
+# the streamed products' edges (`csrc/stream_gemm.cuh`: 128-row tiles, 128 / 64 / 32-column
+# tiles, 16-deep (f32) or 32-deep (bf16) panels; the head kernel's 64-column colour slabs and
+# 32-column rgb slabs): ragged rows over b = 2 batch rows, widths off the tiles, depths off
+# the panels
+CORE_RAY_SHAPES = {
+    "C64_R32_ragged": dict(hidden=128, rgb=32, n=37, steps=10),       # 370 rows a batch row
+    "H48_C48_R16": dict(hidden=48, color=48, rgb=16, n=45, steps=6),  # half tiles, half panels
+    "H96_C144_R48": dict(hidden=96, color=144, rgb=48, n=29, steps=9),  # 3 colour, 2 rgb slabs
+}
+CORE_INR_SHAPES = {
+    "D528_in48": dict(D=528, in0=48, n=133, b=2),   # D padded to 576: 4.5 column tiles
+    "D576_in16": dict(D=576, in0=16, n=129, b=3),   # the first K under one bf16 panel
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mm_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", list(CORE_RAY_SHAPES))
+def test_stream_core_ray_edges(cuda_device, shape, mm_dtype):
+    """#2, #2r and #3 (residual mode) on the streamed path at shapes off the
+    new core's tiles, against the plain version; twice, bit for bit."""
+    kw = dict(CORE_RAY_SHAPES[shape])
+    n = kw.pop("n")
+    wt, args = _ray_inputs(cuda_device, n=n, **kw)
+    d_fea, d_dep = _cotangents(cuda_device, n, kw["rgb"])
+    tol = F32_TOL if mm_dtype == torch.float32 else RAY_BF16_WIDE_TOL
+
+    def run():
+        fea, dep = ray_tile.ray_tile_cuda(wt, *args, 0.0, mm_dtype=mm_dtype, path="streamed")
+        fr, dr, res = ray_tile.ray_tile_cuda(wt, *args, 0.0, mm_dtype=mm_dtype,
+                                             with_residuals=True, path="streamed")
+        g, p = ray_tile.ray_tile_bwd_cuda(wt, *args, 0.0, d_fea, d_dep, residuals=res,
+                                          mm_dtype=mm_dtype, path="streamed")
+        return [fea, dep, fr, dr, *res, *g, p]
+
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    fb, db, rb = ray_tile.ray_tile_plain(wt, *args, 0.0, mm_dtype=mm_dtype, with_residuals=True)
+    for x, y in ((got[0], fb), (got[1], db), (got[2], fb), (got[3], db)):
+        _close(x, y, tol)
+    for x, y in zip(got[4:8], rb):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        assert _points_outside(x, y, dict(rtol=tol["rtol"], atol=tol["atol"] * 20)) <= 1e-3
+    gb, pb = ray_tile.ray_tile_bwd_plain(wt, *args, 0.0, d_fea, d_dep, residuals=got[4:8],
+                                         mm_dtype=mm_dtype)
+    for i, (a, b) in enumerate(zip(got[8:-1], gb)):
+        assert a.shape == b.shape
+        assert _grad_err(a, b) < BWD_TOL[mm_dtype], f"grad {i}: {_grad_err(a, b):.3e}"
+    assert _rays_outside(got[-1], pb, 1e-4 if mm_dtype == torch.float32 else 1e-2) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mm_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", list(CORE_INR_SHAPES))
+def test_stream_core_inr_edges(cuda_device, shape, mm_dtype):
+    """#1 on the streamed path (the ToRGB in the products' epilogues) at
+    widths and depths off the new core's tiles, b > 1, against the plain
+    version; twice, bit for bit."""
+    x, s, d, w = _inr_inputs(cuda_device, 9, **CORE_INR_SHAPES[shape])
+    out = inr_tile.inr_tile_cuda(x, s, d, w, mm_dtype=mm_dtype, path="streamed")
+    again = inr_tile.inr_tile_cuda(x, s, d, w, mm_dtype=mm_dtype, path="streamed")
+    ref = inr_tile.inr_tile_plain(x, s, d, w, mm_dtype=mm_dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    _close(out, ref, F32_TOL if mm_dtype == torch.float32 else INR_BF16_WIDE_TOL)
+
+
+@pytest.mark.gpu
+def test_stream_rows_are_the_library_tile(cuda_device):
+    """The streamed backward's per-chunk sums are sized by the library's own
+    row tile (`cips_stream_tile`), which the wrapper reads: at n S one row
+    past a whole number of tiles the last chunk (one row a batch row) still
+    counts in the FiLM and bias grads."""
+    lib = build.library()
+    rows = ray_tile.stream_rows(lib)
+    assert rows == lib.cips_stream_tile(0) and rows % 16 == 0
+    assert lib.cips_stream_tile(1) % rows == 0 or rows % lib.cips_stream_tile(1) == 0
+    steps = 4
+    n = (2 * rows + 1 + steps - 1) // steps   # n S past 2 tiles
+    wt, args = _ray_inputs(cuda_device, n=n, steps=steps, hidden=32, rgb=16)
+    assert (n * steps) % rows != 0
+    d_fea, d_dep = _cotangents(cuda_device, n, 16)
+    ga, _ = ray_tile.ray_tile_bwd_cuda(wt, *args, 0.0, d_fea, d_dep, path="streamed")
+    gb, _ = ray_tile.ray_tile_bwd_plain(wt, *args, 0.0, d_fea, d_dep)
+    for i, (a, b) in enumerate(zip(ga, gb)):
+        assert _grad_err(a, b) < BWD_TOL[torch.float32], f"grad {i}: {_grad_err(a, b):.3e}"
+
+
+def test_stream_split_names_each_launch():
+    """`tools/stream_split.py` names each launch of a streamed call from the
+    kernels' names in launch order (a product a layer, the colour FiLM and
+    rgb head as one launch, the ToRGB in the products' epilogues, any other
+    launch by its kernel's name), and counts each product's FLOPs from the
+    shapes."""
+    from cips3d_tpu_torch.tools import stream_split as ss
+
+    g = "void cips_stream::gemm_kernel<float, float, false, 128, 0>(cips_stream::GemmArgs)"
+    ray = ["void at::native::CatArrayBatchedCopy_vectorized<a>(b)",
+           "void (anonymous namespace)::coarse_points<float>(StreamArgs)"]
+    for p in range(2):
+        ray += [g] * 3 + ["void (anonymous namespace)::sigma_rows<float>(x)",
+                          "void (anonymous namespace)::head_kernel<float>(HeadArgs)"]
+        ray += ["void (anonymous namespace)::rays_resample<float>(a)"] if p == 0 else []
+    ray.append("void (anonymous namespace)::rays_composite(a, b)")
+    st = ss._ray_stages(ray, 1, 100, 24, 3, 128, 64, 32)[1:]
+    assert ss._ray_stages(ray, 1, 100, 24, 3, 128, 64, 32)[0] == (
+        "CatArrayBatchedCopy_vectorized", None, None)
+    assert [s[0] for s in st][:7] == [
+        "coarse_points", "pass 0 layer 0 product (K=16, N=128)",
+        "pass 0 layer 1 product (K=128, N=128)", "pass 0 layer 2 product (K=128, N=128)",
+        "pass 0 sigma_rows", "pass 0 colour FiLM + rgb head (K=128, N=64; K=64, N=32)",
+        "rays_resample"]
+    assert st[8][0].startswith("pass 1 layer 1") and st[-1][0] == "rays_composite"
+    assert st[2][1] == 2 * 2400 * 128 * 128 and st[5][1] == 2 * 2400 * (128 * 64 + 64 * 32)
+    inr = [g] * 18 + ["void (anonymous namespace)::rgb_out(a)"]
+    st = ss._inr_stages(inr, 1, 64, 32, 1024)
+    assert st[0] == ("layer 0 product (K=32, N=1024)", 2 * 64 * 32 * 1024,
+                     4 * (64 * 32 + 32 * 1024 + 64 * 1024))
+    assert st[7][0].endswith("ToRGB in the epilogue") and not st[6][0].endswith("epilogue")
+    assert st[-1] == ("rgb_out", None, None)
