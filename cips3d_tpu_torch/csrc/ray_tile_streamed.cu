@@ -11,36 +11,41 @@
 // as a sequence of launches on one stream over device memory:
 //   forward, per pass (coarse, then fine), point rows (b, 2, n, S):
 //     each FiLM-SIREN layer as one tensor-core product (stream_gemm.cuh:
-//     128 points a tile), its epilogue (bias, FiLM,
-//     sine, rounding) writing the layer's output h (mm type) to the
-//     residual rows, or to a scratch pair when no residuals are asked; the
-//     sigma head by ray_mlp.cuh's sigma_head, a warp a point; the colour
-//     FiLM and the rgb head as one launch (head_kernel): per 128-point tile
-//     the colour activations of each 64-column slab stay in shared memory,
-//     rounded, and feed that slab's share of the rgb product at once, the
-//     rgb sums kept in registers across the slabs; between the passes the
+//     128 points a tile), its epilogue (bias, FiLM, sine, rounding) writing
+//     the layer's output h (mm type) to the residual rows, or to a scratch
+//     pair when no residuals are asked; with residuals and the exact sine
+//     the product writes a = acc + b alone and film_sine takes the sine
+//     after it; the sigma head by ray_mlp.cuh's sigma_head, a warp a point;
+//     the colour FiLM and the rgb head as one launch (head_kernel: per
+//     128-point tile the colour activations of each 64-column slab stay in
+//     shared memory, rounded, and feed that slab's share of the rgb product
+//     at once), or, with residuals and the exact sine, as the colour
+//     product, its film_sine and the rgb product; between the passes the
 //     resample, after them the compositing: a warp a ray, every per-sample
 //     quantity in a row of device scratch (RayRow), loops over the samples
 //     in the resident order (sample j on lane j % 32, the same serial prefix
 //     sums), so no register array bounds S;
 //   backward: sigma and rgb of both passes from the residuals, the per-ray
 //     resample, compositing forward and backward (the resident phase B), the
-//     rounded cotangents d rgb and d sigma, then per pass the d-input chain
-//     as products with W^T, each epilogue writing the rounded d a of its
-//     layer and the tile's bias and FiLM sums (a fixed owner per column);
-//     the weight grads as wgrad.cuh's split-K product in 128 x 128 tiles of
-//     each matrix, and a reduction of every partial in a fixed order.  No
+//     rounded cotangents d rgb and d sigma, then per pass the d-input chain:
+//     each layer's product with W^T writing x = d h (+ d sigma ws), then
+//     film_backward at full occupancy (sin' of the layer, the rounded d a,
+//     and each 128-row chunk's FiLM and bias sums in a fixed order); the
+//     weight grads as products with X^T, the points as the depth (every
+//     matrix of one width in one launch, split_rows points a split); and
+//     column sums of every partial over the card, in a fixed order.  No
 //     float atomics: two runs give the same bits.
-// What bounds it on an H100 (PERF.md, tools/stream_split.py): at
-// depth 3, r128 x 24 the products took 93 % of the forward's device time
-// (4.69 ms) before this design and take 89 % of 2.83 ms with it; a K = 128
-// layer moves 400 MB (h in and out, f32) and does 12.9 GFLOP, and runs on
-// the tensor cores' issue and its tiles' epilogues; the per-ray kernels
-// take about 0.15 ms.  So the forward's design work is the
-// product's (stream_gemm.cuh) and the head's fusion, which takes the colour
-// activations' round trip through device memory (100 MB each way a pass
-// at r128 x 24 in f32) and the half-idle warps of a 64- and a 32-wide
-// product off the card.
+// What bounds it on an H100 (PERF.md §6, tools/stream_split.py, depth 3,
+// r64, b = 4, S = 12, f32): the products run on the tensor cores' issue,
+// 3xTF32 on mma.sync, at 35 TFLOP/s (a K = 128 layer, forward or d-input,
+// 182-184 us).  sinf's and cosf's range reductions in a product's epilogue
+// ran at its 16 warps a SM with nothing to overlap them (180-300 us a
+// product); here the exact sine and the whole FiLM backward run in launches
+// of their own at up to 64 warps a SM (film_sine 80 us a layer,
+// film_backward 122), the weight grads reuse the core's fragments, and the
+// partials are summed over the card (about 40 us).  The weight grads take
+// two fifths of #3's device time (1.69 of 4.24 ms), at the products' issue
+// rate on 64- and 32-column tiles.
 // The numerics are the resident kernels': the same products (3xTF32 with a
 // fresh partial per k-step, or bf16 with f32 accumulation), roundings,
 // floors and guards (max(1 - alpha, 1e-10), the `cdf < u` count with the
@@ -51,7 +56,8 @@
 #include "ray_mlp.cuh"
 #include "ray_tile.cuh"
 #include "stream_gemm.cuh"
-#include "wgrad.cuh"
+
+#include <vector>
 
 namespace {
 
@@ -62,6 +68,7 @@ using cips_stream::Vec;
 constexpr int kRayWarps = 8;                // rays per block of the per-ray kernels
 constexpr int kRayThreads = 32 * kRayWarps;
 constexpr int kXW = 8;                      // row of the point scratch (3 used)
+constexpr int kSumGroups = 4;               // row groups of a batch row's FiLM and bias sums
 
 // A ray's rows of device scratch, each of M = 2S floats, samples in [fine,
 // coarse] arrival order (the rank row holds ints).
@@ -101,6 +108,8 @@ struct StreamArgs {
   void* dq;             // (b, 2, n, S, cot width) mm type: rounded cotangents
   float *fpart, *bpart; // (b, 2, nchunk, 3 (L H + C)), (b, 2, nchunk, R + 1)
   float* part_w;        // (nsplit, nw)
+  float* sums;          // (b, kSumGroups, 3 (L H + C) + R + 1): fpart's and bpart's group sums
+  float* xbuf;          // (b, n S, max(H, C)): a layer's d-input product before its FiLM backward
   float *dpts, *out_w, *out_f;
   int nsplit, split_rows;
 };
@@ -430,135 +439,190 @@ __global__ void __launch_bounds__(kRayThreads) sigma_rows(Mat h, const T* ws, co
   if ((threadIdx.x & 31) == 0) *sig.at<float>(z, r) = v;
 }
 
-// d rgb = w d fea and d sigma of one 64-point chunk of one pass: their sums
-// (d br, d bs: a thread a column, the rows in order) and their rounded
-// values in the cotangent rows.  Grid (nchunk, 2, b).
+// The exact sine of a FiLM layer after its kFilmA product (which wrote a =
+// acc + b): h = round(sin(g a + f)), at the card's full occupancy, where
+// sinf's range reduction in the product's epilogue would stall its tile.
+// The same sinf and roundings as the fused epilogue.  Four columns a
+// thread; grid (rows N / 4 over 256 threads, batch rows).
+template <typename T>
+__global__ void __launch_bounds__(256) film_sine(Mat a_in, Mat out, Vec gain, Vec shift, int nrows,
+                                                 int N) {
+  const int z = blockIdx.y, nq = N / 4;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)nrows * nq) return;
+  const int r = (int)(i / nq), c = (int)(i % nq) * 4;
+  const float4 av = *reinterpret_cast<const float4*>(a_in.at<float>(z, r) + c);
+  const float4 gv = __ldg(reinterpret_cast<const float4*>(gain.at(z) + c));
+  const float4 fv = __ldg(reinterpret_cast<const float4*>(shift.at(z) + c));
+  T* o = out.at<T>(z, r) + c;
+  cips_stream::store2<T>(o, cips::round_mm<T>(sinf(gv.x * av.x + fv.x)),
+                         cips::round_mm<T>(sinf(gv.y * av.y + fv.y)));
+  cips_stream::store2<T>(o + 2, cips::round_mm<T>(sinf(gv.z * av.z + fv.z)),
+                         cips::round_mm<T>(sinf(gv.w * av.w + fv.w)));
+}
+
+template <typename T>
+cudaError_t film_sine_launch(Mat a_in, Mat out, Vec gain, Vec shift, long long nrows, int N,
+                             int nz, cudaStream_t st) {
+  film_sine<T><<<dim3((unsigned)((nrows * (N / 4) + 255) / 256), nz), 256, 0, st>>>(
+      a_in, out, gain, shift, (int)nrows, N);
+  return cudaGetLastError();
+}
+
+// The FiLM backward of a layer after its d-input product (kFilmBwd wrote x =
+// d h + d sigma ws, f32), at the card's full occupancy: d arg = x sin'(g a +
+// f), round(d arg g) to the cotangent rows, and per 128-row chunk the sums
+// d g = sum d arg a, d f = sum d arg, d b = sum d arg g into the chunk's
+// partial row (part: [d g | d f | d b] of N each).  A block a (chunk, 128
+// columns, batch row): a thread a column pair, four row groups of 32 rows,
+// each summed in order, then the groups in order.  No atomics.
+template <typename T, bool kFast>
+__global__ void __launch_bounds__(256) film_backward(Mat x, Mat ares, Mat out, Vec gain, Vec shift,
+                                                Mat part, int nrows, int N) {
+  __shared__ float red[4][3][128];
+  const int chunk = blockIdx.x, c0 = blockIdx.y * 128, z = blockIdx.z;
+  const int cp = threadIdx.x & 63, grp = threadIdx.x >> 6, col = c0 + 2 * cp;
+  const int r0 = chunk * cips_stream::kRows, nrow = min(cips_stream::kRows, nrows - r0);
+  float s[3][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
+  if (col < N) {
+    const float2 gv = __ldg(reinterpret_cast<const float2*>(gain.at(z) + col));
+    const float2 fv = __ldg(reinterpret_cast<const float2*>(shift.at(z) + col));
+    const int rend = min(nrow, 32 * grp + 32);
+#pragma unroll 4
+    for (int i = 32 * grp; i < rend; ++i) {
+      const int r = r0 + i;
+      const float2 xv = *reinterpret_cast<const float2*>(x.at<float>(z, r) + col);
+      const float2 av = *reinterpret_cast<const float2*>(ares.at<float>(z, r) + col);
+      const float d0 = xv.x * cips_stream::sin_grad<kFast>(gv.x * av.x + fv.x);
+      const float d1 = xv.y * cips_stream::sin_grad<kFast>(gv.y * av.y + fv.y);
+      const float da0 = d0 * gv.x, da1 = d1 * gv.y;
+      cips_stream::store2<T>(out.at<T>(z, r) + col, cips::round_mm<T>(da0), cips::round_mm<T>(da1));
+      s[0][0] += d0 * av.x;
+      s[0][1] += d1 * av.y;
+      s[1][0] += d0;
+      s[1][1] += d1;
+      s[2][0] += da0;
+      s[2][1] += da1;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    red[grp][k][2 * cp] = s[k][0];
+    red[grp][k][2 * cp + 1] = s[k][1];
+  }
+  __syncthreads();
+  float* pr = part.at<float>(z, chunk);
+  for (int i = threadIdx.x; i < 3 * 128; i += 256) {
+    const int k = i / 128, lc = i % 128;
+    if (c0 + lc >= N) continue;
+    pr[k * N + c0 + lc] = ((red[0][k][lc] + red[1][k][lc]) + red[2][k][lc]) + red[3][k][lc];
+  }
+}
+
+// d rgb = w d fea and d sigma of one 128-point chunk of one pass: their
+// sums (d br, d bs: a lane a column, the block's warps across the rows,
+// then the warps in order) and their rounded values in the cotangent rows.
+// Grid (nchunk, 2, b).
 template <typename T>
 __global__ void __launch_bounds__(kRayThreads) bwd_prep(StreamArgs a, Rows rows, int nchunk) {
   const int chunk = blockIdx.x, pass = blockIdx.y, bi = blockIdx.z, S = a.S, R = a.R;
-  const long long nS = (long long)a.n * S;
-  const long long q0 = (long long)chunk * cips_stream::kRows;
-  const int nrow = (int)min((long long)cips_stream::kRows, nS - q0);
+  const int nS = a.n * S, q0 = chunk * cips_stream::kRows;
+  const int nrow = min(cips_stream::kRows, nS - q0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const Cot cot(a.L, a.H, a.C, R);
   auto at = [&](int i, long long& ray) {   // the chunk's row i: its ray and sample slot
-    const long long q = q0 + i;
+    const int q = q0 + i;
     ray = (long long)bi * a.n + q / S;
-    return pass ? (int)(q % S) : S + (int)(q % S);
+    return pass ? q % S : S + q % S;
   };
   float* bp = a.bpart + (((long long)bi * 2 + pass) * nchunk + chunk) * (R + 1);
-  for (int c = threadIdx.x; c <= R; c += kRayThreads) {
+  T* dq = static_cast<T*>(a.dq) + (((long long)bi * 2 + pass) * nS + q0) * cot.width;
+  __shared__ float red[kRayWarps][32];
+  // a lane a column (d rgb, d sigma and its 7 zeros); warp w takes rows w, w + 8, ..
+  for (int c0 = 0; c0 < R + 8; c0 += 32) {
+    const int c = c0 + lane;
     float s = 0.f;
-    for (int i = 0; i < nrow; ++i) {
+    for (int i = warp; i < nrow; i += kRayWarps) {
       long long ray;
       const int j = at(i, ray);
-      s += c < R ? rows.row(ray, kW)[j] * a.dfea[ray * R + c] : rows.row(ray, kDsig)[j];
+      T* d = dq + (long long)i * cot.width;
+      if (c < R) {
+        const float v = rows.row(ray, kW)[j] * a.dfea[ray * R + c];
+        s += v;
+        d[cot.drgb + c] = cips::from_f<T>(cips::round_mm<T>(v));
+      } else if (c == R) {
+        const float v = rows.row(ray, kDsig)[j];
+        s += v;
+        d[cot.dsig] = cips::from_f<T>(cips::round_mm<T>(v));
+      } else if (c < R + 8) {
+        d[cot.dsig + c - R] = cips::from_f<T>(0.f);
+      }
     }
-    bp[c] = s;
-  }
-  T* dq = static_cast<T*>(a.dq) + (((long long)bi * 2 + pass) * nS + q0) * cot.width;
-  for (int i = threadIdx.x; i < nrow * (R + 8); i += kRayThreads) {
-    const int row = i / (R + 8), c = i % (R + 8);
-    long long ray;
-    const int j = at(row, ray);
-    T* d = dq + (long long)row * cot.width;
-    if (c < R)
-      d[cot.drgb + c] = cips::from_f<T>(cips::round_mm<T>(rows.row(ray, kW)[j] * a.dfea[ray * R + c]));
-    else
-      d[cot.dsig + c - R] = cips::from_f<T>(c == R ? cips::round_mm<T>(rows.row(ray, kDsig)[j]) : 0.f);
+    red[warp][lane] = s;
+    __syncthreads();
+    if (warp == 0 && c <= R) {   // the warps' sums in order
+      float t = 0.f;
+#pragma unroll
+      for (int w = 0; w < kRayWarps; ++w) t += red[w][lane];
+      bp[c] = t;
+    }
+    __syncthreads();
   }
 }
 
-// ---- weight grads in tiles, then every sum in a fixed order ------------------
+// ---- every sum in a fixed order, spread over the card --------------------------
 
-struct WtArgs {
-  const void *xs, *rh, *rhc, *dq;
-  float* part_w;       // (nsplit, nw)
-  long long rows;      // points of the call, both passes
-  int split_rows, L, H, C, R;
-};
+// out[(z groups + q) ncols + c] = the sum over rows [q gr, (q + 1) gr) of batch
+// row z's nrows rows of `in` ((nz, nrows, ncols) f32), gr = ceil(nrows /
+// groups): warp w of the block sums rows w, w + 8, .. in order, a lane a
+// column, then the 8 warps' sums in order.  No atomics.  Grid: (column
+// blocks of 32, nz groups).
+__global__ void __launch_bounds__(256) col_sums(const float* in, int nrows, int ncols, int groups,
+                                                float* out) {
+  __shared__ float red[8][32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c = blockIdx.x * 32 + lane, z = blockIdx.y / groups, q = blockIdx.y % groups;
+  const int gr = (nrows + groups - 1) / groups, rend = min(nrows, (q + 1) * gr);
+  float s = 0.f;
+  if (c < ncols) {
+    const float* p = in + (long long)z * nrows * ncols + c;
+#pragma unroll 4
+    for (int r = q * gr + warp; r < rend; r += 8) s += p[(long long)r * ncols];
+  }
+  red[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && c < ncols) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) t += red[w][lane];
+    out[(long long)blockIdx.y * ncols + c] = t;
+  }
+}
 
-// Matrix m of the grad row (w_0, w_1.., wc, ws, wr) as a product job.
-__host__ __device__ inline cips_wgrad::GemmJob wgrad_job(int m, int L, int H, int C, int R) {
+// From the group sums of fpart and bpart (col_sums): out_w's bias grads over
+// every batch row's groups in order, out_f[bi] batch row bi's FiLM grads over
+// its groups.  A thread an element.
+__global__ void bwd_gather(const float* sums, int b, int L, int H, int C, int R, float* out_w,
+                           float* out_f) {
   const Offsets o(L, H, C, R);
-  const Cot c(L, H, C, R);
-  const int LH = L * H;
-  if (m == 0) return {0, kXW, 0, 3, 0, H, (int)o.w0};
-  if (m < L) return {1, LH, (m - 1) * H, H, m * H, H, (int)(o.wl + (long long)(m - 1) * H * H)};
-  if (m == L) return {1, LH, (L - 1) * H, H, c.dac, C, (int)o.wc};
-  if (m == L + 1) return {1, LH, (L - 1) * H, H, c.dsig, 1, (int)o.ws};
-  return {2, C, 0, C, c.drgb, R, (int)o.wr};
-}
-
-__host__ __device__ inline int wgrad_tiles_of(const cips_wgrad::GemmJob& j) {
-  constexpr int w = cips_wgrad::kWMaxWidth;
-  return ((j.kin + w - 1) / w) * ((j.nout + w - 1) / w);
-}
-
-int wgrad_tile_count(int L, int H, int C, int R) {
-  int t = 0;
-  for (int m = 0; m < L + 3; ++m) t += wgrad_tiles_of(wgrad_job(m, L, H, C, R));
-  return t;
-}
-
-// Grid (nsplit, tiles): block (x, y) takes tile y of the matrices over split x's points.
-template <typename T>
-__global__ void __launch_bounds__(cips_wgrad::kWThreads) wgrad_tiles(WtArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int w = cips_wgrad::kWMaxWidth;
-  int m = 0, y = blockIdx.y;
-  cips_wgrad::GemmJob jb = wgrad_job(0, a.L, a.H, a.C, a.R);
-  while (y >= wgrad_tiles_of(jb)) {
-    y -= wgrad_tiles_of(jb);
-    jb = wgrad_job(++m, a.L, a.H, a.C, a.R);
-  }
-  const int ntn = (jb.nout + w - 1) / w, kt = y / ntn, nt = y % ntn;
-  cips_wgrad::GemmJob tile = jb;
-  tile.xcol += w * kt;
-  tile.kin = min(w, jb.kin - w * kt);
-  tile.dcol += w * nt;
-  tile.nout = min(w, jb.nout - w * nt);
-  const T* X = static_cast<const T*>(jb.x == 0 ? a.xs : jb.x == 1 ? a.rh : a.rhc);
-  const long long r0 = (long long)blockIdx.x * a.split_rows;
-  const long long r1 = min(a.rows, r0 + a.split_rows);
-  const Offsets o(a.L, a.H, a.C, a.R);
-  float* out = a.part_w + (long long)blockIdx.x * o.nw + jb.out + (long long)w * kt * jb.nout + w * nt;
-  cips_wgrad::wgrad_body<T>(X, static_cast<const T*>(a.dq), Cot(a.L, a.H, a.C, a.R).width, tile, r0,
-                            r1, out, jb.nout, smem);
-}
-
-// out_w: the weight grads summed over the splits, then the bias grads over
-// every chunk of both passes and batch rows; out_f[bi]: batch row bi's FiLM
-// grads over its chunks.  A thread an element, the partial rows in order.
-__global__ void bwd_reduce(const float* part_w, int nsplit, const float* fpart,
-                           const float* bpart, int b, int nchunk, int L, int H, int C, int R,
-                           float* out_w, float* out_f) {
-  const Offsets o(L, H, C, R);
-  const int LH = L * H, nsum = 3 * (LH + C);
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long nrows = (long long)b * 2 * nchunk;
-  if (e < o.nw) {
+  const int LH = L * H, nsum = 3 * (LH + C), G = kSumGroups;
+  const float* sb = sums + (long long)b * G * nsum;   // bpart's group sums
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e < o.nb) {
     float s = 0.f;
-    for (int sp = 0; sp < nsplit; ++sp) s += part_w[(long long)sp * o.nw + e];
-    out_w[e] = s;
-  } else if (e < o.nw + o.nb) {
-    const int i = (int)(e - o.nw);
-    float s = 0.f;
-    if (i < LH + C) {
-      const int col = i < LH ? 3 * (i / H) * H + 2 * H + i % H : 3 * LH + 2 * C + i - LH;
-      for (long long r = 0; r < nrows; ++r) s += fpart[r * nsum + col];
+    if (e < LH + C) {
+      const int col = e < LH ? 3 * (e / H) * H + 2 * H + e % H : 3 * LH + 2 * C + e - LH;
+      for (int r = 0; r < b * G; ++r) s += sums[(long long)r * nsum + col];
     } else {
-      for (long long r = 0; r < nrows; ++r) s += bpart[r * (R + 1) + i - LH - C];
+      for (int r = 0; r < b * G; ++r) s += sb[(long long)r * (R + 1) + e - LH - C];
     }
-    out_w[e] = s;
-  } else if (e < o.nw + o.nb + o.nf) {
-    const int i = (int)(e - o.nw - o.nb);
+    out_w[o.nw + e] = s;
+  } else if (e < o.nb + b * o.nf) {
+    const int bi = (e - o.nb) / o.nf, i = (e - o.nb) % o.nf;
     const int col = i < 2 * LH ? 3 * (i / (2 * H)) * H + i % (2 * H) : 3 * LH + i - 2 * LH;
-    for (int bi = 0; bi < b; ++bi) {
-      float s = 0.f;
-      for (long long r = (long long)bi * 2 * nchunk; r < (long long)(bi + 1) * 2 * nchunk; ++r)
-        s += fpart[r * nsum + col];
-      out_f[(long long)bi * o.nf + i] = s;
-    }
+    float s = 0.f;
+    for (int q = 0; q < G; ++q) s += sums[((long long)bi * G + q) * nsum + col];
+    out_f[(long long)bi * o.nf + i] = s;
   }
 }
 
@@ -699,6 +763,10 @@ int stream_forward(const StreamArgs& a, cudaStream_t st) {
   const long long nS = (long long)a.n * a.S, all = 2 * a.b * nS;
   const Offsets o(L, H, C, R);
   const bool res = a.rh != nullptr;
+  // with residuals and the exact sine, each FiLM layer is a product that writes a = acc + b and
+  // film_sine after it, and the head runs as the colour product, its sine and the rgb product
+  // (the same bits as the fused epilogues); else the sine in the products' epilogues
+  const bool split = res && !a.fast_sin;
   const Rows rows{a.rows, 2 * a.S};
   coarse_points<T><<<(unsigned)((a.b * nS * kXW + 255) / 256), 256, 0, st>>>(a);
   CIPS_TRY(cudaGetLastError());
@@ -725,11 +793,51 @@ int stream_forward(const StreamArgs& a, cudaStream_t st) {
       g.gain = Vec{a.films + 2 * l * H, a.nfilm};
       g.shift = Vec{a.films + 2 * l * H + H, a.nfilm};
       g.fast_sin = a.fast_sin;
-      CIPS_TRY((gemm<T, T, false, kFilm>(g, a.b, st)));
+      if (split) {   // the exact sine apart, at full occupancy
+        CIPS_TRY((gemm<T, T, false, kFilmA>(g, a.b, st)));
+        CIPS_TRY((film_sine_launch<T>(g.out_a, g.out, g.gain, g.shift, nS, H, a.b, st)));
+      } else {
+        CIPS_TRY((gemm<T, T, false, kFilm>(g, a.b, st)));
+      }
     }
     sigma_rows<T><<<dim3((unsigned)((nS + kRayWarps - 1) / kRayWarps), a.b), kRayThreads, 0, st>>>(
         hmat(L - 1), wmat<T>(a, o.ws), a.pbuf + o.bs, H, (int)nS, Mat{a.sig, 2 * nS, p0, 1, 0});
     CIPS_TRY(cudaGetLastError());
+    if (split) {   // the colour FiLM's product, its sine, the rgb product
+      GemmArgs g = {};
+      g.a = hmat(L - 1);
+      g.akvalid = H;
+      g.w = wmat<T>(a, o.wc);
+      g.ldw = C;
+      g.wvalid = H;
+      g.nrows = (int)nS;
+      g.K = H;
+      g.N = C;
+      g.out_a = Mat{a.rac, 2 * nS, p0, C, 0};
+      g.bias = Vec{a.pbuf + o.bc, 0};
+      g.gain = Vec{a.films + o.gc, a.nfilm};
+      g.shift = Vec{a.films + o.gc + C, a.nfilm};
+      CIPS_TRY((gemm<T, T, false, kFilmA>(g, a.b, st)));
+      const Mat hc{a.rhc, 2 * nS, p0, C, 0};
+      CIPS_TRY((film_sine_launch<T>(g.out_a, hc, g.gain, g.shift, nS, C, a.b, st)));
+      GemmArgs q = {};
+      q.a = hc;
+      q.akvalid = C;
+      q.w = wmat<T>(a, o.wr);
+      q.ldw = R;
+      q.wvalid = C;
+      q.nrows = (int)nS;
+      q.K = C;
+      q.N = R;
+      q.out = Mat{a.rgb, 2 * nS, p0, R, 0};
+      q.bias = Vec{a.pbuf + o.br, 0};
+      CIPS_TRY((gemm<T, T, false, kLinear>(q, a.b, st)));
+      if (pass == 0) {
+        rays_resample<T><<<ray_blocks(a), kRayThreads, 0, st>>>(a, rows);
+        CIPS_TRY(cudaGetLastError());
+      }
+      continue;
+    }
     HeadArgs hd = {};   // the colour FiLM and the rgb head
     hd.h = hmat(L - 1);
     hd.wc = wmat<T>(a, o.wc);
@@ -805,17 +913,22 @@ int stream_backward(const StreamArgs& a, cudaStream_t st) {
       g.nrows = (int)nS;
       g.K = K;
       g.N = N;
-      g.out = out;
-      g.ares = ares;
+      g.out_a = Mat{a.xbuf, nS, 0, N, 0};
       if (with_sigma) {
         g.dsig = dqm(cot.dsig);
         g.ws = wmat<T>(a, o.ws);
       }
-      g.part = Mat{a.fpart, 2LL * nchunk, (long long)pass * nchunk, 3 * (LH + C), foff};
-      g.gain = Vec{a.films + goff, a.nfilm};
-      g.shift = Vec{a.films + goff + shift, a.nfilm};
-      g.fast_sin = a.fast_sin;
-      return gemm<T, T, true, kFilmBwd>(g, a.b, st);
+      cudaError_t e = gemm<T, T, true, kFilmBwd>(g, a.b, st);
+      if (e != cudaSuccess) return e;
+      const Mat part{a.fpart, 2LL * nchunk, (long long)pass * nchunk, 3 * (LH + C), foff};
+      const Vec gain{a.films + goff, a.nfilm}, sh{a.films + goff + shift, a.nfilm};
+      const dim3 grid(nchunk, (N + 127) / 128, a.b);
+      const int rows = (int)nS;
+      if (a.fast_sin)
+        film_backward<T, true><<<grid, 256, 0, st>>>(g.out_a, ares, out, gain, sh, part, rows, N);
+      else
+        film_backward<T, false><<<grid, 256, 0, st>>>(g.out_a, ares, out, gain, sh, part, rows, N);
+      return cudaGetLastError();
     };
     // d hc = d rgb wr^T -> the colour FiLM
     CIPS_TRY(film_bwd(dqm(cot.drgb), R, o.wr, R, C, Mat{a.rac, 2 * nS, p0, C, 0}, o.gc, C,
@@ -842,16 +955,72 @@ int stream_backward(const StreamArgs& a, cudaStream_t st) {
       CIPS_TRY((gemm<T, T, true, kDx>(g, a.b, st)));
     }
   }
-  WtArgs w = {a.xs, a.rh, a.rhc, a.dq, a.part_w, all, a.split_rows, L, H, C, R};
-  constexpr int kw = cips_wgrad::kWMaxWidth;
-  const size_t sm = cips_wgrad::wg_smem<T>(kw, kw);
-  CIPS_TRY(cips::raise_smem(wgrad_tiles<T>, sm));
-  wgrad_tiles<T><<<dim3(a.nsplit, wgrad_tile_count(L, H, C, R)), cips_wgrad::kWThreads, sm, st>>>(w);
+  // the weight grads, X^T dQ with the points as the depth: the matrices wider than 32 columns
+  // in one launch of 64-column tiles (w_1 .., wc), the narrow ones in one of 32-column tiles
+  // (w_0 as (d a_0)^T xs, ws, wr)
+  struct Job {
+    const void* x;
+    int ldx, xcol, M;
+    const void* b;
+    int ldb, bcol, N;
+    long long out;
+    int ld, wn, trans;
+  };
+  std::vector<Job> jobs;
+  for (int l = 1; l < L; ++l)
+    jobs.push_back({a.rh, LH, (l - 1) * H, H, a.dq, cot.width, l * H, H,
+                    o.wl + (long long)(l - 1) * H * H, H, H, 0});
+  jobs.push_back({a.rh, LH, (L - 1) * H, H, a.dq, cot.width, cot.dac, C, o.wc, C, C, 0});
+  jobs.push_back({a.dq, cot.width, 0, H, a.xs, kXW, 0, kXW, o.w0, H, 3, 1});
+  jobs.push_back({a.rh, LH, (L - 1) * H, H, a.dq, cot.width, cot.dsig, 8, o.ws, 1, 1, 0});
+  jobs.push_back({a.rhc, C, 0, C, a.dq, cot.width, cot.drgb, R, o.wr, R, R, 0});
+  for (int wide = 1; wide >= 0; --wide) {
+    auto launch = [&](const WgradArgs& w) {
+      return wide ? cips_stream::wgrad<T, 64>(w, a.nsplit, st)
+                  : cips_stream::wgrad<T, 32>(w, a.nsplit, st);
+    };
+    WgradArgs w = {};
+    w.split_rows = a.split_rows;
+    w.npoints = all;
+    w.wstride = o.nw;
+    int tiles = 0;
+    for (const Job& q : jobs) {
+      if ((q.N > 32) != (wide == 1)) continue;
+      WJob& jb = w.job[w.njobs++];
+      jb.x = static_cast<const T*>(q.x) + q.xcol;
+      jb.b = static_cast<const T*>(q.b) + q.bcol;
+      jb.ldx = q.ldx;
+      jb.ldb = q.ldb;
+      jb.M = q.M;
+      jb.N = q.N;
+      jb.out = a.part_w + q.out;
+      jb.ld = q.ld;
+      jb.wn = q.wn;
+      jb.trans = q.trans;
+      jb.tile0 = tiles;
+      const int bn = wide ? 64 : 32;
+      tiles += ((q.M + kRows - 1) / kRows) * ((q.N + bn - 1) / bn);
+      if (w.njobs == kMaxJobs) {   // a full table: launch it, start the next
+        CIPS_TRY(launch(w));
+        w.njobs = tiles = 0;
+      }
+    }
+    if (w.njobs) CIPS_TRY(launch(w));
+  }
+  // the sums: the weight grads over the splits, fpart and bpart over fixed row groups, then
+  // the groups in order
+  const int nsum = 3 * (LH + C);
+  col_sums<<<dim3((unsigned)((o.nw + 31) / 32), 1), 256, 0, st>>>(a.part_w, a.nsplit, (int)o.nw, 1,
+                                                                   a.out_w);
   CIPS_TRY(cudaGetLastError());
-  const long long total = o.nw + o.nb + o.nf;
-  bwd_reduce<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(a.part_w, a.nsplit, a.fpart, a.bpart,
-                                                              a.b, nchunk, L, H, C, R, a.out_w,
-                                                              a.out_f);
+  col_sums<<<dim3((unsigned)((nsum + 31) / 32), a.b * kSumGroups), 256, 0, st>>>(
+      a.fpart, 2 * nchunk, nsum, kSumGroups, a.sums);
+  CIPS_TRY(cudaGetLastError());
+  col_sums<<<dim3((unsigned)((R + 1 + 31) / 32), a.b * kSumGroups), 256, 0, st>>>(
+      a.bpart, 2 * nchunk, R + 1, kSumGroups, a.sums + (long long)a.b * kSumGroups * nsum);
+  CIPS_TRY(cudaGetLastError());
+  const int ng = o.nb + a.b * o.nf;
+  bwd_gather<<<(ng + 255) / 256, 256, 0, st>>>(a.sums, a.b, L, H, C, R, a.out_w, a.out_f);
   return (int)cudaGetLastError();
 }
 
@@ -922,18 +1091,20 @@ extern "C" int cips_ray_tile_forward_streamed(
 // modes: recompute mode's are the wrapper's rerun of the streamed forward).
 // Scratch: xs and dq (b, 2, n, S, 8 | cot width) in the mm type; sig, rgb
 // and rows as the forward's; fpart (b, 2, nchunk, 3 (L H + C)), bpart (b, 2,
-// nchunk, R + 1) and part_w (nsplit, nw) f32, nchunk = ceil(n S / 64),
-// nsplit = ceil(b 2 n S / split_rows), split_rows a multiple of 32.  Outputs
-// as cips_ray_tile_backward's.
+// nchunk, R + 1), part_w (nsplit, nw), sums (cips_ray_tile_streamed_sums
+// floats) and xbuf (b, n S, max(H, C)) f32; nchunk = ceil(n S /
+// cips_stream_tile(0)), nsplit = ceil(b 2 n S / split_rows), split_rows a
+// multiple of 32.  Outputs as cips_ray_tile_backward's.
 extern "C" int cips_ray_tile_backward_streamed(
     const void* pts, const void* org, const void* dir, const void* z, const void* u,
     const void* nc, const void* nf, const void* noise, const void* wbuf, const void* pbuf,
     const void* films, const void* dfea, const void* ddep, const void* rh, const void* ra,
     const void* rhc, const void* rac, void* xs, void* dq, void* sig, void* rgb, void* rows,
-    void* fpart, void* bpart, void* part_w, void* dpts, void* out_w, void* out_f, int b, int n,
-    int S, int L, int H, int C, int R, int nfilm, int nsplit, int split_rows, float warp_scale,
-    int softplus, int white_back, int last_back, int flags, void* stream) {
-  if (S < 2 || L < 1 || split_rows % cips_wgrad::kWRows != 0 ||
+    void* fpart, void* bpart, void* part_w, void* sums, void* xbuf, void* dpts, void* out_w,
+    void* out_f,
+    int b, int n, int S, int L, int H, int C, int R, int nfilm, int nsplit, int split_rows,
+    float warp_scale, int softplus, int white_back, int last_back, int flags, void* stream) {
+  if (S < 2 || L < 1 || split_rows % 32 != 0 ||
       (long long)nsplit * split_rows < 2LL * b * n * S)
     return (int)cudaErrorInvalidValue;
   StreamArgs a = common_args(pts, org, dir, z, u, nc, nf, noise, wbuf, pbuf, films, b, n, S, L, H,
@@ -952,6 +1123,8 @@ extern "C" int cips_ray_tile_backward_streamed(
   a.fpart = static_cast<float*>(fpart);
   a.bpart = static_cast<float*>(bpart);
   a.part_w = static_cast<float*>(part_w);
+  a.sums = static_cast<float*>(sums);
+  a.xbuf = static_cast<float*>(xbuf);
   a.dpts = static_cast<float*>(dpts);
   a.out_w = static_cast<float*>(out_w);
   a.out_f = static_cast<float*>(out_f);
@@ -964,13 +1137,17 @@ extern "C" int cips_ray_tile_backward_streamed(
 // Rows of device scratch a ray of the streamed path takes (each 2S floats).
 extern "C" int cips_ray_tile_streamed_ray_rows() { return kRayRows; }
 
+// Floats of the streamed backward's group sums (its `sums` scratch).
+extern "C" long long cips_ray_tile_streamed_sums(int b, int L, int H, int C, int R) {
+  return (long long)b * kSumGroups * (3LL * (L * H + C) + R + 1);
+}
+
 // The largest dynamic shared memory of any streamed ray-tile kernel (bytes)
 // with f32 (mm_bf16 0) or bf16 products: the same at every shape.
 template <typename T>
 size_t streamed_smem() {
   using namespace cips_stream;
-  constexpr int kw = cips_wgrad::kWMaxWidth;
-  size_t m = cips_wgrad::wg_smem<T>(kw, kw);
+  size_t m = Tile<T, T, false, 64, false, true>::kBytes;   // the weight grads (widest)
   m = max(m, gemm_smem_max<T, T, false, kFilm>());
   m = max(m, gemm_smem_max<T, T, true, kFilmBwd>());
   return max(m, head_smem<T>());

@@ -52,8 +52,11 @@
 // fresh partial per 8-deep k-step added in f32, bf16 products as m16n8k16
 // with f32 accumulation (kInr: a fresh partial per 16-deep k-step, since a
 // 1024-deep dot kept in the MMA's register drifts), in the same k order, so
-// every product sum is the same bits; only the kFilmBwd column sums take
-// 128-row chunks (cips_stream_tile reports the row tile to the wrappers).
+// every product sum is the same bits.  The streamed backward's FiLM sums
+// take 128-row chunks (cips_stream_tile reports the row tile to the
+// wrappers).  The weight grads (wgrad_kernel) run the same core with A =
+// X^T read from a transposed raw panel (kAT) and the points as the depth,
+// every matrix of one tile width in one launch.
 //   B = W (K x N, kTrans false) or W^T (W is N x K, kTrans true: the
 //   backward's d-input products); rows of W past `wvalid` read as zeros.
 // Every row-indexed operand is a Mat: row r of batch row z at
@@ -75,9 +78,10 @@ constexpr int kSlab = 128;             // the widest block tile (columns)
 enum Mode {
   kFilm = 0,     // h = round(sin(g (acc + b) + f)) to out (mm type), acc + b to out_a (f32)
   kLinear = 1,   // out = acc + b (f32)
-  kFilmBwd = 2,  // d arg = (acc + dsig ws) sin'(g a + f): round(d arg g) to out, FiLM sums
+  kFilmBwd = 2,  // x = acc + dsig ws to out_a (f32): the FiLM backward follows in its own launch
   kDx = 3,       // out[row, col < 3] = acc * warp_scale (f32, d pts)
   kInr = 4,      // A scaled by s[k]; out = lrelu_0.2(acc demod) (+ resid), f32; ToRGB sums
+  kFilmA = 6,    // acc + b to out_a (f32) alone: the exact sine follows in its own launch
 };
 
 struct Mat {
@@ -103,10 +107,8 @@ struct GemmArgs {
   int ldw, wvalid;
   int nrows, K, N;   // rows per batch row, depth (a multiple of 16), width (of 16)
   Mat out, out_a;    // out_a.p null: no pre-activations; kInr: out.p null writes no plane
-  Mat ares;          // kFilmBwd: the layer's pre-activations (f32)
   Mat dsig;          // kFilmBwd: d sigma (mm type, column 0), or p null
   const void* ws;    // kFilmBwd: the sigma head (N), with dsig
-  Mat part;          // kFilmBwd: f32 sums, row = chunk, [d g | d f | d b] of N each
   Vec bias, gain, shift, scale, demod;
   Mat resid;         // kInr: added after the activation (p null: none)
   const void* wr;    // kInr: ToRGB weights (N x 3, mm type), or null: no ToRGB sums
@@ -128,8 +130,9 @@ template <> struct Step<__nv_bfloat16> {   // m16n8k16
 // The shapes of one block tile: T the products' type, TA A's element type
 // (T, or float for kInr, whose A is x * s), BN the tile's columns; kPreB:
 // B comes split already (presplit_w), in a ring of three panels, and has no
-// raw stage.
-template <typename T, typename TA, bool kTrans, int BN, bool kPreB = false>
+// raw stage; kAT: A is the transpose of a matrix in device memory (the
+// weight grads' X^T), its raw panel KP rows (k) of kRows columns (m).
+template <typename T, typename TA, bool kTrans, int BN, bool kPreB = false, bool kAT = false>
 struct Tile {
   static constexpr bool kF32 = sizeof(T) == 4;
   static constexpr int KP = Step<T>::kPanel, KST = Step<T>::kStep, KS = KP / KST;
@@ -141,8 +144,9 @@ struct Tile {
   // raw row strides (elements), padded so that the split pass hits distinct banks
   static constexpr int LA = KP + (sizeof(TA) == 4 && !kF32 ? 8 : VA);
   static constexpr int LB = kTrans ? KP + VB : BN + 8;
+  static constexpr int LAT = kRows + 8;          // kAT: raw row stride, conflict-free splits
   static constexpr int BR = kTrans ? BN : KP;   // raw B rows
-  static constexpr size_t kRawA = al16(sizeof(TA) * kRows * LA);
+  static constexpr size_t kRawA = kAT ? al16(sizeof(TA) * KP * LAT) : al16(sizeof(TA) * kRows * LA);
   static constexpr size_t kRawB = kPreB ? 0 : al16(sizeof(T) * BR * LB);
   // split panels in fragment order, 16 bytes a lane: A (hi, lo) or packed
   // bf16 per m-tile and k-step; B (hi0, hi1, lo0, lo1) per n-tile and k-step,
@@ -252,6 +256,34 @@ __device__ __forceinline__ void split_a(uint4* dst, const TA* raw, int lda, cons
         a[3] = cips::pack_bf16(p3.x * s8, p3.y * s9);
       }
       dst[ms * 32 + lane] = make_uint4(a[0], a[1], a[2], a[3]);
+    }
+  }
+}
+
+// A from a transposed raw panel (kAT: A[m][k] at raw[k LAT + m]), in the
+// fragment order of split_a.
+template <class C, typename TA>
+__device__ __forceinline__ void split_at(uint4* dst, const TA* raw) {
+  constexpr int tasks = kMTiles * C::KS * 32, L = C::LAT;
+  for (int task = threadIdx.x; task < tasks; task += kThreads) {
+    const int lane = task & 31, ms = task >> 5, m = ms / C::KS, st = ms % C::KS;
+    const TA* c0 = raw + 16 * m + (lane >> 2);   // column (A row) 16 m + g; + 8: row g + 8
+    const int t = lane & 3;
+    if constexpr (C::kF32) {
+      const int k = 8 * st + t;
+      const float x[4] = {cips::to_f(c0[k * L]), cips::to_f(c0[k * L + 8]),
+                          cips::to_f(c0[(k + 4) * L]), cips::to_f(c0[(k + 4) * L + 8])};
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) cips::split_tf32(x[i], hi[i], lo[i]);
+      dst[(ms * 2 + 0) * 32 + lane] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      dst[(ms * 2 + 1) * 32 + lane] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    } else {
+      const int k = 16 * st + 2 * t;
+      dst[ms * 32 + lane] = make_uint4(cips::pack_bits(c0[k * L], c0[(k + 1) * L]),
+                                       cips::pack_bits(c0[k * L + 8], c0[(k + 1) * L + 8]),
+                                       cips::pack_bits(c0[(k + 8) * L], c0[(k + 9) * L]),
+                                       cips::pack_bits(c0[(k + 8) * L + 8], c0[(k + 9) * L + 8]));
     }
   }
 }
@@ -403,7 +435,8 @@ __device__ __forceinline__ void panel_mma(Acc<C>& acc, const uint4* As, const ui
 }
 
 // Where a block's product reads A: device memory through the raw ring
-// (`g`, row `r0` of batch row z), or a matrix already in shared memory
+// (`g`, row `r0` of batch row z; kAT: g at A's row 0, k 0 of X^T, so
+// X row k, column m at g + k ld + m), or a matrix already in shared memory
 // (`sh`, row stride `ld`; panel p at column p KP).
 template <typename TA>
 struct ASrc {
@@ -416,12 +449,14 @@ struct ASrc {
 // acc += A[tile rows, k < K] B[k < K, n0 + tile columns] over the block's
 // tile, through the ring; ends in a barrier, so the caller may reuse the
 // shared memory.  `smem`: Tile::kBytes; scale: kInr's s (k = 0 at s) or null.
-// kPreB: W is presplit_w's output (its column tile n0 / BN), not W.
-template <typename T, typename TA, bool kTrans, int BN, bool kFresh, bool kPreB = false>
-__device__ void tile_product(Acc<Tile<T, TA, kTrans, BN, kPreB>>& acc, unsigned char* smem,
+// kPreB: W is presplit_w's output (its column tile n0 / BN), not W.  kAT:
+// A is X^T (ASrc above).
+template <typename T, typename TA, bool kTrans, int BN, bool kFresh, bool kPreB = false,
+          bool kAT = false>
+__device__ void tile_product(Acc<Tile<T, TA, kTrans, BN, kPreB, kAT>>& acc, unsigned char* smem,
                              const ASrc<TA>& A, const T* W, int ldw, int wvalid, int K, int N,
                              int n0, const float* scale) {
-  using C = Tile<T, TA, kTrans, BN, kPreB>;
+  using C = Tile<T, TA, kTrans, BN, kPreB, kAT>;
   constexpr int KP = C::KP, VA = C::VA, VB = C::VB;
   const Frag<C> f;
   const int tid = threadIdx.x;
@@ -439,7 +474,14 @@ __device__ void tile_product(Acc<Tile<T, TA, kTrans, BN, kPreB>>& acc, unsigned 
 
   auto issue = [&](int p) {   // panel p into raw slot p % 2 (B split: into its slot)
     const int k0 = p * KP, slot = p & 1;
-    if (!A.sh) {
+    if constexpr (kAT) {   // KP rows k of X, the tile's kRows columns m each
+      TA* dA = rawA(slot);
+      for (int i = tid; i < KP * (kRows / VA); i += kThreads) {
+        const int kr = i / (kRows / VA), c = (i % (kRows / VA)) * VA;
+        const bool ok = k0 + kr < A.akv && c < A.nrow;
+        cp_async16(dA + kr * C::LAT + c, ok ? A.g + (long long)(k0 + kr) * A.ld + c : A.g, ok);
+      }
+    } else if (!A.sh) {
       TA* dA = rawA(slot);
       for (int i = tid; i < kRows * (KP / VA); i += kThreads) {
         const int row = i / (KP / VA), c = (i % (KP / VA)) * VA;
@@ -472,7 +514,9 @@ __device__ void tile_product(Acc<Tile<T, TA, kTrans, BN, kPreB>>& acc, unsigned 
   };
   auto split = [&](int p) {   // panel p from raw slot p % 2 into split buffer p % 2
     const int k0 = p * KP, buf = p & 1;
-    if (A.sh)
+    if constexpr (kAT)
+      split_at<C>(splitA(buf), rawA(buf));
+    else if (A.sh)
       split_a<C>(splitA(buf), A.sh + k0, A.ld, nullptr, 0);
     else
       split_a<C>(splitA(buf), rawA(buf), C::LA, scale ? scale + k0 : nullptr, K - k0);
@@ -508,21 +552,10 @@ __device__ __forceinline__ void store2(U* p, float v0, float v1) {
   }
 }
 
-__device__ __forceinline__ float col_sum16(float top, float bottom) {
-  // the 16 rows of an m-tile: rows g and g + 8 of this lane, then over g
-  float x = top + bottom;
-  x += __shfl_xor_sync(0xffffffffu, x, 4);
-  x += __shfl_xor_sync(0xffffffffu, x, 8);
-  x += __shfl_xor_sync(0xffffffffu, x, 16);
-  return x;
-}
-
 template <typename T, typename TA, bool kTrans, int BN, int kMode>
 __host__ __device__ constexpr size_t extra_smem() {
   using C = Tile<T, TA, kTrans, BN>;
-  return kMode == kFilmBwd ? sizeof(float) * C::kWM * 3 * BN
-         : kMode == kInr   ? sizeof(float) * C::kWN * kRows * 3
-                           : 0;
+  return kMode == kInr ? sizeof(float) * C::kWN * kRows * 3 : 0;
 }
 
 template <typename T, typename TA, bool kTrans, int BN, int kMode>
@@ -537,7 +570,7 @@ __device__ __forceinline__ float ldf(const U* p) {
 }
 
 // The epilogue of tile (z, row tile rt, column tile ct) on its sums; kFast:
-// the polynomial sine (kFilm, kFilmBwd).  Each thread holds two neighbouring
+// the polynomial sine (kFilm).  Each thread holds two neighbouring
 // columns of four n-tiles for all its rows: their per-column operands are
 // read once, before the rows, and each row's pair is read and written with
 // one 8- (f32) or 4-byte (bf16) access.
@@ -563,152 +596,97 @@ __device__ __forceinline__ void epilogue(const GemmArgs& a, const Acc<Tile<T, TA
         p0[j][c] = __ldg(a.bias.p + col);
         p1[j][c] = __ldg(a.gain.at(z) + col);
         p2[j][c] = __ldg(a.shift.at(z) + col);
-      } else if constexpr (kMode == kLinear) {
+      } else if constexpr (kMode == kLinear || kMode == kFilmA) {
         p0[j][c] = __ldg(a.bias.p + col);
       } else if constexpr (kMode == kFilmBwd) {
-        p0[j][c] = __ldg(a.gain.at(z) + col);
-        p1[j][c] = __ldg(a.shift.at(z) + col);
-        if (a.dsig.p) p2[j][c] = ldf(static_cast<const T*>(a.ws) + col);
+        if (a.dsig.p) p0[j][c] = ldf(static_cast<const T*>(a.ws) + col);
       } else if constexpr (kMode == kInr) {
         p0[j][c] = __ldg(a.demod.at(z) + col);
       }
     }
-  if constexpr (kMode == kFilmBwd) {
-    float ds[C::kMT][2];   // d sigma of this thread's rows
+  // kInr with ToRGB: this thread's share of round(out) . wr, a row at a time
+  constexpr bool kRgb = kMode == kInr;
+  float rgb[C::kMT][2][3];
+  if constexpr (kRgb) {
 #pragma unroll
     for (int i = 0; i < C::kMT; ++i)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = f.row(i, 2 * h);
-        ds[i][h] = a.dsig.p && row < nrow ? ldf(a.dsig.at<T>(z, r0 + row)) : 0.f;
-      }
+      for (int h = 0; h < 2; ++h) rgb[i][h][0] = rgb[i][h][1] = rgb[i][h][2] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < C::kMT; ++i)
 #pragma unroll
     for (int j = 0; j < C::kNT; ++j) {
-      if (8 * f.nt(j) >= ncol) continue;   // warp-uniform: the sums below shuffle
-      const int col = n0 + f.col(j, 0);
-      float v[3][2];
+      if (8 * f.nt(j) >= ncol) continue;
 #pragma unroll
-      for (int k = 0; k < 3; ++k) v[k][0] = v[k][1] = 0.f;
-#pragma unroll
-      for (int i = 0; i < C::kMT; ++i) {
-        float u[3][4];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = f.row(i, 2 * h);
-          const bool ok = row < nrow;
-          const float2 av = ok ? __ldg(reinterpret_cast<const float2*>(
-                                     a.ares.at<float>(z, r0 + row) + col))
-                               : make_float2(0.f, 0.f);
-          float da[2];
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            float x = acc[i][j][2 * h + c];
-            if (a.dsig.p) x += ds[i][h] * p2[j][c];
-            const float avc = c ? av.y : av.x;
-            const float darg = ok ? x * sin_grad<kFast>(p0[j][c] * avc + p1[j][c]) : 0.f;
-            da[c] = darg * p0[j][c];
-            u[0][2 * h + c] = darg * avc;
-            u[1][2 * h + c] = darg;
-            u[2][2 * h + c] = da[c];
+      for (int h = 0; h < 2; ++h) {   // rows g and g + 8: two neighbouring columns each
+        const int row = f.row(i, 2 * h), col = n0 + f.col(j, 0);
+        if (row >= nrow) continue;
+        const int r = r0 + row;
+        const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+        if constexpr (kMode == kFilm) {
+          const float a0 = v0 + p0[j][0], a1 = v1 + p0[j][1];
+          const float h0 = cips::round_mm<T>(film_sin<kFast>(p1[j][0] * a0 + p2[j][0]));
+          const float h1 = cips::round_mm<T>(film_sin<kFast>(p1[j][1] * a1 + p2[j][1]));
+          store2<T>(a.out.at<T>(z, r) + col, h0, h1);
+          if (a.out_a.p) store2<float>(a.out_a.at<float>(z, r) + col, a0, a1);
+        } else if constexpr (kMode == kLinear) {
+          store2<float>(a.out.at<float>(z, r) + col, v0 + p0[j][0], v1 + p0[j][1]);
+        } else if constexpr (kMode == kFilmA) {   // the sine follows in its own launch
+          store2<float>(a.out_a.at<float>(z, r) + col, v0 + p0[j][0], v1 + p0[j][1]);
+        } else if constexpr (kMode == kFilmBwd) {   // d h (+ d sigma ws)
+          float x0 = v0, x1 = v1;
+          if (a.dsig.p) {
+            const float ds = ldf(a.dsig.at<T>(z, r));
+            x0 += ds * p0[j][0];
+            x1 += ds * p0[j][1];
           }
-          if (ok)
-            store2<T>(a.out.at<T>(z, r0 + row) + col, cips::round_mm<T>(da[0]),
-                      cips::round_mm<T>(da[1]));
+          store2<float>(a.out_a.at<float>(z, r) + col, x0, x1);
+        } else if constexpr (kMode == kDx) {
+          float* o = a.out.at<float>(z, r);
+          if (col < 3) o[col] = v0 * a.warp_scale;
+          if (col + 1 < 3) o[col + 1] = v1 * a.warp_scale;
+        } else {   // kInr
+          const float u0 = v0 * p0[j][0], u1 = v1 * p0[j][1];
+          float o0 = u0 > 0.f ? u0 : 0.2f * u0, o1 = u1 > 0.f ? u1 : 0.2f * u1;
+          if (a.resid.p) {
+            const float2 q = *reinterpret_cast<const float2*>(a.resid.at<float>(z, r) + col);
+            o0 += q.x;
+            o1 += q.y;
+          }
+          if (a.out.p) store2<float>(a.out.at<float>(z, r) + col, o0, o1);
+          if (a.wr) {
+            const T* wr = static_cast<const T*>(a.wr) + col * 3;
+            const float x0 = cips::round_mm<T>(o0), x1 = cips::round_mm<T>(o1);
+#pragma unroll
+            for (int ch = 0; ch < 3; ++ch) {
+              rgb[i][h][ch] = fmaf(x0, ldf(wr + ch), rgb[i][h][ch]);
+              rgb[i][h][ch] = fmaf(x1, ldf(wr + 3 + ch), rgb[i][h][ch]);
+            }
+          }
         }
-#pragma unroll
-        for (int k = 0; k < 3; ++k)
-#pragma unroll
-          for (int p = 0; p < 2; ++p) v[k][p] += col_sum16(u[k][p], u[k][p + 2]);
       }
-      if (f.g == 0)
-#pragma unroll
-        for (int k = 0; k < 3; ++k)
-#pragma unroll
-          for (int p = 0; p < 2; ++p) red[(f.wm * 3 + k) * BN + f.col(j, p)] = v[k][p];
     }
-    __syncthreads();
-    float* part = a.part.at<float>(z, rt);
-    for (int i = tid; i < 3 * ncol; i += kThreads) {
-      const int k = i / ncol, c = i % ncol;
-      float s = 0.f;
-      for (int wm = 0; wm < C::kWM; ++wm) s += red[(wm * 3 + k) * BN + c];
-      part[k * a.N + n0 + c] = s;
-    }
-  } else {
-    // kInr with ToRGB: this thread's share of round(out) . wr, a row at a time
-    constexpr bool kRgb = kMode == kInr;
-    float rgb[C::kMT][2][3];
-    if constexpr (kRgb) {
+  if constexpr (kRgb) {
+    if (a.wr) {   // over the 4 lanes of a row, then the kWN warps of the tile in order
 #pragma unroll
       for (int i = 0; i < C::kMT; ++i)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) rgb[i][h][0] = rgb[i][h][1] = rgb[i][h][2] = 0.f;
-    }
+        for (int h = 0; h < 2; ++h)
 #pragma unroll
-    for (int i = 0; i < C::kMT; ++i)
-#pragma unroll
-      for (int j = 0; j < C::kNT; ++j) {
-        if (8 * f.nt(j) >= ncol) continue;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {   // rows g and g + 8: two neighbouring columns each
-          const int row = f.row(i, 2 * h), col = n0 + f.col(j, 0);
-          if (row >= nrow) continue;
-          const int r = r0 + row;
-          const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
-          if constexpr (kMode == kFilm) {
-            const float a0 = v0 + p0[j][0], a1 = v1 + p0[j][1];
-            const float h0 = cips::round_mm<T>(film_sin<kFast>(p1[j][0] * a0 + p2[j][0]));
-            const float h1 = cips::round_mm<T>(film_sin<kFast>(p1[j][1] * a1 + p2[j][1]));
-            store2<T>(a.out.at<T>(z, r) + col, h0, h1);
-            if (a.out_a.p) store2<float>(a.out_a.at<float>(z, r) + col, a0, a1);
-          } else if constexpr (kMode == kLinear) {
-            store2<float>(a.out.at<float>(z, r) + col, v0 + p0[j][0], v1 + p0[j][1]);
-          } else if constexpr (kMode == kDx) {
-            float* o = a.out.at<float>(z, r);
-            if (col < 3) o[col] = v0 * a.warp_scale;
-            if (col + 1 < 3) o[col + 1] = v1 * a.warp_scale;
-          } else {   // kInr
-            const float u0 = v0 * p0[j][0], u1 = v1 * p0[j][1];
-            float o0 = u0 > 0.f ? u0 : 0.2f * u0, o1 = u1 > 0.f ? u1 : 0.2f * u1;
-            if (a.resid.p) {
-              const float2 q = *reinterpret_cast<const float2*>(a.resid.at<float>(z, r) + col);
-              o0 += q.x;
-              o1 += q.y;
-            }
-            if (a.out.p) store2<float>(a.out.at<float>(z, r) + col, o0, o1);
-            if (a.wr) {
-              const T* wr = static_cast<const T*>(a.wr) + col * 3;
-              const float x0 = cips::round_mm<T>(o0), x1 = cips::round_mm<T>(o1);
-#pragma unroll
-              for (int ch = 0; ch < 3; ++ch) {
-                rgb[i][h][ch] = fmaf(x0, ldf(wr + ch), rgb[i][h][ch]);
-                rgb[i][h][ch] = fmaf(x1, ldf(wr + 3 + ch), rgb[i][h][ch]);
-              }
-            }
+          for (int ch = 0; ch < 3; ++ch) {
+            float v = rgb[i][h][ch];
+            v += __shfl_xor_sync(0xffffffffu, v, 1);
+            v += __shfl_xor_sync(0xffffffffu, v, 2);
+            if (f.t == 0) red[(f.wn * kRows + 16 * f.mt(i) + f.g + 8 * h) * 3 + ch] = v;
           }
-        }
-      }
-    if constexpr (kRgb) {
-      if (a.wr) {   // over the 4 lanes of a row, then the kWN warps of the tile in order
-#pragma unroll
-        for (int i = 0; i < C::kMT; ++i)
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-#pragma unroll
-            for (int ch = 0; ch < 3; ++ch) {
-              float v = rgb[i][h][ch];
-              v += __shfl_xor_sync(0xffffffffu, v, 1);
-              v += __shfl_xor_sync(0xffffffffu, v, 2);
-              if (f.t == 0) red[(f.wn * kRows + 16 * f.mt(i) + f.g + 8 * h) * 3 + ch] = v;
-            }
-        __syncthreads();
-        const int nslab = (a.N + BN - 1) / BN;
-        for (int i = tid; i < nrow * 3; i += kThreads) {
-          const int row = i / 3, ch = i % 3;
-          float s = 0.f;
-          for (int wn = 0; wn < C::kWN; ++wn) s += red[(wn * kRows + row) * 3 + ch];
-          a.rgbp[(((long long)z * a.nrows + r0 + row) * nslab + ct) * 3 + ch] = s;
-        }
+      __syncthreads();
+      const int nslab = (a.N + BN - 1) / BN;
+      for (int i = tid; i < nrow * 3; i += kThreads) {
+        const int row = i / 3, ch = i % 3;
+        float s = 0.f;
+        for (int wn = 0; wn < C::kWN; ++wn) s += red[(wn * kRows + row) * 3 + ch];
+        a.rgbp[(((long long)z * a.nrows + r0 + row) * nslab + ct) * 3 + ch] = s;
       }
     }
   }
@@ -729,12 +707,106 @@ __global__ void __launch_bounds__(kThreads, 2) gemm_kernel(GemmArgs a) {
       acc, smem, A, static_cast<const T*>(a.w), a.ldw, a.wvalid, a.K, a.N, ct * BN,
       kMode == kInr ? a.scale.at(z) : nullptr);
   float* red = reinterpret_cast<float*>(smem + C::kBytes);
-  if (kMode != kFilm && kMode != kFilmBwd)
+  if (kMode != kFilm)
     epilogue<T, TA, kTrans, BN, kMode, false>(a, acc, red, z, rt, ct);
   else if (a.fast_sin)
     epilogue<T, TA, kTrans, BN, kMode, true>(a, acc, red, z, rt, ct);
   else
     epilogue<T, TA, kTrans, BN, kMode, false>(a, acc, red, z, rt, ct);
+}
+
+// ---- the weight grads: dW = X^T dQ, the points as the depth -----------------
+
+constexpr int kMaxJobs = 12;
+
+// One matrix's product: A = X^T (X: points x ldx, A row m = X column m),
+// B = dQ (points x ldb); column c < wn of row m of a split's product lands
+// at out + (trans ? c ld + m : m ld + c), each split's row wstride floats on.
+struct WJob {
+  const void *x, *b;
+  int ldx, ldb, M, N;
+  float* out;
+  int ld, wn, trans;
+  int tile0;   // the job's first tile (grid x)
+};
+
+struct WgradArgs {
+  WJob job[kMaxJobs];
+  int njobs, split_rows;
+  long long npoints, wstride;
+};
+
+// The job of tile y (WgradArgs' tiles in job order), chosen with loads at
+// fixed offsets rather than by indexing the parameter array at run time.
+__device__ __forceinline__ WJob wgrad_job_of(const WgradArgs& w, int y) {
+  WJob jb = w.job[0];
+#pragma unroll
+  for (int q = 1; q < kMaxJobs; ++q)
+    if (q < w.njobs && y >= w.job[q].tile0) jb = w.job[q];
+  return jb;
+}
+
+// blockIdx.x read afresh: a value the compiler cannot reuse from before a loop.
+__device__ __forceinline__ int ctaid_x() {
+  int v;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(v));
+  return v;
+}
+
+// Every job's tiles (kRows x BN) over every split of split_rows points in
+// one launch: grid (tiles, splits), so that the blocks of all the matrices
+// of one width fill the card together and a split's tiles, side by side,
+// share its panels in L2.  Each
+// block: the streamed core's product with X^T as A (each staged value split
+// to hi/lo TF32 or packed once a block, in fragment order; warp tiles of
+// several m-tiles x 4 n-tiles; the raw ring issuing two panels ahead of the
+// product), 3xTF32 with a fresh partial per 8-point k-step added in f32
+// (bf16: f32 accumulation in the MMA's registers, as the row products; a
+// fresh partial there costs the 16 registers that keep the kernel from
+// spilling), the points in order; then the split's partial rows, no
+// atomics.  128-column tiles spill at two blocks a SM, so the widest is 64.
+template <typename T, int BN>
+__global__ void __launch_bounds__(kThreads, 2) wgrad_kernel(WgradArgs w) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  using C = Tile<T, T, false, BN, false, true>;
+  const int y = blockIdx.x, z = blockIdx.y;
+  const long long p0 = (long long)z * w.split_rows;
+  const int kv = (int)min((long long)w.split_rows, w.npoints - p0);
+  Acc<C> acc;
+  zero<C>(acc);
+  {
+    const WJob jb = wgrad_job_of(w, y);
+    const int t = y - jb.tile0, ntn = (jb.N + BN - 1) / BN;
+    const int r0 = (t / ntn) * kRows, n0 = (t % ntn) * BN;
+    const ASrc<T> A{static_cast<const T*>(jb.x) + p0 * jb.ldx + r0, jb.ldx, min(kRows, jb.M - r0),
+                    kv, nullptr};
+    tile_product<T, T, false, BN, false, false, true>(
+        acc, smem, A, static_cast<const T*>(jb.b) + p0 * jb.ldb, jb.ldb, kv,
+        (kv + C::KP - 1) / C::KP * C::KP, jb.N, n0, nullptr);
+  }
+  // the split's partial rows; the job's fields read again here (from a fresh
+  // blockIdx.y), so that none of them lives across the product in a register
+  const int y2 = ctaid_x();
+  const WJob jb = wgrad_job_of(w, y2);
+  const int t = y2 - jb.tile0, ntn = (jb.N + BN - 1) / BN;
+  const int r0 = (t / ntn) * kRows, n0 = (t % ntn) * BN;
+  const Frag<C> f;
+  const int nrow = min(kRows, jb.M - r0), ncol = min(BN, jb.N - n0);
+  float* o = jb.out + z * w.wstride;
+#pragma unroll
+  for (int i = 0; i < C::kMT; ++i)
+#pragma unroll
+    for (int q = 0; q < C::kNT; ++q) {
+      if (8 * f.nt(q) >= ncol) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = f.row(i, e), col = n0 + f.col(q, e);
+        if (row >= nrow) continue;
+        const int m = r0 + row;
+        if (col < jb.wn)
+          o[jb.trans ? (long long)col * jb.ld + m : (long long)m * jb.ld + col] = acc[i][q][e];
+      }
+    }
 }
 
 #define CIPS_TRY(x)                          \
@@ -801,6 +873,19 @@ constexpr size_t gemm_smem_max() {
   return gemm_smem<T, TA, kTrans, 128, kMode>() > gemm_smem<T, TA, kTrans, 64, kMode>()
              ? gemm_smem<T, TA, kTrans, 128, kMode>()
              : gemm_smem<T, TA, kTrans, 64, kMode>();
+}
+
+// The weight grads' launch of one width: grid (every job's tiles, splits).
+template <typename T, int BN>
+cudaError_t wgrad(const WgradArgs& w, int nsplit, cudaStream_t stream) {
+  constexpr size_t sm = Tile<T, T, false, BN, false, true>::kBytes;
+  cudaError_t err = prep_kernel(wgrad_kernel<T, BN>, sm);
+  if (err != cudaSuccess) return err;
+  const WJob& last = w.job[w.njobs - 1];
+  const int tiles = last.tile0 + ((last.M + kRows - 1) / kRows) * ((last.N + BN - 1) / BN);
+  if (nsplit > 65535) return cudaErrorInvalidValue;
+  wgrad_kernel<T, BN><<<dim3(tiles, nsplit), kThreads, sm, stream>>>(w);
+  return cudaGetLastError();
 }
 
 }  // namespace cips_stream

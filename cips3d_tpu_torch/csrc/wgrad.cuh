@@ -1,9 +1,18 @@
-// The weight grads of the ray-tile backward, dW = X^T dA over the points of
-// one split, shared by ray_tile_bwd.cu's weight-grad kernel (the resident
-// path) and ray_tile_streamed.cu's (the streamed path, which takes the
-// matrices past 128 in 128 x 128 tiles).  Tensor-core products over 32-point
-// stages through a cp.async double buffer; each k-step's products in a fresh
-// partial added in f32 (a deep sum in the MMA's C register would drift).
+// The weight grads of the resident ray-tile backward, dW = X^T dA over the
+// points of one split: ray_tile_bwd.cu's weight-grad kernel (the streamed
+// path has its own, stream_gemm.cuh's wgrad_kernel).  Tensor-core products
+// over 32-point stages through a cp.async double buffer; each k-step's
+// products in a fresh partial added in f32 (a deep sum in the MMA's C
+// register would drift).
+// What bounds it on an H100 (PERF.md §6, tools/stream_split.py --variants):
+// the products' issue and the splits that feed them.  Each warp owns one
+// 16-row m-tile and up to 16 n-tiles, so each A fragment feeds its n-tiles
+// but each B fragment one MMA, and every warp splits each X and dA value it
+// reads into hi/lo TF32 itself (a dA value 8 times over); the stages are 32
+// points deep in a ring of two: at the flagship (depth 2, r64, b = 4, S =
+// 12, f32) the kernel takes 1.815 ms for 21.3 GFLOP, 11.7 TFLOP/s.
+// stream_gemm.cuh's wgrad_kernel splits each staged value once a block and
+// feeds each fragment to several MMAs.
 #pragma once
 
 #include "common.cuh"

@@ -47,7 +47,7 @@ _SIGNATURES = {
     "cips_inr_tile_occupancy": [_I, _I, _P],
     # the streamed paths (shapes past the resident kernels' shared memory)
     "cips_ray_tile_forward_streamed": [_P] * 22 + [_I] * 8 + [_F] + [_I] * 4 + [_P],
-    "cips_ray_tile_backward_streamed": [_P] * 28 + [_I] * 10 + [_F] + [_I] * 4 + [_P],
+    "cips_ray_tile_backward_streamed": [_P] * 30 + [_I] * 10 + [_F] + [_I] * 4 + [_P],
     "cips_ray_tile_streamed_ray_rows": [],
     "cips_ray_tile_streamed_smem": [_I],
     "cips_inr_tile_forward_streamed": [_P] * 12 + [_I] * 6 + [_P],
@@ -61,6 +61,7 @@ _SIGNATURES_LL = {
     "cips_ray_tile_backward_smem": [_I] * 6,
     "cips_inr_tile_smem": [_I],
     "cips_inr_tile_streamed_wsplit": [_I, _I],
+    "cips_ray_tile_streamed_sums": [_I] * 5,
 }
 
 

@@ -56,8 +56,10 @@ MAX_JOBS = 8       # ... and the weight-grad kernel L + 3 products
 WIDTH_STEP = 16    # widths in multiples of 16 (one bf16 k-step): the wrappers zero-pad the rest
 BLOCK_RAYS = 16    # rays per block of the forward and of the backward's cotangent kernel
 SPLIT_ROWS = 2048  # points per block of the backward's weight-grad kernels (a multiple of 32)
+STREAM_SPLIT_ROWS = 1024   # ... of the streamed backward's (finer: every matrix in one launch)
 POINT_WIDTH = 8    # row of the backward's point scratch (3 used)
 RAY_ROWS = 14      # rows of 2S floats of device scratch a ray of the streamed path takes
+SUM_GROUPS = 4     # row groups of a batch row's FiLM and bias sums in the streamed backward
 SMEM_OPTIN = 232448   # an H100's opt-in shared memory a block (bytes); the card's own is read
 
 
@@ -459,6 +461,8 @@ class BwdPlan(NamedTuple):
     n_weight: int    # weight-grad elements (wbuf order)
     n_bias: int      # bias-grad elements (pbuf order)
     n_film: int      # FiLM-grad elements of one batch row (films order)
+    n_sums: int      # the streamed backward's group sums: b SUM_GROUPS (3 (L H + C) + R + 1) floats
+    stream_nsplit: int   # the streamed backward's weight-grad splits, STREAM_SPLIT_ROWS points each
 
 
 def bwd_plan(b: int, n: int, S: int, L: int, H: int, C: int, R: int, sms: int) -> BwdPlan:
@@ -469,7 +473,9 @@ def bwd_plan(b: int, n: int, S: int, L: int, H: int, C: int, R: int, sms: int) -
     return BwdPlan(gx=max(1, min(-(-n // BLOCK_RAYS), -(-sms // b))), rows=rows,
                    nsplit=-(-rows // SPLIT_ROWS), cot_width=L * H + C + 8 + R,
                    n_weight=3 * H + (L - 1) * H * H + H * C + C * R + H,
-                   n_bias=L * H + C + R + 1, n_film=2 * L * H + 2 * C)
+                   n_bias=L * H + C + R + 1, n_film=2 * L * H + 2 * C,
+                   n_sums=b * SUM_GROUPS * (3 * (L * H + C) + R + 1),
+                   stream_nsplit=-(-rows // STREAM_SPLIT_ROWS))
 
 
 def _round_up(x: int, multiple: int) -> int:
@@ -861,7 +867,8 @@ def ray_tile_bwd_cuda(
         res = [t.contiguous() for t in pad_residuals(residuals, w)]
     xs = torch.empty((b, 2, n, S, POINT_WIDTH), dtype=mm_dtype, device=dev)
     dq = torch.empty((b, 2, n, S, plan.cot_width), dtype=mm_dtype, device=dev)
-    part_w = torch.empty((plan.nsplit, plan.n_weight), dtype=torch.float32, device=dev)
+    part_w = torch.empty((plan.stream_nsplit if streamed else plan.nsplit, plan.n_weight),
+                         dtype=torch.float32, device=dev)
     d_pts = torch.empty((b, n, S, 3), dtype=torch.float32, device=dev)
     out_w = torch.empty((plan.n_weight + plan.n_bias,), dtype=torch.float32, device=dev)
     out_f = torch.empty((b, plan.n_film), dtype=torch.float32, device=dev)
@@ -881,11 +888,17 @@ def ray_tile_bwd_cuda(
             rows = torch.empty((b * n, RAY_ROWS, 2 * S), dtype=torch.float32, device=dev)
             fpart = torch.empty((b, 2, nchunk, 3 * (L * H + C)), dtype=torch.float32, device=dev)
             bpart = torch.empty((b, 2, nchunk, R + 1), dtype=torch.float32, device=dev)
+            if lib.cips_ray_tile_streamed_sums(b, L, H, C, R) != plan.n_sums:
+                raise RuntimeError("the kernel library's group sums are not bwd_plan's")
+            sums = torch.empty((plan.n_sums,), dtype=torch.float32, device=dev)
+            # a layer's d-input product before its FiLM backward, one layer at a time
+            xbuf = torch.empty((b, n * S, max(H, C)), dtype=torch.float32, device=dev)
             err = lib.cips_ray_tile_backward_streamed(
                 *head, xs.data_ptr(), dq.data_ptr(), sig.data_ptr(), rgb.data_ptr(),
                 rows.data_ptr(), fpart.data_ptr(), bpart.data_ptr(), part_w.data_ptr(),
-                d_pts.data_ptr(), out_w.data_ptr(), out_f.data_ptr(), b, n, S, L, H, C, R,
-                films.shape[1], plan.nsplit, SPLIT_ROWS, *tail)
+                sums.data_ptr(), xbuf.data_ptr(), d_pts.data_ptr(), out_w.data_ptr(),
+                out_f.data_ptr(), b, n, S, L, H, C, R, films.shape[1], plan.stream_nsplit,
+                STREAM_SPLIT_ROWS, *tail)
         else:
             part_b = torch.empty((b, plan.gx, plan.n_bias + plan.n_film), dtype=torch.float32,
                                  device=dev)

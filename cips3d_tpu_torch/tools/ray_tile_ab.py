@@ -14,10 +14,10 @@ path at the flagship's r128 decode (D = 512, 6 blocks); and the streamed
 path (``path="streamed"``): #2 at NeRF depth 3, r128 x 24, #2r and #3 (both
 modes) at depth 3, r64, b = 4, S = 12, #1 at D = 1024, r64; and saves every
 output.  ``--compare`` prints, per output, whether the two dumps agree bit
-for bit and the largest difference, and exits 1 if a resident call differs
-in any bit, or a streamed call's outputs part by more than the backward
-rows' normalised error, max|a - b| / (max|b| + 1), 1e-4 in f32 and 1e-2
-in bf16 (a redesigned streamed kernel may sum in another order).
+for bit and the largest difference, and exits 1 if a call differs in any
+bit, but for the streamed #3, whose outputs may part by the backward rows'
+normalised error, max|a - b| / (max|b| + 1), 1e-4 in f32 and 1e-2 in bf16
+(a redesigned streamed backward may sum in another order).
 ``--time S ..`` prints one JSON line of median CUDA-event times (ms) of
 #2 at r128, b = 1 (fast_sin, no noise: the serving frame) and of #2r and
 #3 in both modes at r64, b = 4 (density noise 0.5 as a tensor on the
@@ -184,7 +184,7 @@ def compare(a_path, b_path):
     for k in a:
         same = all(torch.equal(x, y) for x, y in zip(a[k], b[k]))
         err = max((x.float() - y.float()).abs().max().item() for x, y in zip(a[k], b[k]))
-        if "streamed" in k:   # within the backward rows' normalised error
+        if "streamed" in k and k.startswith("3 "):   # within the backward rows' normalised error
             tol = 1e-4 if "float32" in k else 1e-2
             norm = max(((x.float() - y.float()).abs().max() / (y.float().abs().max() + 1)).item()
                        for x, y in zip(a[k], b[k]))
@@ -195,7 +195,7 @@ def compare(a_path, b_path):
         else:
             print(f"  {k}: {'bit for bit' if same else 'DIFFERS'} (max abs diff {err:.3e})")
             differ += not same
-    print(f"ray_tile_ab: {len(a)} calls, {differ} differ (resident: in any bit; streamed: past "
+    print(f"ray_tile_ab: {len(a)} calls, {differ} differ (in any bit; the streamed #3: past "
           f"the tolerance)")
     return 1 if differ else 0
 

@@ -263,3 +263,23 @@ def test_deep_siren_generator_render_matches_jax():
     assert img.shape == (b, 3, size, size)
     np.testing.assert_allclose(img.numpy(), np.asarray(ref_img), **KERNEL_TOL)
     np.testing.assert_allclose(dep.numpy(), np.asarray(ref_dep), **KERNEL_TOL)
+
+
+@pytest.mark.parametrize("b,n,steps,L,H,C,R", [
+    (4, 4096, 12, 3, 128, 64, 32), (2, 130, 10, 8, 32, 32, 16), (2, 61, 12, 2, 144, 144, 16),
+    (1, 1, 3, 1, 16, 16, 16)])
+def test_streamed_bwd_plan_sums(b, n, steps, L, H, C, R):
+    """The streamed backward's group sums (`bwd_plan`'s n_sums, the scratch
+    of its final sums): SUM_GROUPS rows of FiLM and bias sums a batch row,
+    whatever the number of 128-row chunks; its weight-grad splits; the rest
+    of the plan as before."""
+    plan = ray_tile.bwd_plan(b, n, steps, L, H, C, R, 132)
+    assert ray_tile.SUM_GROUPS >= 1
+    assert plan.n_sums == b * ray_tile.SUM_GROUPS * (3 * (L * H + C) + R + 1)
+    # each FiLM layer's (g, f, b) and the colour's, the rgb and sigma biases
+    assert plan.n_sums == b * ray_tile.SUM_GROUPS * (plan.n_film + plan.n_bias)
+    assert plan.rows == b * 2 * n * steps
+    assert plan.nsplit == -(-plan.rows // ray_tile.SPLIT_ROWS)
+    # the streamed weight grads' splits cover every point once, a multiple of the bf16 panel
+    s = ray_tile.STREAM_SPLIT_ROWS
+    assert s % 32 == 0 and (plan.stream_nsplit - 1) * s < plan.rows <= plan.stream_nsplit * s

@@ -1191,6 +1191,66 @@ def test_stream_rows_are_the_library_tile(cuda_device):
         assert _grad_err(a, b) < BWD_TOL[torch.float32], f"grad {i}: {_grad_err(a, b):.3e}"
 
 
+# the streamed backward's weight grads (one launch, the points as the depth in splits of
+# STREAM_SPLIT_ROWS) and its final sums (fixed row groups of each batch row's 128-row chunks): a
+# last split and a last chunk only partly full, the most products (depth 8: w_0 .. w_7, wc
+# with ws, wr), and widths past one 128-row tile
+BWD_EDGE_SHAPES = {
+    "ragged": dict(n=130, steps=10),          # 5200 points: 6 splits; n S = 10 x 128 + 20
+    "L8": dict(layers=8, n=110, steps=10),    # 4400 points; n S = 8 x 128 + 76
+    "H144": dict(hidden=144, color=144, n=61, steps=12),   # 2928 points; n S = 5 x 128 + 92
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["recompute", "residual"])
+@pytest.mark.parametrize("mm_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", list(BWD_EDGE_SHAPES))
+def test_streamed_bwd_weight_grads_and_sums(cuda_device, shape, mm_dtype, mode):
+    """#3 on the streamed path at the edges of its weight-grad products and
+    final sums, the exact sine, against the plain backward on the residuals
+    of the streamed forward (the ones recompute mode computes again: at depth
+    8 an f32 forward parts from the plain one on a few points, which
+    test_streamed_ray_tile_past_the_caps holds to a float64 witness)."""
+    kw = dict(BWD_EDGE_SHAPES[shape])
+    n = kw.pop("n")
+    wt, args = _ray_inputs(cuda_device, n=n, **kw)
+    w = ray_tile.widths(wt)
+    rows, chunk = B * 2 * n * kw["steps"], ray_tile.stream_rows(build.library())
+    split = ray_tile.STREAM_SPLIT_ROWS
+    assert rows > split and rows % split and (n * kw["steps"]) % chunk
+    d_fea, d_dep = _cotangents(cuda_device, n, w.R)
+    res = ray_tile.ray_tile_cuda(wt, *args, 0.0, mm_dtype=mm_dtype, with_residuals=True,
+                                 path="streamed")[2]
+    ga, pa = ray_tile.ray_tile_bwd_cuda(wt, *args, 0.0, d_fea, d_dep,
+                                        residuals=res if mode == "residual" else None,
+                                        mm_dtype=mm_dtype, path="streamed")
+    gb, pb = ray_tile.ray_tile_bwd_plain(wt, *args, 0.0, d_fea, d_dep, residuals=res,
+                                         mm_dtype=mm_dtype)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(ga, gb)):
+        assert a.shape == b.shape
+        assert _grad_err(a, b) < BWD_TOL[mm_dtype], f"grad {i}: {_grad_err(a, b):.3e}"
+    assert _rays_outside(pa, pb, 1e-4 if mm_dtype == torch.float32 else 1e-2) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mm_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_streamed_bwd_edges_deterministic(cuda_device, mm_dtype):
+    """Under density noise, #3 in both modes at the ragged split and chunk
+    gives the same bits twice, with the exact and the polynomial sine."""
+    wt, args = _ray_inputs(cuda_device, n=130, steps=10)
+    d_fea, d_dep = _cotangents(cuda_device, 130, 16)
+    for fast in (False, True):
+        kw = dict(mm_dtype=mm_dtype, path="streamed", fast_sin=fast)
+        res = ray_tile.ray_tile_cuda(wt, *args, 0.4, with_residuals=True, **kw)[2]
+        for r in (None, res):
+            once = ray_tile.ray_tile_bwd_cuda(wt, *args, 0.4, d_fea, d_dep, residuals=r, **kw)
+            again = ray_tile.ray_tile_bwd_cuda(wt, *args, 0.4, d_fea, d_dep, residuals=r, **kw)
+            for a, b in zip(once[0] + [once[1]], again[0] + [again[1]]):
+                assert torch.equal(a, b)
+
+
 def test_stream_split_names_each_launch():
     """`tools/stream_split.py` names each launch of a streamed call from the
     kernels' names in launch order (a product a layer, the colour FiLM and
