@@ -1,0 +1,11 @@
+"""The whole frame's share of the card's float32 product peak: the
+products of the frames the window returned (`work.kernels.pixel_macs` a
+pixel, 2 FLOP each), over the window's seconds, over 495 TFLOP/s."""
+
+from work.peaks import F32_PRODUCT_FLOPS
+
+
+def read(ctx):
+    if not ctx.get("flops_per_unit"):
+        return None
+    return 100.0 * ctx["flops_per_unit"] * ctx["units"] / ctx["window_s"] / F32_PRODUCT_FLOPS
