@@ -229,9 +229,7 @@ Phases, each printing one line (plus detail lines):
      and #1 at D = 1024 (r64) against their plain versions (f32 at the
      kernel rows' tolerances, bf16 with the controls), twice bit for bit,
      timed beside the plain versions and beside the resident kernels at
-     the flagship shapes, which both paths take; then one call each of #2
-     and #1 split launch by launch (`tools/stream_split.py`: stage, device
-     time, FLOPs, bytes, rates, grid, registers); (b) from zeroed counts:
+     the flagship shapes, which both paths take; (b) from zeroed counts:
      `RenderService` serving the depth-3 flagship at r128 x 24 (captured
      replays against eager calls bit for bit, a frame against the CPU by
      phase 4's rule), an r32 b = 2 step at depth 3 with the exact sine
@@ -4158,11 +4156,8 @@ def streamed_phase(dev, smi, log, tmp, gen, cpu_gen, lib_path):
     phase 7's tolerances; ``eval.cli multiview --serving --num-steps 48`` (S
     = 96) on phase 9's r64 snapshot and its view against the CPU; a wide
     generator (nerf_hidden_dim 256, the colour layer as wide, inr_hidden_dim
-    1024: #2 and #1 streamed) at r64 x 12 against the CPU.  Between them,
-    `tools/stream_split.py`'s split of one call each of #2 (depth 3, r128 x
-    24) and #1 (D = 1024, r64), launch by launch: stage, device time, FLOPs,
-    bytes and rates, grid, registers, shared memory.  Returns the launches
-    of (b) and the kernel entries of the summary line."""
+    1024: #2 and #1 streamed) at r64 x 12 against the CPU.  Returns the
+    launches of (b) and the kernel entries of the summary line."""
     import numpy as np
     import torch
 
@@ -4447,19 +4442,6 @@ def streamed_phase(dev, smi, log, tmp, gen, cpu_gen, lib_path):
             f"streamed {t[1]:.3f} ms (bit for bit the same: {torch.equal(a_, b_)}) [{smi}]")
         del x, x1, a_, b_, outs, plain
     log(f"phase 20(a) done in {time.perf_counter() - t0:.1f} s")
-
-    # ---- where a streamed call's time goes, launch by launch (`tools/stream_split.py`), in a
-    # process of its own: after the profiled steps of the earlier phases a profiler session
-    # here has come back without device events (the tool retries a profile that saw none)
-    root = os.path.dirname(os.path.abspath(__file__))
-    torch.cuda.synchronize()
-    proc = subprocess.run([sys.executable, "-m", "cips3d_tpu_torch.tools.stream_split"],
-                          cwd=root, capture_output=True, text=True, timeout=600)
-    for line in proc.stdout.splitlines():
-        log(f"phase 20 split: {line}")
-    if proc.returncode != 0 or proc.stdout.count(" launches, ") != 2:
-        raise AssertionError(f"phase 20 split: exit {proc.returncode}: {proc.stderr[-2000:]}")
-    log(f"phase 20 split done in {time.perf_counter() - t0:.1f} s [{smi}]")
 
     # ---- (b) the main paths on the streamed kernels, from zeroed counts
     counts = collections.Counter()

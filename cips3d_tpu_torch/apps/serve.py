@@ -41,7 +41,7 @@ import torch
 from cips3d_tpu_torch.apps.render import compute_styles, depth_to_uint8, render_chunked
 from cips3d_tpu_torch.eval.images import to_uint8
 from cips3d_tpu_torch.models.generator import GeneratorNerfINR, RenderOptions, sample_zs
-from cips3d_tpu_torch.utils import graphs
+from cips3d_tpu_torch.utils import graphs, trace
 from cips3d_tpu_torch.utils.video import encode_jpeg
 
 _INDEX = """<!doctype html>
@@ -122,6 +122,13 @@ class RenderService:
     and size, captured by the first request of its key (under the lock) and
     replayed after; all of them share the service's memory pool
     (``programs``), since the lock serialises frames.
+
+    Counters (`utils/trace.py`): the style cache's ``hit`` and ``miss``.
+    Spans, with tracing on: a frame (``serve.request``, the root of its
+    request) holds the wait for the lock (``serve.lock_wait``), its hold
+    (``serve.locked``: the style lookup ``serve.styles`` and the program's
+    fill, replay and output copies), the copy to the host with its wait on
+    the stream (``serve.readback``) and the uint8 conversion (``serve.uint8``).
     """
 
     def __init__(self, models: Union[GeneratorNerfINR, Dict[str, GeneratorNerfINR]],
@@ -143,12 +150,16 @@ class RenderService:
     def styles(self, seed: int, psi: float, model: Optional[str] = None):
         model = model or self.default_model
         k = (model, int(seed), round(float(psi), 4))
-        if k not in self._styles_cache:
-            gen = self.models[model]
-            zs = sample_zs(1, gen.cfg, torch.Generator(gen.device).manual_seed(int(seed)),
-                           device=gen.device)
-            self._styles_cache[k] = compute_styles(gen, zs, psi=float(psi))
-        return self._styles_cache[k]
+        with trace.span("serve.styles"):
+            if k in self._styles_cache:
+                trace.count("serve.styles", "hit")
+            else:
+                trace.count("serve.styles", "miss")
+                gen = self.models[model]
+                zs = sample_zs(1, gen.cfg, torch.Generator(gen.device).manual_seed(int(seed)),
+                               device=gen.device)
+                self._styles_cache[k] = compute_styles(gen, zs, psi=float(psi))
+            return self._styles_cache[k]
 
     def render(self, seed: int = 0, yaw: float = math.pi / 2, pitch: float = math.pi / 2,
                psi: float = 0.7, model: Optional[str] = None, dispatch: str = "program"):
@@ -164,13 +175,18 @@ class RenderService:
         pos = self.radius * torch.tensor(
             [[math.sin(pitch) * math.cos(yaw), math.cos(pitch),
               math.sin(pitch) * math.sin(yaw)]])
-        with self._lock:
-            styles = self.styles(seed, psi, model)
-            # camera_lookup is a view DIRECTION: -pos looks at the scene origin
-            return render_chunked(gen, styles, self.opts,
-                                  torch.Generator(gen.device).manual_seed(int(seed)),
-                                  self.forward_points, pos, -pos, None, return_depth=True,
-                                  dispatch=dispatch, programs=self.programs)
+        with trace.span("serve.lock_wait"):
+            self._lock.acquire()
+        try:
+            with trace.span("serve.locked"):
+                styles = self.styles(seed, psi, model)
+                # camera_lookup is a view DIRECTION: -pos looks at the scene origin
+                return render_chunked(gen, styles, self.opts,
+                                      torch.Generator(gen.device).manual_seed(int(seed)),
+                                      self.forward_points, pos, -pos, None, return_depth=True,
+                                      dispatch=dispatch, programs=self.programs)
+        finally:
+            self._lock.release()
 
     def close(self) -> None:
         """Release the frames' graphs and their pool."""
@@ -181,10 +197,12 @@ class RenderService:
               psi: float = 0.7, depth: bool = False, model: Optional[str] = None,
               dispatch: str = "program") -> np.ndarray:
         """Render one (H, W, 3) uint8 frame."""
-        img, dmap = self.render(seed, yaw, pitch, psi, model, dispatch)
-        if depth:
-            return depth_to_uint8(dmap[0, 0].float().cpu().numpy(), self.opts)
-        return to_uint8(img[0].float().cpu().numpy())
+        with trace.span("serve.request", depth=bool(depth)):
+            img, dmap = self.render(seed, yaw, pitch, psi, model, dispatch)
+            with trace.span("serve.readback"):
+                host = (dmap[0, 0] if depth else img[0]).float().cpu().numpy()
+            with trace.span("serve.uint8"):
+                return depth_to_uint8(host, self.opts) if depth else to_uint8(host)
 
 
 def device_info() -> dict:

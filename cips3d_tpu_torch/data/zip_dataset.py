@@ -25,7 +25,7 @@ from typing import Iterator, List, Optional, Tuple
 import numpy as np
 
 from cips3d_tpu_torch import native
-from cips3d_tpu_torch.utils import image_io
+from cips3d_tpu_torch.utils import image_io, trace
 
 IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
 
@@ -170,7 +170,8 @@ class DataLoader:
     """Infinite shuffled batch iterator with a background producer thread
     and a pool of decode threads.  Shard ``shard_index`` of ``num_shards``
     reads indices ``i * num_shards + shard_index`` of each epoch's
-    permutation."""
+    permutation.  With tracing on (`utils/trace.py`), each wait for a batch
+    is a span (``data.wait``)."""
 
     def __init__(self, dataset: ZipImageDataset, batch_size: int, seed: int = 0,
                  shard_index: int = 0, num_shards: int = 1, num_workers: int = 4,
@@ -225,14 +226,15 @@ class DataLoader:
         return self
 
     def __next__(self) -> Tuple[np.ndarray, np.ndarray]:
-        while True:
-            try:
-                return self._queue.get(timeout=1)
-            except queue.Empty:
-                if self._error is not None:
-                    raise RuntimeError("DataLoader producer thread failed") from self._error
-                if not self._thread.is_alive() and self._queue.empty():
-                    raise RuntimeError("DataLoader producer thread exited")
+        with trace.span("data.wait"):
+            while True:
+                try:
+                    return self._queue.get(timeout=1)
+                except queue.Empty:
+                    if self._error is not None:
+                        raise RuntimeError("DataLoader producer thread failed") from self._error
+                    if not self._thread.is_alive() and self._queue.empty():
+                        raise RuntimeError("DataLoader producer thread exited")
 
     def close(self):
         self._stop.set()

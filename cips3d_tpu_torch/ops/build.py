@@ -18,6 +18,8 @@ import threading
 import time
 from pathlib import Path
 
+from cips3d_tpu_torch.utils import trace
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = [
@@ -54,6 +56,7 @@ _SIGNATURES = {
     "cips_inr_tile_streamed_smem": [_I],
     "cips_stream_tile": [_I],
     "cips_smem_optin": [_P],
+    "cips_stamp": [_P, _P],
 }
 # byte counts of the resident layouts (long long)
 _SIGNATURES_LL = {
@@ -113,6 +116,7 @@ def build() -> Path:
     for obj, _ in jobs:
         obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
+    trace.count("build", "ns", int(build_seconds * 1e9))
     # renamed into place as the library is: processes building at once each
     # leave one whole report, never an interleaving of two
     log_tmp = out.with_suffix(f".{os.getpid()}.log.tmp")
@@ -180,22 +184,22 @@ def smem_optin(dev) -> int:
 
 
 # Every kernel launch, counted by the wrapper that launches it: {(kernel, product dtype): n}
-# since the last `reset_launches`.  The kernels: #2, #2r, #3 recompute, #3 residual, #1,
-# each on its resident path, then each on its streamed path (`STREAMED`: a wrapper call
-# that runs the streamed sequence of launches counts once).
+# since the last `reset_launches` (the ``launches`` counters of `utils/trace.py`).  The
+# kernels: #2, #2r, #3 recompute, #3 residual, #1, each on its resident path, then each on
+# its streamed path (`STREAMED`: a wrapper call that runs the streamed sequence of launches
+# counts once).
 RESIDENT = ("ray_tile", "ray_tile_residuals", "ray_tile_bwd_recompute", "ray_tile_bwd_residual",
             "inr_tile")
 STREAMED = tuple(k + "_streamed" for k in RESIDENT)
 KERNELS = RESIDENT + STREAMED
-LAUNCHES = {}
+LAUNCHES = trace.counter("launches")
 
 
 def count_launch(kernel: str, mm_dtype) -> None:
     """One launch of ``kernel`` (a name of `KERNELS`) with ``mm_dtype``
     products (``"float32"`` or ``"bfloat16"``: #2, #2r and #3 take it as a
     flag, so their symbol does not tell it)."""
-    key = (kernel, str(mm_dtype).replace("torch.", ""))
-    LAUNCHES[key] = LAUNCHES.get(key, 0) + 1
+    trace.count("launches", (kernel, str(mm_dtype).replace("torch.", "")))
 
 
 def launches(kernel: str) -> int:

@@ -65,8 +65,11 @@ from typing import Any, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-#: collectives launched by this module, by kind (read by the smoke run)
-COLLECTIVES: collections.Counter = collections.Counter()
+from cips3d_tpu_torch.utils import trace
+
+#: collectives launched by this module, by kind (read by the smoke run): the
+#: ``collectives`` counters of `utils/trace.py`
+COLLECTIVES: collections.Counter = trace.counter("collectives")
 #: calls of `host_barrier` by name in this process (every rank makes the same calls)
 _BARRIER_CALLS: collections.Counter = collections.Counter()
 
@@ -171,7 +174,7 @@ def all_reduce_mean_flat(tensors: Sequence[torch.Tensor], mesh: Mesh) -> List[to
     flat float32 buffer; each result has its input's shape and dtype."""
     flat = torch.cat([t.reshape(-1).float() for t in tensors])
     dist.all_reduce(flat, group=mesh.data_group)
-    COLLECTIVES["all_reduce"] += 1
+    trace.count("collectives", "all_reduce")
     flat = flat / mesh.world
     out, off = [], 0
     for t in tensors:
@@ -190,14 +193,14 @@ class _Gather(torch.autograd.Function):
         ctx.dim, ctx.group, ctx.index, ctx.n = dim, group, index, x.shape[dim]
         parts = [torch.empty_like(x) for _ in range(count)]
         dist.all_gather(parts, x.contiguous(), group=group)
-        COLLECTIVES["all_gather"] += 1
+        trace.count("collectives", "all_gather")
         return torch.cat(parts, dim)
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(grad, group=ctx.group)
-        COLLECTIVES["all_reduce"] += 1
+        trace.count("collectives", "all_reduce")
         return grad.narrow(ctx.dim, ctx.index * ctx.n, ctx.n), None, None, None, None
 
 
@@ -253,7 +256,7 @@ def broadcast_modules(modules: Sequence[torch.nn.Module], mesh: Mesh) -> None:
         for ts in by_dtype.values():
             flat = torch.cat([t.reshape(-1) for t in ts])
             dist.broadcast(flat, 0, group=mesh.data_group)
-            COLLECTIVES["broadcast"] += 1
+            trace.count("collectives", "broadcast")
             off = 0
             for t in ts:
                 t.copy_(flat[off:off + t.numel()].reshape(t.shape))

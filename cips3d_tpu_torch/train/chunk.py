@@ -33,6 +33,13 @@ Launch counts are counted through the replays: the capture records what one
 step launches (kernels and `parallel.mesh.COLLECTIVES`) and each replay adds
 that record.  The warm-up, the capture and the counts are the shared core of
 `utils/graphs.py`, which the render side uses too.
+
+With tracing on (`utils/trace.py`) a chunk's dispatch is a span
+(``chunk.dispatch``, holding the batches' staging ``chunk.stage`` and the
+replays), and each step runs inside `trace.stamps`: on the card the step's
+phases (`train/step.py`) stamp the device's clock, a step captured so
+stamps in every replay, and the stamps come to the host with the metrics
+(`Metrics.read` records them).
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ import torch
 from torch import nn
 
 from cips3d_tpu_torch.train.state import init_opt_state
+from cips3d_tpu_torch.utils import trace
 from cips3d_tpu_torch.utils.graphs import Graph, put_back
 
 
@@ -54,15 +62,18 @@ class Metrics:
     way to the host: on CUDA a copy into pinned memory behind an event, so
     that `read` waits for these steps and nothing queued after them.
     ``ready_at`` (`time.time()`) is when they were known done: made on the
-    CPU, or the event's wait in `read` on CUDA."""
+    CPU, or the event's wait in `read` on CUDA.  ``stamps`` ([k, 2m] int64,
+    the device clock's stamps of the m ``phases`` of each step) come along
+    and are recorded by `read` (`trace.add_phases`)."""
 
-    def __init__(self, names: Sequence[str], rows: torch.Tensor):
-        self.names = list(names)
-        self._host, self._event = rows, None
+    def __init__(self, names: Sequence[str], rows: torch.Tensor,
+                 phases: Sequence[str] = (), stamps: Optional[torch.Tensor] = None):
+        self.names, self.phases = list(names), list(phases)
+        self._host, self._stamps, self._event = rows, stamps, None
         self.ready_at = time.time()
         if rows.is_cuda:
-            self._host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
-            self._host.copy_(rows, non_blocking=True)
+            self._host = _to_host(rows)
+            self._stamps = None if stamps is None else _to_host(stamps)
             self._event = torch.cuda.Event()
             self._event.record()
 
@@ -76,7 +87,16 @@ class Metrics:
         if self._event is not None:
             self._event.synchronize()
             self.ready_at, self._event = time.time(), None
+        if self._stamps is not None:
+            trace.add_phases(self.phases, self._stamps.tolist())
+            self._stamps = None
         return [dict(zip(self.names, row)) for row in self._host.tolist()]
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host
 
 
 def _row(metrics: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -147,14 +167,19 @@ class EagerChunk:
         self.device = state.step_t.device
 
     def __call__(self, reals, draws: Optional[Sequence] = None) -> Metrics:
-        rows, names = [], None
-        for j, real in enumerate(reals):
-            real = real if torch.is_tensor(real) else torch.from_numpy(np.asarray(real))
-            _, m = self.step_fn(self.state, real.to(self.device),
-                                draws=draws[j] if draws is not None else None, rng=self.rng)
-            names = names or list(m)
-            rows.append(_row(m))
-        return Metrics(names, torch.stack(rows))
+        rows, names, stamps = [], None, []
+        with trace.span("chunk.dispatch"):
+            for j, real in enumerate(reals):
+                real = real if torch.is_tensor(real) else torch.from_numpy(np.asarray(real))
+                with trace.stamps(self.device) as st:
+                    _, m = self.step_fn(self.state, real.to(self.device),
+                                        draws=draws[j] if draws is not None else None,
+                                        rng=self.rng)
+                names = names or list(m)
+                rows.append(_row(m))
+                stamps.append(st.tensor())
+            stamps = torch.stack(stamps) if stamps[0] is not None else None
+            return Metrics(names, torch.stack(rows), st.names, stamps)
 
     def close(self) -> None:
         pass
@@ -181,20 +206,26 @@ class GraphChunk:
         self.close()
         state = self.state
         host_step = state.step
-        names = []
 
         def step():
-            _, m = self.step_fn(state, self.static_real, rng=self.rng)
+            with trace.stamps(self.device) as st:
+                _, m = self.step_fn(state, self.static_real, rng=self.rng)
             names[:] = list(m)
-            return _row(m)
+            phases[:] = st.names
+            return _row(m), st.tensor()
 
+        def warm():
+            with trace.stamps(self.device):   # the warm-up's stamps are dropped
+                warm_up(self.step_fn, state, self.static_real, self.rng)
+
+        names, phases = [], []
         try:
             self.graph = Graph(step, self.device, self.label, generators=[self.rng],
-                               warm_up=lambda: warm_up(self.step_fn, state, self.static_real,
-                                                       self.rng))
+                               warm_up=warm)
         finally:
             _host_step(state, host_step)
-        self.names, self.static_out = names, self.graph.outputs
+        self.names, self.phases = names, phases
+        self.static_out = self.graph.outputs
         self.bindings = [t.data_ptr() for t in state_tensors(state)]
 
     def __call__(self, reals, draws: Optional[Sequence] = None) -> Metrics:
@@ -203,17 +234,26 @@ class GraphChunk:
         if self.graph is None or self.bindings != [t.data_ptr()
                                                    for t in state_tensors(self.state)]:
             self.capture()   # a parameter or an optimizer tensor was rebound since
-        staged = _stage(reals).pin_memory()
-        if tuple(staged.shape[1:]) != tuple(self.static_real.shape):
-            raise ValueError(f"batches of {tuple(staged.shape[1:])}, the graph takes "
-                             f"{tuple(self.static_real.shape)}")
-        k = staged.shape[0]
-        rows = torch.empty((k, len(self.names)), dtype=torch.float32, device=self.device)
-        for j in range(k):
-            self.static_real.copy_(staged[j], non_blocking=True)
-            rows[j].copy_(self.graph.replay())
-        _host_step(self.state, self.state.step + k)
-        return Metrics(self.names, rows)
+        with trace.span("chunk.dispatch"):
+            with trace.span("chunk.stage"):
+                staged = _stage(reals).pin_memory()
+            if tuple(staged.shape[1:]) != tuple(self.static_real.shape):
+                raise ValueError(f"batches of {tuple(staged.shape[1:])}, the graph takes "
+                                 f"{tuple(self.static_real.shape)}")
+            k = staged.shape[0]
+            row, stamp = self.static_out
+            rows = torch.empty((k, row.numel()), dtype=torch.float32, device=self.device)
+            stamps = None if stamp is None else torch.empty((k, stamp.numel()),
+                                                            dtype=stamp.dtype,
+                                                            device=self.device)
+            for j in range(k):
+                self.static_real.copy_(staged[j], non_blocking=True)
+                self.graph.replay()
+                rows[j].copy_(row)
+                if stamps is not None:
+                    stamps[j].copy_(stamp)
+            _host_step(self.state, self.state.step + k)
+            return Metrics(self.names, rows, self.phases, stamps)
 
     def close(self) -> None:
         """Release the graph and its memory pool."""

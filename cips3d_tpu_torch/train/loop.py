@@ -17,7 +17,7 @@ eval images and the monitors.  The flagship binds it here
     of the step on the card, K eager steps on the CPU and in a gloo group).
     JAX's rules: chunks only while the variant is the same every step
     (``d_reg_every`` 1, aux every step or never; `Pipeline.constant_schedule`)
-    and neither ``debug`` nor ``profile_steps`` is set; step 0 runs alone
+    and ``debug`` is not set; step 0 runs alone
     and a chunk never straddles an eval.  Where JAX runs the steps left
     before an eval one at a time (a scan of another length is another
     compile), the port runs them as a shorter chunk: a captured step
@@ -34,8 +34,13 @@ eval images and the monitors.  The flagship binds it here
   * a step whose gradients were not finite (the step zeroes them) dumps a
     ``D_crupted`` or ``G_crupted`` snapshot, of the state when its metrics
     are read (after its chunk, as in JAX);
-  * ``profile_steps`` traces that many steps with `torch.profiler` into
-    ``<outdir>/profile``.
+  * ``profile_steps`` traces the dispatches that hold that many steps, from
+    step 2 where the run is long enough, on the lead rank, with
+    `torch.profiler` and the program's spans on (`utils/trace.py`; every
+    rank captures its chunk again before those steps and releases it after,
+    the lead's with its phases' stamps): ``<outdir>/profile/trace.json``, and
+    ``summary.json`` with each phase's milliseconds a step, the device's
+    idle put down to the spans and the counts of the profiled steps.
 ``debug_shapes`` prints the shapes of the generator's and the
 discriminator's traced tensors (`utils/debug.py`).
 
@@ -52,7 +57,9 @@ writing snapshots, monitors and ``*_crupted`` dumps, after a barrier.  The
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import json
 import math
 import os
 import time
@@ -71,7 +78,7 @@ from cips3d_tpu_torch.parallel.mesh import Mesh, broadcast_modules, host_barrier
 from cips3d_tpu_torch.train.chunk import Metrics, make_chunk_fn
 from cips3d_tpu_torch.train.state import TrainConfig, TrainState
 from cips3d_tpu_torch.train.step import init_train_state, make_train_step
-from cips3d_tpu_torch.utils import convert, debug
+from cips3d_tpu_torch.utils import convert, debug, trace
 from cips3d_tpu_torch.utils.checkpoint import CheckpointManager
 from cips3d_tpu_torch.utils.textlogger import TextLogger
 
@@ -380,8 +387,7 @@ def run_pipeline(pipeline: Pipeline, loop_cfg: LoopConfig, resume: bool = False,
 
     aux_always = bool(train_cfg.train_aux_img and train_cfg.update_aux_every == 1)
     chunk_k = max(1, int(loop_cfg.dispatch_chunk))
-    use_chunks = (chunk_k > 1 and pipeline.constant_schedule() and not loop_cfg.debug
-                  and not loop_cfg.profile_steps)
+    use_chunks = chunk_k > 1 and pipeline.constant_schedule() and not loop_cfg.debug
     chunk = None   # the chunk of the one variant that runs: built at its first use
 
     def get_chunk_fn(real_shape):
@@ -437,7 +443,8 @@ def run_pipeline(pipeline: Pipeline, loop_cfg: LoopConfig, resume: bool = False,
 
     total = 2 if loop_cfg.debug else train_cfg.total_iters
     profile_start = start + 2 if total - start > loop_cfg.profile_steps + 2 else start
-    profiler = None
+    # every rank: inside the profiled steps, and the steps profiled; the lead's profiler
+    profiling, profiled, profiler = False, 0, None
     pending = None   # (first step, steps, Metrics) of the last dispatch, not read yet
     t_last = time.time()
     step = start
@@ -451,30 +458,38 @@ def run_pipeline(pipeline: Pipeline, loop_cfg: LoopConfig, resume: bool = False,
             # a captured step replays any number of times: the steps before an eval are
             # a shorter chunk, not eager steps (JAX's scan would compile anew for them)
             k = min(chunk_k, k_max) if use_chunks else 1
+            if not profiling and profiled < loop_cfg.profile_steps and step >= profile_start:
+                # every rank captures again here and releases after the profiled steps:
+                # a capture's warm-up is a step, with its all-reduces, which the other
+                # ranks' steps have to pair with.  The lead alone traces and profiles.
+                profiling = True
+                if lead:
+                    trace.enable()
+                if chunk is not None and chunk.captured:
+                    chunk.capture()   # again, on the lead with the phases' stamps
+                if lead:
+                    profiler = _Profile(dev)
             if use_chunks:
                 batches = [next(loader)[0] for _ in range(k)]
                 metrics = get_chunk_fn(batches[0].shape)(batches)
             else:
                 real = torch.from_numpy(next(loader)[0]).to(dev)
-                if lead and loop_cfg.profile_steps and step == profile_start:
-                    from torch.profiler import ProfilerActivity, profile
-
-                    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
-                                                     if dev.type == "cuda" else [])
-                    profiler = profile(activities=acts)
-                    profiler.__enter__()
                 aux_reg = train_cfg.train_aux_img and step % train_cfg.update_aux_every == 0
                 d_reg = step % train_cfg.d_reg_every == 0
                 state, m = get_step_fn(aux_reg, d_reg)(state, real, rng=rng)
                 metrics = Metrics.of_step(m)
-                if profiler is not None and step >= profile_start + loop_cfg.profile_steps - 1:
-                    profiler.__exit__(None, None, None)
-                    os.makedirs(os.path.join(outdir, "profile"), exist_ok=True)
-                    profiler.export_chrome_trace(os.path.join(outdir, "profile", "trace.json"))
-                    profiler = None
-                    print(f"profiler trace written to {outdir}/profile", flush=True)
             process_pending(pending)
             pending = (step, k, metrics)
+            if profiling:
+                profiled += k
+                if profiled >= loop_cfg.profile_steps:
+                    profiling = False
+                    process_pending(pending)   # the profiled steps done, their phases read
+                    pending = None
+                    if profiler is not None:
+                        profiler.write(os.path.join(outdir, "profile"))
+                        profiler = None
+                    release_chunk()   # the next chunk is captured without the stamps
             step += k
             start_state["step"] = step
             if step - k == 0 or step % loop_cfg.eval_every == 0 or loop_cfg.debug:
@@ -487,7 +502,8 @@ def run_pipeline(pipeline: Pipeline, loop_cfg: LoopConfig, resume: bool = False,
         process_pending(pending)
         pending = None
         if profiler is not None:
-            profiler.__exit__(None, None, None)
+            profiler.write(os.path.join(outdir, "profile"))
+            profiler = None
         # a last eval and checkpoint when total_iters is not a multiple of eval_every
         if total > start and total % loop_cfg.eval_every != 0 and not loop_cfg.debug:
             start_state["step"] = total
@@ -495,6 +511,8 @@ def run_pipeline(pipeline: Pipeline, loop_cfg: LoopConfig, resume: bool = False,
             _run_eval_and_checkpoint(pipeline, state, loop_cfg, dataset, ckpt_mgr, textlogger,
                                      start_state, mesh)
     finally:
+        if profiler is not None:
+            profiler.stop()
         loader.close()
         if chunk is not None:
             chunk.close()
@@ -503,6 +521,51 @@ def run_pipeline(pipeline: Pipeline, loop_cfg: LoopConfig, resume: bool = False,
     if mesh is not None:   # no rank goes on (to a next stage's finetune) before rank 0 wrote
         host_barrier("cips3d_post_loop")
     return state
+
+
+class _Profile:
+    """`torch.profiler` over the steps `run_pipeline` profiles, with the
+    program's spans on (`trace.enable` before it starts)."""
+
+    def __init__(self, dev: torch.device):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.counts = {f: collections.Counter(c) for f, c in trace.COUNTERS.items()}
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+        self.prof = profile(activities=acts)
+        self.prof.__enter__()
+
+    def stop(self) -> None:
+        self.prof.__exit__(None, None, None)
+        trace.disable()
+
+    def write(self, out: str) -> None:
+        """Stop, and write the Chrome trace and the summary into ``out``."""
+        self.stop()
+        per_step = collections.defaultdict(float)
+        steps = set()
+        records = trace.drain()
+        for r in records:
+            if r.get("step") is not None:
+                per_step[r["name"]] += (r["end"] - r["start"]) / 1e6
+                steps.add(r["step"])
+        summary = {
+            "phases_ms": {n: v / len(steps) for n, v in per_step.items()},
+            "idle_by_span": trace.profile_idle(self.prof.profiler.kineto_results.events(),
+                                               {r["name"] for r in records}),
+            "counts": {}}
+        for family, c in trace.COUNTERS.items():
+            was = self.counts.get(family, {})
+            moved = {str(k): n - was.get(k, 0) for k, n in c.items() if n != was.get(k, 0)}
+            if moved:
+                summary["counts"][family] = moved
+        os.makedirs(out, exist_ok=True)
+        self.prof.export_chrome_trace(os.path.join(out, "trace.json"))
+        with open(os.path.join(out, "summary.json"), "w") as f:
+            json.dump(summary, f, indent=1)
+        print(f"profiler trace and summary written to {out}: phases (ms a step) "
+              f"{summary['phases_ms']}; device idle by span (s) {summary['idle_by_span']}",
+              flush=True)
 
 
 def _run_eval_and_checkpoint(pipeline, state, loop_cfg, dataset, ckpt_mgr, textlogger,

@@ -18,6 +18,13 @@ draws of their own, and the fakes of the G phase with a third set, where
 the JAX step splits k_da1, k_da2 and k_da.  Under ``fused_ray: false`` the
 G phase is autograd through the unfused NeRF stage (`core/volume.py`).
 
+With tracing on (`utils/trace.py`) the step marks its phases: ``step.d_gen``
+(the D phase's generator forward without gradient), ``step.d`` (D on the
+reals with R1 and on the fakes, and its backward), ``step.g`` (the G
+phase's forward and backward) and ``step.update`` (each phase's clip and
+Adam, the EMA and the counter: two stretches a step).  The all-reduces of
+a mesh and the metrics lie outside them.
+
 The step reads its counter from the device (``state.step_t``): the density
 noise, D's fade-in and the EMA gate are computed there, as the JAX step
 traces them, and it returns its metrics as 0-d tensors on the device
@@ -60,6 +67,7 @@ from cips3d_tpu_torch.train import losses
 from cips3d_tpu_torch.train.schedules import alpha_schedule, nerf_noise_schedule
 from cips3d_tpu_torch.train.state import (TrainConfig, TrainState, advance_step, apply_grads,
                                           clip_and_guard, make_optimizers)
+from cips3d_tpu_torch.utils import trace
 
 
 class PhaseDraws(NamedTuple):
@@ -208,12 +216,18 @@ def make_train_step(generator: GeneratorNerfINR, discriminator, cfg: TrainConfig
         return torch.cat([x[lo:lo + n], x[b + lo:b + lo + n]]) if aux_reg else x[lo:lo + n]
 
     def d_microbatch(state, real, ropts, alpha, pd, rng):
-        G, D = state.generator, state.discriminator
-        zs = pd.zs if pd else sample_zs(real.shape[0], G.cfg, rng, cfg.z_dist, real.device)
-        with torch.no_grad():
-            fake, _ = G(zs, ropts, rng, return_aux_img=aux_reg,
-                        draws=pd.forward if pd else None, cfg=d_cfg, mesh=mesh)
-        fake = d_rows(fake, real.shape[0])
+        G = state.generator
+        with trace.phase("step.d_gen"):
+            zs = pd.zs if pd else sample_zs(real.shape[0], G.cfg, rng, cfg.z_dist, real.device)
+            with torch.no_grad():
+                fake, _ = G(zs, ropts, rng, return_aux_img=aux_reg,
+                            draws=pd.forward if pd else None, cfg=d_cfg, mesh=mesh)
+            fake = d_rows(fake, real.shape[0])
+        with trace.phase("step.d"):
+            return d_loss_grads(state, real, fake, alpha, pd, rng)
+
+    def d_loss_grads(state, real, fake, alpha, pd, rng):
+        D = state.discriminator
         if aux_reg:
             real = torch.cat([real, real], 0)
         da_real = diffaug_draws(D, real, pd.diffaug_real if pd else None, rng)
@@ -292,28 +306,30 @@ def make_train_step(generator: GeneratorNerfINR, discriminator, cfg: TrainConfig
             for i, real in enumerate(reals)])
         if mesh is not None:
             d_grads = all_reduce_mean_flat(d_grads, mesh)
-        d_grads, d_norm, d_finite = clip_and_guard(d_grads, cfg.grad_clip)
-        d_params = list(D.parameters())
-        apply_grads(state.d_opt, d_params, d_grads)
+        with trace.phase("step.update"):
+            d_grads, d_norm, d_finite = clip_and_guard(d_grads, cfg.grad_clip)
+            d_params = list(D.parameters())
+            apply_grads(state.d_opt, d_params, d_grads)
 
         # ---------------- G phase ----------------
-        if draws:
-            zs_parts = [pd.zs for pd in draws.g]
-        else:
-            zs = sample_zs(real_imgs.shape[0], G.cfg, rng, cfg.z_dist, real_imgs.device)
-            zs_parts = [dict(zip(zs, parts)) for parts in
-                        zip(*(v.chunk(n_split, 0) for v in zs.values()))]
-        g_grads, g_metrics = accumulate([
-            g_microbatch(state, zs_i, ropts, alpha, draws.g[i] if draws else None, rng)
-            for i, zs_i in enumerate(zs_parts)])
+        with trace.phase("step.g"):
+            if draws:
+                zs_parts = [pd.zs for pd in draws.g]
+            else:
+                zs = sample_zs(real_imgs.shape[0], G.cfg, rng, cfg.z_dist, real_imgs.device)
+                zs_parts = [dict(zip(zs, parts)) for parts in
+                            zip(*(v.chunk(n_split, 0) for v in zs.values()))]
+            g_grads, g_metrics = accumulate([
+                g_microbatch(state, zs_i, ropts, alpha, draws.g[i] if draws else None, rng)
+                for i, zs_i in enumerate(zs_parts)])
         if mesh is not None:
             g_grads = all_reduce_mean_flat(g_grads, mesh)
-        g_grads, g_norm, g_finite = clip_and_guard(g_grads, cfg.grad_clip)
-        apply_grads(state.g_opt, list(G.parameters()), g_grads)
-
-        # ---------------- EMA ----------------
-        ema_update(state.ema, G, step, cfg.ema_decay, cfg.ema_start_itr)
-        advance_step(state)
+        with trace.phase("step.update"):
+            g_grads, g_norm, g_finite = clip_and_guard(g_grads, cfg.grad_clip)
+            apply_grads(state.g_opt, list(G.parameters()), g_grads)
+            # ---------------- EMA ----------------
+            ema_update(state.ema, G, step, cfg.ema_decay, cfg.ema_start_itr)
+            advance_step(state)
 
         with torch.no_grad():
             metrics = dict(d_metrics)

@@ -21,10 +21,13 @@ generator drive a graph's: its state goes in before the replay and comes
 back out after, so the caller's generator ends where an eager call leaves
 it.
 
-Launch counts: `ops/build.py` counts a kernel where its wrapper launches it,
-in Python, which a replay does not run.  The capture records what one call
-launches (kernels and `parallel.mesh.COLLECTIVES`), does not count itself,
-and each replay adds that record.
+Counts: `ops/build.py` counts a kernel where its wrapper launches it, in
+Python, which a replay does not run.  The capture records every count of
+`utils/trace.py` that one call makes (kernel launches,
+`parallel.mesh.COLLECTIVES`), does not count itself, and each replay adds
+that record.  The warm-ups and captures are counted (``graph`` counters)
+and, with tracing on, the warm-up, the capture, each replay, a program's
+fill and its output copies are spans.
 
 A warm-up, capture or replay that fails raises, naming the call: there is
 no eager fallback on CUDA.  On the CPU nothing is captured; the callers run
@@ -37,46 +40,14 @@ import collections
 import contextlib
 import gc
 import threading
+import time
 import weakref
 from typing import Any, Callable, Dict, Hashable, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
 
-
-def _launch_counts():
-    """(kernel launches by (kernel, dtype), collectives by name) so far."""
-    from cips3d_tpu_torch.ops import build
-    from cips3d_tpu_torch.parallel.mesh import COLLECTIVES
-
-    return dict(build.LAUNCHES), collections.Counter(COLLECTIVES)
-
-
-def _set_launch_counts(counts) -> None:
-    from cips3d_tpu_torch.ops import build
-    from cips3d_tpu_torch.parallel.mesh import COLLECTIVES
-
-    build.LAUNCHES.clear()
-    build.LAUNCHES.update(counts[0])
-    COLLECTIVES.clear()
-    COLLECTIVES.update(counts[1])
-
-
-def _counts_between(before, after):
-    """What was launched between two `launch_counts`."""
-    return ({k: n - before[0].get(k, 0) for k, n in after[0].items()
-             if n != before[0].get(k, 0)}, after[1] - before[1])
-
-
-def _add_launch_counts(per_call, k: int = 1) -> None:
-    """Count ``k`` more calls that each launched ``per_call``."""
-    from cips3d_tpu_torch.ops import build
-    from cips3d_tpu_torch.parallel.mesh import COLLECTIVES
-
-    for key, n in per_call[0].items():
-        build.LAUNCHES[key] = build.LAUNCHES.get(key, 0) + n * k
-    for key, n in per_call[1].items():
-        COLLECTIVES[key] += n * k
+from cips3d_tpu_torch.utils import trace
 
 
 @contextlib.contextmanager
@@ -166,9 +137,12 @@ class Graph:
                                                 else torch.cuda.current_device()]
         side = capture_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
+        built = trace.counter("build")["ns"]
+        t0 = time.perf_counter_ns()
         try:
             # the default generator too: a call without its own draws from it
-            with torch.cuda.stream(side), put_back(state, gens + [default]):
+            with trace.span("graph.warm_up"), torch.cuda.stream(side), \
+                    put_back(state, gens + [default]):
                 (warm_up or fn)()
         except Exception as e:
             raise RuntimeError(f"warm-up of {label} before its capture failed: {e}") from e
@@ -176,20 +150,23 @@ class Graph:
         torch.cuda.synchronize(dev)
         gc.collect()
         torch.cuda.empty_cache()   # the warm-up's blocks, for the graph's pool to take
+        t1 = time.perf_counter_ns()
 
         graph = torch.cuda.CUDAGraph()
-        before = _launch_counts()
         try:
-            for g in gens:
-                graph.register_generator_state(g)
-            with torch.cuda.graph(graph, pool=pool, stream=side):
-                outputs = fn()
+            with trace.span("graph.capture"), trace.recording() as per_replay:
+                for g in gens:
+                    graph.register_generator_state(g)
+                with torch.cuda.graph(graph, pool=pool, stream=side):
+                    outputs = fn()
         except Exception as e:
             raise RuntimeError(f"CUDA-graph capture of {label} failed: {e}") from e
-        finally:
-            after = _launch_counts()
-            _set_launch_counts(before)
-        self.per_replay = _counts_between(before, after)
+        trace.count("graph", "captures")
+        # a build of the kernels that ran inside the warm-up is left out
+        built = trace.counter("build")["ns"] - built
+        trace.count("graph", "warm_up_ns", t1 - t0 - built)
+        trace.count("graph", "capture_ns", time.perf_counter_ns() - t1)
+        self.per_replay = per_replay
         self.graph, self.outputs = graph, outputs
 
     def replay(self, k: int = 1):
@@ -197,11 +174,12 @@ class Graph:
         if self.graph is None:
             raise RuntimeError(f"{self.label}: the graph was released")
         try:
-            for _ in range(k):
-                self.graph.replay()
+            with trace.span("program.replay"):
+                for _ in range(k):
+                    self.graph.replay()
         except Exception as e:
             raise RuntimeError(f"replay of {self.label} failed: {e}") from e
-        _add_launch_counts(self.per_replay, k)
+        trace.add(self.per_replay, k)
         return self.outputs
 
     def close(self) -> None:
@@ -291,8 +269,9 @@ class Program:
         if len(bufs) != len(values):
             raise ValueError(f"{self.label}: {len(values)} inputs, the program takes "
                              f"{len(bufs)}")
-        for b, v in zip(bufs, values):
-            fill(b, v)
+        with trace.span("program.fill"):
+            for b, v in zip(bufs, values):
+                fill(b, v)
 
     def run(self, k: int = 1, generator: Optional[torch.Generator] = None):
         """``k`` calls on the buffers' inputs, drawing from ``generator``
@@ -308,7 +287,10 @@ class Program:
                                    self.label, generators=[self.rng], state=self.state,
                                    pool=self.pool)
             out = self.graph.replay(k)
-            return _map(torch.clone, out) if self.copy_out else out
+            if not self.copy_out:
+                return out
+            with trace.span("program.outputs"):
+                return _map(torch.clone, out)
 
     def __call__(self, inputs, generator: Optional[torch.Generator] = None):
         """One call: `fill` then `run`."""

@@ -1249,37 +1249,3 @@ def test_streamed_bwd_edges_deterministic(cuda_device, mm_dtype):
             again = ray_tile.ray_tile_bwd_cuda(wt, *args, 0.4, d_fea, d_dep, residuals=r, **kw)
             for a, b in zip(once[0] + [once[1]], again[0] + [again[1]]):
                 assert torch.equal(a, b)
-
-
-def test_stream_split_names_each_launch():
-    """`tools/stream_split.py` names each launch of a streamed call from the
-    kernels' names in launch order (a product a layer, the colour FiLM and
-    rgb head as one launch, the ToRGB in the products' epilogues, any other
-    launch by its kernel's name), and counts each product's FLOPs from the
-    shapes."""
-    from cips3d_tpu_torch.tools import stream_split as ss
-
-    g = "void cips_stream::gemm_kernel<float, float, false, 128, 0>(cips_stream::GemmArgs)"
-    ray = ["void at::native::CatArrayBatchedCopy_vectorized<a>(b)",
-           "void (anonymous namespace)::coarse_points<float>(StreamArgs)"]
-    for p in range(2):
-        ray += [g] * 3 + ["void (anonymous namespace)::sigma_rows<float>(x)",
-                          "void (anonymous namespace)::head_kernel<float>(HeadArgs)"]
-        ray += ["void (anonymous namespace)::rays_resample<float>(a)"] if p == 0 else []
-    ray.append("void (anonymous namespace)::rays_composite(a, b)")
-    st = ss._ray_stages(ray, 1, 100, 24, 3, 128, 64, 32)[1:]
-    assert ss._ray_stages(ray, 1, 100, 24, 3, 128, 64, 32)[0] == (
-        "CatArrayBatchedCopy_vectorized", None, None)
-    assert [s[0] for s in st][:7] == [
-        "coarse_points", "pass 0 layer 0 product (K=16, N=128)",
-        "pass 0 layer 1 product (K=128, N=128)", "pass 0 layer 2 product (K=128, N=128)",
-        "pass 0 sigma_rows", "pass 0 colour FiLM + rgb head (K=128, N=64; K=64, N=32)",
-        "rays_resample"]
-    assert st[8][0].startswith("pass 1 layer 1") and st[-1][0] == "rays_composite"
-    assert st[2][1] == 2 * 2400 * 128 * 128 and st[5][1] == 2 * 2400 * (128 * 64 + 64 * 32)
-    inr = [g] * 18 + ["void (anonymous namespace)::rgb_out(a)"]
-    st = ss._inr_stages(inr, 1, 64, 32, 1024)
-    assert st[0] == ("layer 0 product (K=32, N=1024)", 2 * 64 * 32 * 1024,
-                     4 * (64 * 32 + 32 * 1024 + 64 * 1024))
-    assert st[7][0].endswith("ToRGB in the epilogue") and not st[6][0].endswith("epilogue")
-    assert st[-1] == ("rgb_out", None, None)

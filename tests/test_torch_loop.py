@@ -14,6 +14,7 @@ generator on a port snapshot at rtol 1e-4 / atol 1e-5.
 
 import glob
 import io
+import json
 import os
 import zlib
 
@@ -580,8 +581,9 @@ def test_loop_resume_nerf_ema_guard_and_sealed_outdir(tmp_path):
     """`train` on the CPU at tiny widths: a run, then a resume from its
     resume tree (step, weights and Adam moments picked up), a run with
     lr 1e8 whose non-finite steps dump ``*_crupted`` snapshots, a profiled
-    run, ``load_nerf_ema`` (G's NeRF from the EMA), and the refusal of a
-    sealed outdir."""
+    run (its chunk's dispatch and the step's phases in the trace),
+    ``load_nerf_ema`` (G's NeRF from the EMA), and the refusal of a sealed
+    outdir."""
     from cips3d_tpu_torch.data.synthetic import make_blob_dataset
     from cips3d_tpu_torch.models.generator import GeneratorConfig, RenderOptions
     from cips3d_tpu_torch.train.loop import LoopConfig, train
@@ -613,7 +615,13 @@ def test_loop_resume_nerf_ema_guard_and_sealed_outdir(tmp_path):
     run("b", 2, tcfg=dict(gen_lr=1e8, disc_lr=1e8), profile_steps=1)
     names = os.listdir(tmp_path / "b" / "ckptdir")
     assert "D_crupted" in names or "G_crupted" in names
-    assert os.path.exists(tmp_path / "b" / "profile" / "trace.json")
+    # the chunked path profiled, with the program's spans and the step's phases in the trace
+    with open(tmp_path / "b" / "profile" / "trace.json") as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert "chunk.dispatch" in names and "step.d" in names, sorted(map(str, names))[:40]
+    with open(tmp_path / "b" / "profile" / "summary.json") as f:
+        summary = json.load(f)
+    assert set(summary["phases_ms"]) == {"step.d_gen", "step.d", "step.g", "step.update"}
 
     # no steps: the finetuned G carries the EMA's NeRF, siren, NeRF mapping and aux head,
     # and its own INR (the EMA has not moved from G's start, G has)

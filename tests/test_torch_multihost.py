@@ -34,21 +34,22 @@ SERVING = dict(fast_sin=True, fused_ray=True, fused_inr=True)
 
 # ---------------------------------------------------------------- one rank's side
 
+def note(record, line):
+    with open(f"{record}.{os.environ['CIPS3D_PROCESS_ID']}", "a") as f:
+        f.write(line + "\n")
+
+
 def cli_worker(record, *argv):
     """The training CLI, with each snapshot, backup, eval shard and FID of
     this rank appended to ``record``.{rank}."""
     from cips3d_tpu_torch.train import cli, loop
     from cips3d_tpu_torch.utils.checkpoint import CheckpointManager
 
-    def note(line):
-        with open(f"{record}.{os.environ['CIPS3D_PROCESS_ID']}", "a") as f:
-            f.write(line + "\n")
-
     def wrap(owner, name, fmt):
         orig = getattr(owner, name)
 
         def wrapped(*a, **kw):
-            note(fmt(*a, **kw))
+            note(record, fmt(*a, **kw))
             return orig(*a, **kw)
 
         setattr(owner, name, wrapped)
@@ -62,6 +63,34 @@ def cli_worker(record, *argv):
     rc = cli.main(list(argv))
     assert "jax" not in sys.modules and "cips3d_tpu" not in sys.modules
     return rc
+
+
+def profile_worker(record, *argv):
+    """The training CLI with a chunk that stands in for a captured one (a
+    gloo group's is eager): where a captured chunk would capture and release
+    its graph, by step, appended to ``record``.{rank}."""
+    from cips3d_tpu_torch.train import chunk, loop
+
+    class Captured(chunk.EagerChunk):
+        captured, graph = True, None
+
+        def capture(self):
+            self.graph = True
+            note(record, f"capture at step {self.state.step}")
+
+        def close(self):
+            if self.graph:
+                note(record, f"release at step {self.state.step}")
+            self.graph = None
+
+        def __call__(self, reals, draws=None):
+            if self.graph is None:
+                self.capture()
+            return super().__call__(reals, draws)
+
+    loop.make_chunk_fn = lambda step_fn, state, real_shape, rng, mesh=None, label="": \
+        Captured(step_fn, state, rng)
+    return cli_worker(record, *argv)
 
 
 def render_worker(out):
@@ -104,7 +133,8 @@ def barrier_worker():
 
 if __name__ == "__main__":
     mode, args = sys.argv[1], sys.argv[2:]
-    sys.exit({"cli": cli_worker, "render": render_worker, "barrier": barrier_worker}[mode](*args))
+    sys.exit({"cli": cli_worker, "profile": profile_worker, "render": render_worker,
+              "barrier": barrier_worker}[mode](*args))
 
 
 # ---------------------------------------------------------------- the test side
@@ -151,6 +181,13 @@ def pairs(tmp_path_factory):
                 "--command", "train_r32", "--debug", "--device", "cpu", "--opts", *TINY_OPTS,
                 "data_path", data, "ray_shards", str(r), "outdir", d / "results"]
         started[f"cli_r{r}"] = (d, launch_pair(me, args))
+    d = base / "profile"
+    d.mkdir()
+    args = ["profile", d / "record", "--config", os.path.join(ROOT, "configs", "ffhq.yaml"),
+            "--command", "train_r32", "--device", "cpu", "--opts", *TINY_OPTS,
+            "data_path", data, "outdir", d / "results", "total_iters", "7",
+            "eval_every", "100", "dispatch_chunk", "2", "profile_steps", "2"]
+    started["profile"] = (d, launch_pair(me, args))
     started["render"] = (base, launch_pair(me, ["render", base / "render.pt"]))
     started["barrier"] = (base, launch_pair(me, ["barrier"]))
     done = {}
@@ -192,6 +229,25 @@ def test_two_ranks_run_the_training_cli(pairs, ray_shards):
     assert {"g_opt.npz", "d_opt.npz", "0Gz_ema.jpg"} <= set(
         os.listdir(run / "ckptdir" / "resume"))
     assert any(f.startswith("eval.FID") for f in os.listdir(run / "textdir"))
+
+
+def test_two_ranks_capture_and_release_together_under_profile_steps(pairs):
+    """``profile_steps`` in a group: every rank captures its chunk again
+    before the profiled steps and releases it after, at the same steps (a
+    capture's warm-up is a step, with its all-reduces, which the other
+    ranks' steps pair with); the lead alone writes the profile."""
+    d, outs = pairs("profile")
+    records = [[ln for ln in (d / f"record.{r}").read_text().split("\n")
+                if ln.startswith(("capture", "release"))] for r in range(2)]
+    assert records[0] == records[1], records
+    # step 0 alone, released for its eval; steps 1-2 a chunk; steps 3-4 profiled, captured
+    # again before them and released after
+    assert records[0][:6] == ["capture at step 0", "release at step 1", "capture at step 1",
+                              "capture at step 3", "release at step 5", "capture at step 5"], \
+        records[0]
+    assert "profiler trace and summary written" in outs[0][1]
+    assert "profiler trace" not in outs[1][1]
+    assert os.path.exists(d / "results" / "train_r32" / "profile" / "summary.json")
 
 
 def test_one_process_refuses_ray_shards(tmp_path):
